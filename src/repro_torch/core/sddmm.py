@@ -1,0 +1,53 @@
+"""Public hybrid SDDMM: values = sample(X·Yᵀ, sparsity(A)).
+
+Output follows the canonical CSR (row-major, column-sorted) non-zero
+order of the mask matrix, so GNN attention pipelines can chain
+``SDDMM → softmax-by-row → SpMM`` without reindexing. Knobs live on one
+frozen :class:`repro_torch.api.ExecSpec`; the SDDMM block threshold is
+``ExecSpec.sddmm_threshold``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.api import ExecSpec
+from repro_torch.core import preprocess
+from repro_torch.core.balance import BalanceParams
+from repro_torch.core.formats import PlanArrays, SDDMMPlan
+from repro_torch.kernels.ops import sddmm_apply
+from repro_torch.sparse.matrix import SparseCSR
+from repro_torch.tune.model import TuneConfig
+
+
+class LibraSDDMM:
+    """Preprocess-once, apply-many hybrid SDDMM operator."""
+
+    def __init__(self, a: SparseCSR, *, spec: ExecSpec | None = None,
+                 balance: BalanceParams | None = None):
+        spec = ExecSpec() if spec is None else spec
+        self.spec = spec
+        self.device = spec.torch_device()
+        self.m, self.k = a.shape
+        self.nnz = a.nnz
+        self.mode = spec.mode
+        built = preprocess.Plan.build(a, "sddmm", spec, balance=balance)
+        self.tune_config: TuneConfig = built.cfg
+        self.plan: SDDMMPlan = built.plan
+        self.arrays = PlanArrays(self.plan, self.device)
+        # CSR structure for chaining into softmax/SpMM.
+        self.indptr = np.asarray(a.indptr)
+        self.indices = np.asarray(a.indices)
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor,
+                 backend: str | None = None) -> torch.Tensor:
+        if x.shape[0] < self.m or y.shape[0] < self.k:
+            raise ValueError(f"x needs ≥ {self.m} rows and y ≥ {self.k}, "
+                             f"got {x.shape[0]} and {y.shape[0]}")
+        backend = self.spec.backend if backend is None else backend
+        arrs = self.arrays.for_backend(backend)
+        return sddmm_apply(arrs, x, y, nnz=self.nnz, backend=backend)
+
+    @property
+    def tc_ratio(self) -> float:
+        return self.plan.meta["tc_ratio"]

@@ -1,0 +1,59 @@
+"""Public hybrid SpMM: the paper's headline operator, end to end.
+
+Usage::
+
+    op = LibraSpMM(a_csr)                     # preprocess once (§4.5)
+    c = op(b)                                 # reuse every apply
+    op = LibraSpMM(a, spec=ExecSpec(mode="tcu", device="cpu"))
+
+Every knob lives on one frozen :class:`repro_torch.api.ExecSpec`. The
+single-resource ablation modes (paper §5.4.1) are exposed through the
+threshold: ``mode="tcu"`` forces every vector to the Tensor Core
+stream, ``mode="vpu"`` everything to the CUDA-core stream, and
+``mode="hybrid"`` uses the 2D-aware distribution. The chosen config is
+``op.tune_config``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.api import ExecSpec
+from repro_torch.core import preprocess
+from repro_torch.core.balance import BalanceParams
+from repro_torch.core.formats import PlanArrays, SpMMPlan
+from repro_torch.core.windows import num_windows
+from repro_torch.kernels.ops import spmm_apply
+from repro_torch.sparse.matrix import SparseCSR
+from repro_torch.tune.model import TuneConfig
+
+
+class LibraSpMM:
+    """Preprocess-once, apply-many hybrid SpMM operator."""
+
+    def __init__(self, a: SparseCSR, *, spec: ExecSpec | None = None,
+                 balance: BalanceParams | None = None):
+        spec = ExecSpec() if spec is None else spec
+        self.spec = spec
+        self.device = spec.torch_device()
+        self.m, self.k = a.shape
+        self.nwin = num_windows(a.m)
+        self.mode = spec.mode
+        built = preprocess.Plan.build(a, "spmm", spec, balance=balance)
+        self.tune_config: TuneConfig = built.cfg
+        self.plan: SpMMPlan = built.plan
+        self.arrays = PlanArrays(self.plan, self.device)
+
+    def __call__(self, b: torch.Tensor,
+                 backend: str | None = None) -> torch.Tensor:
+        if b.shape[0] != self.k:
+            raise ValueError(f"b has {b.shape[0]} rows, A has {self.k} "
+                             "columns")
+        backend = self.spec.backend if backend is None else backend
+        # Only the key set this backend's apply reads is uploaded.
+        arrs = self.arrays.for_backend(backend)
+        return spmm_apply(arrs, b, m=self.m, nwin=self.nwin, backend=backend)
+
+    @property
+    def tc_ratio(self) -> float:
+        """Fraction of non-zeros handled by the Tensor Core stream."""
+        return self.plan.meta["tc_ratio"]

@@ -1,0 +1,36 @@
+// Shared helpers for the Libra Hopper kernels: the 8-row window and the
+// TF32 Tensor Core instruction used by the two Tensor Core streams.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace libra {
+
+constexpr int kWindow = 8;          // rows per window (8x1 column vectors)
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Round an fp32 value to TF32 (round to nearest, ties away), as the
+// Tensor Core operand registers expect.
+__device__ __forceinline__ uint32_t to_tf32(float f) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(f));
+  return r;
+}
+
+// D (16x8, fp32) += A (16x8, row-major, tf32) * B (8x8, col-major, tf32).
+// Fragment layout, with g = lane / 4 and t = lane % 4:
+//   a[0] = A[g][t]    a[1] = A[g+8][t]    a[2] = A[g][t+4]  a[3] = A[g+8][t+4]
+//   b[0] = B[t][g]    b[1] = B[t+4][g]
+//   d[0] = D[g][2t]   d[1] = D[g][2t+1]   d[2] = D[g+8][2t] d[3] = D[g+8][2t+1]
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+}  // namespace libra

@@ -1,0 +1,117 @@
+"""The hybrid SpMM/SDDMM apply: both streams' kernels plus the combine.
+
+``backend="cuda"`` runs the four Hopper kernels over the §4.3 segment
+launch tables when the plan has them (the default) and over the compact
+per-block/per-tile tables otherwise (``TuneConfig(ts=0, cs=0)``).
+``backend="torch"`` runs the plain reference path over the compact
+tables. On CPU tensors the kernel wrappers run their plain twins, so
+``backend="cuda"`` is testable on the CPU too. A kernel that fails to
+build or launch raises :class:`ApplyError` (stage ``"compile"`` or
+``"execute"``).
+
+The combine stays outside the kernels, as in the reference package: one
+``index_add_`` of both streams' partials into a zeroed
+``(nwin*8, n)`` output for SpMM, or into ``(nnz+1,)`` for SDDMM (slot
+``nnz`` swallows padding). Non-atomic segments own their rows, so their
+add is a store in effect; atomic ones (decomposed windows/rows, windows
+shared by both streams) accumulate.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import WINDOW
+from repro_torch.kernels import ref
+from repro_torch.kernels._build import ApplyError
+from repro_torch.kernels.sddmm_mxu import sddmm_mxu
+from repro_torch.kernels.sddmm_vpu import sddmm_vpu
+from repro_torch.kernels.spmm_mxu import spmm_mxu
+from repro_torch.kernels.spmm_vpu import spmm_vpu
+
+__all__ = ["ApplyError", "classify_apply_error", "sddmm_apply", "spmm_apply"]
+
+
+def classify_apply_error(exc: BaseException) -> str:
+    """Map an apply-path exception to a short failure class:
+    ``compile`` | ``resource`` | ``nonfinite`` | ``runtime``."""
+    if isinstance(exc, ApplyError):
+        return exc.stage if exc.stage != "execute" else \
+            classify_apply_error(exc.cause)
+    name = type(exc).__name__.lower()
+    msg = str(exc).lower()
+    if "resource" in name or "resource_exhausted" in msg \
+            or "out of memory" in msg:
+        return "resource"
+    if "nonfinite" in name or "non-finite" in msg:
+        return "nonfinite"
+    return "runtime"
+
+
+def spmm_apply(arrs, b: torch.Tensor, *, m: int, nwin: int,
+               backend: str = "cuda") -> torch.Tensor:
+    """Hybrid SpMM: ``C[m, n] = A_sp @ B`` from a preprocessed plan."""
+    if backend == "torch":
+        return ref.spmm_hybrid_ref(arrs, b, m, nwin)
+    if backend != "cuda":
+        raise ValueError(f"unknown backend {backend!r}")
+    n0 = b.shape[1]
+    if "tc_seg_vals" in arrs:
+        # Segment-granular launch (§4.3 Ts): one segment of ≤ ts blocks
+        # of one window per thread block, each with its own output slab.
+        nseg = arrs["tc_seg_rank"].shape[0]
+        tc = spmm_mxu(arrs["tc_seg_vals"], arrs["tc_seg_cols"],
+                      arrs["tc_seg_rank"], b, n_active=nseg,
+                      unique_ranks=True)
+        tc_rows = arrs["tc_seg_row"]
+    else:
+        n_active = arrs["tc_active_row"].shape[0] // WINDOW
+        tc = spmm_mxu(arrs["tc_vals"], arrs["tc_cols"], arrs["tc_rank"], b,
+                      n_active=n_active)
+        tc_rows = arrs["tc_active_row"]
+    if "vpu_seg_vals" in arrs:
+        # §4.3 Cs: one row-segment of ≤ cs residual elements per warp.
+        partials = spmm_vpu(arrs["vpu_seg_vals"], arrs["vpu_seg_cols"], b)
+        vpu_rows = arrs["vpu_seg_row"]
+    else:
+        partials = spmm_vpu(arrs["vpu_vals"], arrs["vpu_cols"], b)
+        vpu_rows = arrs["vpu_row"]
+    # Combine: one scatter-add of both streams' partials into a zeroed C
+    # (rows ≥ m from the padded last window are sliced off).
+    rows = torch.cat([tc_rows, vpu_rows]).long()
+    data = torch.cat([tc, partials])
+    out = torch.zeros((nwin * WINDOW, n0), dtype=torch.float32,
+                      device=b.device)
+    out.index_add_(0, rows, data)
+    return out[:m, :n0]
+
+
+def sddmm_apply(arrs, x: torch.Tensor, y: torch.Tensor, *, nnz: int,
+                backend: str = "cuda") -> torch.Tensor:
+    """Hybrid SDDMM: ``values[nnz] = sample(X @ Yᵀ)`` in canonical CSR
+    order."""
+    if backend == "torch":
+        return ref.sddmm_hybrid_ref(arrs, x, y, nnz)
+    if backend != "cuda":
+        raise ValueError(f"unknown backend {backend!r}")
+    if "tc_seg_cols" in arrs:
+        # §4.3 Ts: one thread block scores a segment of ≤ ts blocks
+        # sharing a window (zero-bitmap padding samples to zero and its
+        # out_pos −1 lands in the swallow slot).
+        s_tc = sddmm_mxu(arrs["tc_seg_cols"], arrs["tc_seg_bitmap"],
+                         arrs["tc_seg_window"], x, y)
+        tc_pos = arrs["tc_seg_out_pos"]
+    else:
+        s_tc = sddmm_mxu(arrs["tc_cols"], arrs["tc_bitmap"],
+                         arrs["tc_window"], x, y)
+        tc_pos = arrs["tc_out_pos"]
+    if "vpu_seg_rows" in arrs:
+        # The Cs cap batches whole element tiles per segment.
+        el_mask = arrs["vpu_seg_mask"]
+        s_el = sddmm_vpu(arrs["vpu_seg_rows"], arrs["vpu_seg_cols"], x, y)
+        el_pos = arrs["vpu_seg_out_pos"]
+    else:
+        el_mask = arrs["vpu_mask"]
+        s_el = sddmm_vpu(arrs["vpu_rows"], arrs["vpu_cols"], x, y)
+        el_pos = arrs["vpu_out_pos"]
+    s_el = torch.where(el_mask, s_el, 0.0)
+    return ref.scatter_scores(s_tc, tc_pos, s_el, el_pos, el_mask, nnz)

@@ -1,0 +1,53 @@
+"""K4 — SDDMM CUDA-core stream (the reference's VPU stream).
+
+Stream mapping: the reference package runs this stream on the TPU's VPU
+(``src/repro/kernels/sddmm_vpu.py``); here it runs on the H100's CUDA
+cores. The CUDA kernel (``csrc/sddmm_vpu.cu``) scores each element with
+a group of lanes (float4 loads, FP32 FMA, shuffle reduction).
+
+:func:`sddmm_vpu` launches the kernel for CUDA tensors and runs
+:func:`repro_torch.kernels.ref.sddmm_pair_scores`, its plain
+fp32 twin, for CPU tensors; it never falls back from the
+card to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+
+def sddmm_vpu(rows, cols, x, y):
+    """Element scores, shape ``(ntiles, ts)`` (the caller applies the mask).
+
+    Args:
+      rows, cols: (ntiles, ts) i32 row of X / row of Y of each element.
+      x: (mrows, kf) f32; y: (kcols, kf) f32.
+    """
+    if _build.on_cpu(rows, cols, x, y):
+        return ref.sddmm_pair_scores(rows, cols, x, y)
+    dev = _build.check_operands(
+        "sddmm_vpu", ("rows", rows, torch.int32, 2),
+        ("cols", cols, torch.int32, 2), ("x", x, torch.float32, 2),
+        ("y", y, torch.float32, 2))
+    kf = x.shape[1]
+    if rows.shape != cols.shape or y.shape[1] != kf:
+        raise ValueError(
+            f"sddmm_vpu: shapes rows {tuple(rows.shape)}, cols "
+            f"{tuple(cols.shape)}, x {tuple(x.shape)}, y {tuple(y.shape)} "
+            "disagree")
+    out = torch.empty(tuple(rows.shape), dtype=torch.float32, device=dev)
+    nel = rows.numel()
+    if nel == 0:
+        return out
+    vec4 = kf % 4 == 0 and _build.aligned16(x, y)
+    with torch.cuda.device(dev):
+        err = _build.library().sddmm_vpu_launch(
+            rows.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+            out.data_ptr(), nel, kf, int(vec4), _build.stream_handle(dev))
+    _build.check(err, "sddmm_vpu")
+    sddmm_vpu.launches += 1
+    return out
+
+
+sddmm_vpu.launches = 0

@@ -1,0 +1,71 @@
+"""K1 — SpMM Tensor Core stream (the reference's MXU stream).
+
+Stream mapping: the reference package runs this stream on the TPU's MXU
+(``src/repro/kernels/spmm_mxu.py``); here it runs on the H100's Tensor
+Cores, as in the paper. The CUDA kernel (``csrc/spmm_mxu.cu``) computes
+``outᵀ = B[cols]ᵀ · valsᵀ`` with ``mma.sync`` m16n8k8 TF32, the 8-row
+window on the n=8 side (swap-and-transpose).
+
+:func:`spmm_mxu` launches the kernel for CUDA tensors and runs
+:func:`repro_torch.kernels.ref.spmm_tc_compact_ref`, its plain
+fp32 twin, for CPU tensors; it never falls back from the
+card to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import WINDOW
+from repro_torch.kernels import _build, ref
+
+
+def spmm_mxu(tc_vals, tc_cols, tc_rank, b, *, n_active: int,
+             unique_ranks: bool = False):
+    """Compacted Tensor Core partial output, shape ``(n_active * 8, n)``.
+
+    Args:
+      tc_vals: (nb, 8, bk) f32 condensed blocks (zero padded). Under the
+        segmented launch a "block" is one §4.3 segment — ``bk`` is then
+        ``ts · bk`` flattened condensed vectors of a single window.
+      tc_cols: (nb, bk) i32 source row of B for each condensed vector.
+      tc_rank: (nb,) i32 compacted output slab of each block.
+      b: (k, n) f32 dense matrix.
+      n_active: number of output slabs (output height / 8).
+      unique_ranks: every block owns its own slab (the segment table
+        guarantees it), so the kernel stores; otherwise the output is
+        zeroed and blocks sharing a slab add atomically.
+    """
+    if _build.on_cpu(tc_vals, tc_cols, tc_rank, b):
+        # The plain twin's scatter-add covers both rank layouts.
+        return ref.spmm_tc_compact_ref(tc_vals, tc_cols, tc_rank, b,
+                                       n_active)
+    dev = _build.check_operands(
+        "spmm_mxu", ("tc_vals", tc_vals, torch.float32, 3),
+        ("tc_cols", tc_cols, torch.int32, 2),
+        ("tc_rank", tc_rank, torch.int32, 1), ("b", b, torch.float32, 2))
+    nb, win, bk = tc_vals.shape
+    n = b.shape[1]
+    if win != WINDOW or tuple(tc_cols.shape) != (nb, bk) \
+            or tuple(tc_rank.shape) != (nb,):
+        raise ValueError(
+            f"spmm_mxu: shapes vals {tuple(tc_vals.shape)}, cols "
+            f"{tuple(tc_cols.shape)}, rank {tuple(tc_rank.shape)} disagree")
+    if unique_ranks and nb != n_active:
+        raise ValueError(f"spmm_mxu: unique_ranks needs nb == n_active, "
+                         f"got {nb} and {n_active}")
+    alloc = torch.empty if unique_ranks else torch.zeros
+    out = alloc((n_active * WINDOW, n), dtype=torch.float32, device=dev)
+    if nb == 0 or n == 0 or bk == 0:
+        return out.zero_()
+    vec4 = n % 4 == 0 and _build.aligned16(b, out)
+    with torch.cuda.device(dev):
+        err = _build.library().spmm_mxu_launch(
+            tc_vals.data_ptr(), tc_cols.data_ptr(), tc_rank.data_ptr(),
+            b.data_ptr(), out.data_ptr(), nb, bk, n, int(not unique_ranks),
+            int(vec4), _build.stream_handle(dev))
+    _build.check(err, "spmm_mxu")
+    spmm_mxu.launches += 1
+    return out
+
+
+spmm_mxu.launches = 0

@@ -1,0 +1,131 @@
+"""The port stands alone and never hides the device.
+
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
+  ``jax`` or the reference package ``repro`` (AST scan), and importing
+  every module of the port loads no ``jax`` and builds no kernel.
+* Entry points default to the card: without one they raise instead of
+  running on the CPU, and ``chip_smoke.py`` exits non-zero and prints
+  no result.
+* What the slice does not port raises ``NotImplementedError`` naming its
+  ROADMAP item.
+"""
+import ast
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import ExecSpec
+from repro_torch.core.sddmm import LibraSDDMM
+from repro_torch.core.spmm import LibraSpMM
+from repro_torch.models.gnn import GraphOps
+from repro_torch.sparse import mixed_csr
+from repro_torch.tune.model import TuneConfig
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_or_reference_imports(path):
+    bad = {name for name in _imported_modules(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro")}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_import_loads_no_jax_and_builds_nothing():
+    modules = sorted(
+        "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "from repro_torch.kernels import _build\n"
+        "print(json.dumps({'jax': sorted(k for k in sys.modules"
+        " if k.split('.')[0] in ('jax', 'jaxlib', 'repro')),"
+        " 'built': _build.library.cache_info().currsize}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report == {"jax": [], "built": 0}
+
+
+@pytest.mark.parametrize("entry", ["spmm", "sddmm", "graph"])
+def test_default_spec_raises_without_a_card(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = mixed_csr(24, 24, seed=1)
+    assert ExecSpec().device == "cuda" and ExecSpec().backend == "cuda"
+    cls = {"spmm": LibraSpMM, "sddmm": LibraSDDMM, "graph": GraphOps}[entry]
+    with pytest.raises(RuntimeError, match="is_available"):
+        cls(a)
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"tune": "model"}, "item 9"), ({"tune": "search"}, "item 9"),
+    ({"reorder": "on"}, "item 8"), ({"reorder": "auto"}, "item 8")])
+def test_unported_knobs_name_their_roadmap_item(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        ExecSpec(device="cpu", **kw)
+
+
+def test_spec_takes_only_off_or_a_tune_config():
+    assert ExecSpec(device="cpu").tune == "off"
+    assert ExecSpec(tune=TuneConfig(ts=0), device="cpu").tune.ts == 0
+    with pytest.raises(ValueError):
+        ExecSpec(tune="fast", device="cpu")
+    with pytest.raises(TypeError):
+        ExecSpec(interpret=True)   # the TPU knob has no counterpart
+
+
+def _run_smoke(cwd: pathlib.Path) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+        text=True, timeout=120,
+        env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+
+
+def _printed_result(stdout: str) -> bool:
+    return any(line.startswith("{") and '"ok"' in line
+               for line in stdout.splitlines())
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run_smoke(ROOT)
+    assert proc.returncode != 0
+    assert not _printed_result(proc.stdout)
+    assert "is_available" in proc.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert not _printed_result(proc.stdout)
+
+
+def test_plans_stay_host_side_until_first_use():
+    a = mixed_csr(40, 40, seed=2)
+    op = LibraSpMM(a, spec=ExecSpec(device="cpu"))
+    assert not op.arrays._dev
+    op(torch.from_numpy(np.ones((40, 3), np.float32)))
+    assert set(op.arrays._dev) == set(op.arrays.backend_keys("cuda"))

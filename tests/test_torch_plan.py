@@ -1,0 +1,100 @@
+"""The port's plans equal the reference's, array for array.
+
+Both packages build a plan from the same matrix and the same explicit
+``TuneConfig`` (the port has no model tuner yet); ``_host_arrays`` must
+agree key for key, dtype for dtype and value for value, with the §4.3
+segment tables on and with ``ts=0, cs=0``.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.api import ExecSpec as JSpec
+from repro.core import preprocess as jpre
+from repro.core.formats import PlanArrays as JPlanArrays
+from repro.core.formats import _host_arrays as j_host_arrays
+from repro.sparse.generate import suitesparse_like_corpus
+from repro.tune.model import TuneConfig as JTune
+from repro_torch.api import ExecSpec
+from repro_torch.core import preprocess as tpre
+from repro_torch.core.formats import PlanArrays, _host_arrays
+from repro_torch.tune.model import TuneConfig
+
+CORPUS = suitesparse_like_corpus(12)
+CONFIGS = {"segments": {}, "unsegmented": {"ts": 0, "cs": 0}}
+
+
+def _plans(a, op, cfg, **spec):
+    ref = jpre.Plan.build(a, op, JSpec(tune=JTune(**cfg), **spec))
+    port = tpre.Plan.build(a, op, ExecSpec(tune=TuneConfig(**cfg),
+                                           device="cpu", **spec))
+    return ref, port
+
+
+def _assert_host_equal(ref_plan, port_plan):
+    ref, port = j_host_arrays(ref_plan), _host_arrays(port_plan)
+    assert list(ref) == list(port)
+    for key in ref:
+        assert ref[key].dtype == port[key].dtype, key
+        np.testing.assert_array_equal(ref[key], port[key], err_msg=key)
+
+
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("op", ["spmm", "sddmm"])
+@pytest.mark.parametrize("name", list(CORPUS))
+def test_host_arrays_match_reference(name, op, cfg):
+    ref, port = _plans(CORPUS[name], op, CONFIGS[cfg])
+    assert ref.cfg.threshold == port.cfg.threshold
+    assert port.plan.threshold == ref.plan.threshold
+    for key in ("tc_nnz", "vpu_nnz", "seg_spt"):
+        assert port.plan.meta[key] == ref.plan.meta[key], key
+    _assert_host_equal(ref.plan, port.plan)
+
+
+@pytest.mark.parametrize("mode", ["tcu", "vpu"])
+@pytest.mark.parametrize("op", ["spmm", "sddmm"])
+def test_forced_modes_match_reference(op, mode):
+    a = CORPUS["mixed_3"]
+    ref, port = _plans(a, op, {}, mode=mode)
+    _assert_host_equal(ref.plan, port.plan)
+
+
+def test_tune_off_and_explicit_knobs_match_reference():
+    a = CORPUS["powerlaw_1"]
+    ref = jpre.Plan.build(a, "spmm", JSpec(tune="off", threshold=2, bk=16,
+                                           ts_tile=8))
+    port = tpre.Plan.build(a, "spmm", ExecSpec(threshold=2, bk=16,
+                                               ts_tile=8, device="cpu"))
+    assert dataclasses.asdict(port.cfg) == dataclasses.asdict(ref.cfg)
+    _assert_host_equal(ref.plan, port.plan)
+
+
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("op", ["spmm", "sddmm"])
+def test_backend_key_sets_mirror_reference(op, cfg):
+    ref, port = _plans(CORPUS["mixed_7"], op, CONFIGS[cfg])
+    jpa, tpa = JPlanArrays(ref.plan), PlanArrays(port.plan, "cpu")
+    for jb, tb in (("xla", "torch"), ("pallas", "cuda")):
+        for revalue in (False, True):
+            assert (jpa.backend_keys(jb, revalue=revalue)
+                    == tpa.backend_keys(tb, revalue=revalue))
+    if cfg == "unsegmented":
+        # Without segment tables the kernel path reads the compact view.
+        assert (tpa.backend_keys("cuda")
+                == tpa.backend_keys("torch"))
+
+
+def test_upload_is_lazy_and_bitmaps_become_int32():
+    _, port = _plans(CORPUS["banded_2"], "sddmm", {})
+    pa = PlanArrays(port.plan, "cpu")
+    assert not pa._dev
+    arrs = pa.for_backend("cuda")
+    assert set(pa._dev) == set(arrs)
+    assert arrs["tc_seg_bitmap"].dtype == torch.int32
+    assert pa.host["tc_seg_bitmap"].dtype == np.uint32
+    np.testing.assert_array_equal(arrs["tc_seg_bitmap"].numpy(),
+                                  pa.host["tc_seg_bitmap"].astype(np.int32))
+    assert arrs["vpu_seg_mask"].dtype == torch.bool
+    assert pa.for_backend("cuda") is arrs
