@@ -8,11 +8,14 @@ Run from the repository root with no arguments::
 Phases:
 
 0. Device and build: print the card's name and power limit, build the
-   four Hopper kernels from ``src/repro_torch/kernels/csrc`` and print the
+   five Hopper kernels from ``src/repro_torch/kernels/csrc`` and print the
    build time. Exits non-zero when there is no CUDA device.
-1. Each kernel against its plain PyTorch twin on the card, on the plan
-   tables of the matrices below: exactly on integer-valued data in
-   [-4, 4], within the stated tolerance on random fp32 data.
+1. Each kernel against its plain PyTorch twin on the card. K1–K4 on the
+   plan tables of the matrices below: exactly on integer-valued data in
+   [-4, 4], within the stated tolerance on random fp32 data. K5 (flash
+   attention) on random bf16/fp16 data at gemma2-9b's global and local
+   layer shapes (8192 tokens, 16/8 heads, head dim 256, softcap 50), a
+   ragged length, D=128 GQA 32/8, MQA 48/1, fp16 and a query offset.
 2. Operators at full size on ``mixed_csr(16384, 16384, seed=3)``:
    ``LibraSpMM`` at n=256 and ``LibraSDDMM`` at kf=128, with the configs
    that put about 90% (SpMM) and all (SDDMM) non-zeros on Tensor Cores.
@@ -22,10 +25,21 @@ Phases:
    requests each, plus ``LibraSDDMM`` with a config that puts 97.8% of the
    edges on Tensor Cores.
 
-Phases 2 and 3 are the main path: every kernel's launch counter is set
-to 0 just before them and read just after, and each kernel must have
-launched. Outputs are checked against the port's plain ``backend="torch"``
-path on the card. Then each kernel is timed (CUDA events, median of 20
+4. The dense transformer's path, gemma2-9b at full width: (b) two layers
+   (one local, one global) on 8192 tokens, logits through K5 against the
+   same model through K5's plain twin; then all 42 layers with float32
+   weights drawn on the card from a seeded generator: (a) three scoring
+   requests, ``forward_logits`` on 1 × 8192 tokens each, and (c)
+   ``generate(batch=4, prompt_len=16, gen=16)``; (d) the decode-step
+   logits at the last prompt position against ``forward_logits`` on the
+   same prompt; one more request under ``torch.profiler``.
+
+Phases 2 and 3 are the GNN main path and phase 4's (a) and (c) the dense
+main path: every kernel's launch counter is set to 0 just before each
+path and read just after it. Each of K1–K4 must have launched on the
+GNN path, and K5 exactly 42 times (once per layer) per scoring request
+on the dense path. GNN outputs are checked against the port's plain
+``backend="torch"`` path on the card. Then each kernel is timed (CUDA events, median of 20
 launches) beside its plain twin, one PyTorch library call computing the
 same stream's function, and its bound (compulsory bytes over 3.35 TB/s
 or operations over the data-sheet peak, whichever is larger). Last, one
@@ -38,7 +52,8 @@ The second-to-last line is ``{"kernels": [...]}``; the last line is
 fp32 matrix products in the plain versions run in full fp32: this script
 sets ``torch.backends.cuda.matmul.allow_tf32 = False`` and
 ``torch.backends.cudnn.allow_tf32 = False``. Only the two Tensor Core
-kernels use TF32, by design.
+SpMM/SDDMM kernels use TF32, by design; K5 and the dense model compute
+in bf16 with fp32 accumulation.
 """
 from __future__ import annotations
 
@@ -55,7 +70,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, TF32 Tensor Core,
 # FP32 CUDA core.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"tf32": 495e12, "fp32": 67e12}
+PEAK_OPS = {"tf32": 495e12, "fp32": 67e12, "bf16": 989e12}
 
 # Tolerances, each with its reason:
 # - integer-valued data in [-4, 4]: every kernel equals its twin exactly
@@ -65,16 +80,35 @@ PEAK_OPS = {"tf32": 495e12, "fp32": 67e12}
 #   atol 1e-5·max|ref|, for fp32 sums taken in another order;
 # - Tensor Core kernels (TF32, 10 mantissa bits) on random data and any
 #   output a TF32 stream feeds: max|Δ| ≤ 2e-2·max|ref|;
-# - outputs fed by fp32 streams only: max|Δ| ≤ 1e-4·max|ref|.
+# - outputs fed by fp32 streams only: max|Δ| ≤ 1e-4·max|ref|;
+# - K5 against its twin, and logits through K5 against logits through the
+#   twin: max|Δ| ≤ 2e-2·max|ref| (the repo's low-precision tolerance,
+#   tests/test_flash_attention.py), and on every row (the last axis: one
+#   query head's output, one token's logits) ‖Δ‖₂ ≤ 2e-2·‖ref‖₂. Both
+#   round the same values at the same points and differ in the order of
+#   fp32 sums, which moves a bf16/fp16 value by at most an ulp (≤ 2^-7
+#   relative) here and there. The per-row test scales with the values
+#   compared: late causal rows average thousands of keys and are far
+#   smaller than max|ref| (row 0 is v[0] itself), so the max test alone
+#   would pass a kernel wrong on most rows;
+# - decode-step logits against forward logits, 42 bf16 layers:
+#   max|Δ| ≤ 5e-2·max|ref|. The two paths round at different points on
+#   every sublayer (K5 rounds p to bf16 per 64-key tile, the decode
+#   softmax keeps fp32 p over an fp32 cache; the projections run as
+#   (8192, d) against (4, d) products), and those bf16-sized differences
+#   add up over 84 residual sublayers.
 FP32_RTOL = 1e-5
 TF32_REL = 2e-2
 FP32_PATH_REL = 1e-4
+BF16_REL = 2e-2
+DECODE_REL = 5e-2
 
 KERNEL_INFO = {
     "spmm_mxu": ("src/repro/kernels/spmm_mxu.py:121", "tf32"),
     "spmm_vpu": ("src/repro/kernels/spmm_vpu.py:73", "fp32"),
     "sddmm_mxu": ("src/repro/kernels/sddmm_mxu.py:88", "tf32"),
     "sddmm_vpu": ("src/repro/kernels/sddmm_vpu.py:60", "fp32"),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:78", "bf16"),
 }
 
 
@@ -100,7 +134,11 @@ def main() -> int:
     from repro_torch.api import ExecSpec
     from repro_torch.core.sddmm import LibraSDDMM
     from repro_torch.core.spmm import LibraSpMM
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import api as model_api
     from repro_torch.models.gnn import AGNN, GCN, GraphOps, gcn_norm_edges
     from repro_torch.sparse import mixed_csr, power_law_csr
     from repro_torch.tune.model import TuneConfig
@@ -176,6 +214,7 @@ def main() -> int:
             fail(f"{label}: shape {tuple(out.shape)} != {tuple(want.shape)}")
         if not bool(torch.isfinite(out).all()):
             fail(f"{label}: non-finite output")
+        out, want = out.float(), want.float()
         err = (out - want).abs().max().item() if out.numel() else 0.0
         scale = want.abs().max().item() if want.numel() else 0.0
         if kind == "exact":
@@ -184,8 +223,18 @@ def main() -> int:
             ok = bool(torch.allclose(out, want, rtol=FP32_RTOL,
                                      atol=FP32_RTOL * scale))
             tol = f"rtol={FP32_RTOL:g} atol={FP32_RTOL:g}*max|ref|"
+        elif kind == "bf16":
+            d_row = torch.linalg.vector_norm(out - want, dim=-1)
+            r_row = torch.linalg.vector_norm(want, dim=-1)
+            worst = ((d_row / r_row.clamp_min(1e-30)).max().item()
+                     if d_row.numel() else 0.0)
+            ok = (err <= BF16_REL * scale
+                  and bool((d_row <= BF16_REL * r_row).all()))
+            tol = (f"{BF16_REL:g}*max|ref| and per row ||d||2<={BF16_REL:g}"
+                   f"*||ref||2 (worst row {worst:.3e})")
         else:
-            rel = {"tf32": TF32_REL, "fp32_path": FP32_PATH_REL}[kind]
+            rel = {"tf32": TF32_REL, "fp32_path": FP32_PATH_REL,
+                   "decode": DECODE_REL}[kind]
             ok, tol = err <= rel * scale, f"{rel:g}*max|ref|"
         log(f"  {label}: max|err|={err:.3e} max|ref|={scale:.3e} "
             f"tol={tol} {'ok' if ok else 'MISMATCH'}")
@@ -286,6 +335,41 @@ def main() -> int:
                 f"sddmm_vpu {label} {data}", kernels.sddmm_vpu(rows, cols, x, y),
                 ref.sddmm_pair_scores(rows, cols, x, y), kind or "fp32")
 
+    # K5 at every shape the dense path gives it, and the other dense
+    # models' widths. Inputs are random normal values rounded to the type.
+    def qkv(seed, b, sq, sk, h, kv, d, dtype):
+        g = torch.Generator(dev).manual_seed(seed)
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, sq, h, d), (b, sk, kv, d),
+                                   (b, sk, kv, d)))
+
+    flash_cases = {  # label → (b, sq, sk, h, kv, d, dtype, kernel kwargs)
+        "gemma2 global S=8192": (1, 8192, 8192, 16, 8, 256, torch.bfloat16,
+                                 dict(causal=True, softcap=50.0)),
+        "gemma2 local S=8192 window 4096": (
+            1, 8192, 8192, 16, 8, 256, torch.bfloat16,
+            dict(causal=True, window=4096, softcap=50.0)),
+        "gemma2 ragged S=1000": (1, 1000, 1000, 16, 8, 256, torch.bfloat16,
+                                 dict(causal=True, softcap=50.0)),
+        "GQA 32/8 D=128 S=4096": (1, 4096, 4096, 32, 8, 128, torch.bfloat16,
+                                  dict(causal=True)),
+        "MQA 48/1 D=128 S=2048": (1, 2048, 2048, 48, 1, 128, torch.bfloat16,
+                                  dict(causal=True)),
+        "gemma2 fp16 S=2048": (1, 2048, 2048, 16, 8, 256, torch.float16,
+                               dict(causal=True, softcap=50.0)),
+        "q_offset 3072, Sq=1024 Sk=4096 window 2048": (
+            2, 1024, 4096, 16, 8, 256, torch.bfloat16,
+            dict(causal=True, window=2048, softcap=50.0, q_offset=3072)),
+    }
+    for i, (label, (b, sq, sk, h, kv, d, dtype, kw)) in enumerate(
+            flash_cases.items()):
+        q, k, v = qkv(50 + i, b, sq, sk, h, kv, d, dtype)
+        twin_err[("flash_attention", label)] = compare(
+            f"flash_attention {label} {str(dtype)[6:]}",
+            kernels.flash_attention_fused(q, k, v, **kw),
+            flash_attention_ref(q, k, v, **kw), "bf16")
+    del q, k, v
+
     # ------------------------------------------------ phases 2-3: main path
     def tol_kind(*plans):
         return "tf32" if any(p.meta["tc_nnz"] for p in plans) else "fp32_path"
@@ -329,9 +413,10 @@ def main() -> int:
     log(f"phases 2-3 (main path) launches: {main_counts}")
     for label, c in counts_by_step.items():
         log(f"  {label}: {c}")
-    missing = [k for k, v in main_counts.items() if v <= 0]
+    missing = [k for k, v in main_counts.items()
+               if v <= 0 and k != "flash_attention"]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on the GNN path: {missing}")
     for name, ms in latency.items():
         log(f"phase 3: {name} [128, 256, 256, 40] per-request latency ms: "
             + ", ".join(f"{v:.2f}" for v in ms))
@@ -364,6 +449,10 @@ def main() -> int:
                 results["LibraSDDMM graph kf=128"],
                 sddmm_graph(x_graph, x_graph, backend="torch"),
                 tol_kind(sddmm_graph.plan))
+
+    # ------------------------------------------------ phase 4: dense path
+    dense_counts = dense_phase(torch, np, dev, log, fail, compare, kernels,
+                               model_api, get_config, generate)
 
     # ------------------------------------------------ timing and bounds
     def median_ms(fn, reps=20):
@@ -412,7 +501,9 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "launches": main_counts[name],
+            "replaces": replaces,
+            "launches": (dense_counts if name == "flash_attention"
+                         else main_counts)[name],
             "max_abs_err": twin_err[(name, label)], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms})
@@ -476,57 +567,40 @@ def main() -> int:
                median_ms(lambda: twin(*args), reps=3), library_ms,
                nbytes(*args[:-1], out), 2 * useful * x_graph.shape[1])
 
+    # K5 at gemma2-9b's global layer (the costliest attention call of a
+    # scoring request). The library yardstick is one SDPA call; SDPA has
+    # no softcap, so K5 is also timed with softcap 0, the same function.
+    shape = (1, 8192, 8192, 16, 8, 256)
+    q, k, v = qkv(70, *shape, torch.bfloat16)
+    kw = dict(causal=True, softcap=50.0)
+    k5_out = kernels.flash_attention_fused(q, k, v, **kw)
+    k5_ms = median_ms(lambda: kernels.flash_attention_fused(q, k, v, **kw))
+    k5_nocap_ms = median_ms(lambda: kernels.flash_attention_fused(
+        q, k, v, causal=True))
+    plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # The yardstick only: the port never calls it.
+    library_ms = median_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    b, sq, sk, h, kv, d = shape
+    qpos = np.arange(sq)
+    pairs = int(np.minimum(qpos + 1, sk).sum()) * b * h   # causal, no window
+    log(f"  flash_attention: softcap 0 (SDPA's function) {k5_nocap_ms:.4f} "
+        f"ms; {pairs / (b * h) / 1e6:.2f} M (q, k) pairs per head")
+    record("flash_attention", "gemma2 global S=8192", k5_ms, plain_ms,
+           library_ms, nbytes(q, k, v, k5_out), 4 * d * pairs)
+    del q, k, v, qt, kt, vt, k5_out
+
     # ------------------------------------------------ profile: one request
     # Device time by kernel for one steady request of each model. This is
     # a measurement, not a check: a profiler that records no device time
     # is reported as such.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     log("profile: one steady request per model (torch.profiler, device "
         "time by kernel)")
     for name, run in (("GCN", lambda: gcn(gops, requests[0], norm)),
                       ("AGNN", lambda: agnn(gops, requests[0]))):
-        with torch.no_grad(), profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        # Device-side events only (kernels, memcpy, memset): a CPU op's
-        # device time repeats that of the kernels it launched.
-        rows = sorted(((getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0)) / 1e3,
-                        e.count, e.key) for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA), reverse=True)
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        if not rows or not spans:
-            log(f"  {name}: wall {wall_ms:.3f} ms (profiled); the profiler "
-                "recorded no device time")
-            continue
-        # Busy time is the union of the device intervals of this one run;
-        # the span runs from its first device event's start to its last
-        # one's end, so busy / span is the device's share of the request
-        # once work has reached it, and busy / wall the share of the whole
-        # profiled request, host launch overhead included.
-        busy_us, cur_s, cur_e = 0.0, *spans[0]
-        for s, e in spans[1:]:
-            if s > cur_e:
-                busy_us += cur_e - cur_s
-                cur_s, cur_e = s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy_us += cur_e - cur_s
-        busy_ms = busy_us / 1e3
-        span_ms = (max(e for _, e in spans) - spans[0][0]) / 1e3
-        log(f"  {name} (one profiled request): wall {wall_ms:.3f} ms, "
-            f"device span {span_ms:.3f} ms, device busy {busy_ms:.3f} ms; "
-            f"idle share of span {1 - busy_ms / span_ms:.3f}, of wall "
-            f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
-        for ms, count, key in rows[:10]:
-            log(f"    {ms:9.4f} ms  x{count:<4d} {key[:90]}")
+        profile_request(torch, log, name, run)
 
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     log(smi)
@@ -535,6 +609,197 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def profile_request(torch, log, name, run, classify=None):
+    """Run ``run()`` once under ``torch.profiler`` and print its device
+    busy time, span, idle shares and top kernels; with ``classify``
+    (kernel name → group) also the device time by group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    # Device-side events only (kernels, memcpy, memset): a CPU op's
+    # device time repeats that of the kernels it launched.
+    rows = sorted(((getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) / 1e3,
+                    e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not rows or not spans:
+        log(f"  {name}: wall {wall_ms:.3f} ms (profiled); the profiler "
+            "recorded no device time")
+        return
+    # Busy time is the union of the device intervals of this one run;
+    # the span runs from its first device event's start to its last
+    # one's end, so busy / span is the device's share of the request
+    # once work has reached it, and busy / wall the share of the whole
+    # profiled request, host launch overhead included.
+    busy_us, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    busy_ms = busy_us / 1e3
+    span_ms = (max(e for _, e in spans) - spans[0][0]) / 1e3
+    log(f"  {name} (one profiled request): wall {wall_ms:.3f} ms, "
+        f"device span {span_ms:.3f} ms, device busy {busy_ms:.3f} ms; "
+        f"idle share of span {1 - busy_ms / span_ms:.3f}, of wall "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+    if classify is not None:
+        groups: dict[str, list] = {}
+        for ms, count, key in rows:
+            g = groups.setdefault(classify(key), [0.0, 0])
+            g[0] += ms
+            g[1] += count
+        total = sum(g[0] for g in groups.values())
+        for group, (ms, count) in sorted(groups.items(),
+                                         key=lambda kv: -kv[1][0]):
+            log(f"    {group}: {ms:.3f} ms over {count} launches "
+                f"({ms / total:.3f} of device time)")
+    for ms, count, key in rows[:10]:
+        log(f"    {ms:9.4f} ms  x{count:<4d} {key[:90]}")
+
+
+def dense_phase(torch, np, dev, log, fail, compare, kernels, model_api,
+                get_config, generate):
+    """Phase 4: gemma2-9b's forward and serving path at full width.
+
+    Returns the launch counts of the dense main path ((a) and (c))."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import layers
+
+    cfg = get_config("gemma2-9b")
+    seq = 8192
+
+    def tokens(seed, b, s):
+        g = torch.Generator(dev).manual_seed(seed)
+        return torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev)
+
+    # (b) Two layers (one local, one global) at full width: logits through
+    # K5 against the same model through K5's plain twin.
+    cfg2 = cfg.scaled(n_layers=2)
+    model = model_api.init_params(torch.Generator(dev).manual_seed(2), cfg2,
+                                  device=dev)
+    toks = tokens(200, 1, seq)
+    with torch.no_grad():
+        out, _ = model_api.forward_logits(model, {"tokens": toks}, cfg2)
+        with mock.patch.object(layers, "flash_attention_fused",
+                               flash_attention_ref):
+            want, _ = model_api.forward_logits(model, {"tokens": toks}, cfg2)
+    log("phase 4 (b): gemma2-9b, 2 layers, 1 x 8192 tokens")
+    compare("logits through K5 against logits through the twin", out, want,
+            "bf16")
+    del model, out, want
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    model = model_api.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                                  device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 4: gemma2-9b, {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+        f"float32 parameters drawn on the card in "
+        f"{time.perf_counter() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    # (a) three scoring requests and (c) one generate: the dense main path.
+    requests = [tokens(300 + i, 1, seq) for i in range(3)]
+    latency, k5_by_step = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        for i, toks in enumerate(requests):
+            before = kernels.launch_counts()["flash_attention"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, _ = model_api.forward_logits(model, {"tokens": toks}, cfg)
+            torch.cuda.synchronize()
+            latency.append((time.perf_counter() - t) * 1e3)
+            k5_by_step[f"request {i}"] = (
+                kernels.launch_counts()["flash_attention"] - before)
+            if (tuple(logits.shape) != (1, seq, cfg.vocab)
+                    or logits.dtype != torch.float32):
+                fail(f"scoring logits {tuple(logits.shape)} {logits.dtype}")
+            if not bool(torch.isfinite(logits).all()):
+                fail(f"request {i}: non-finite logits")
+            top = max(logits.max().item(), -logits.min().item())
+            if top > cfg.logit_softcap:
+                fail(f"request {i}: |logit| {top} above the softcap")
+            del logits
+        peak = torch.cuda.max_memory_allocated()
+        before = kernels.launch_counts()["flash_attention"]
+        gen_toks, gen_s = generate(cfg, 4, 16, 16, params=model, device=dev)
+        k5_by_step["generate"] = (
+            kernels.launch_counts()["flash_attention"] - before)
+    torch.cuda.synchronize()
+    dense_counts = kernels.launch_counts()
+    log(f"phase 4 (main path) launches: {dense_counts}; K5 by step: "
+        f"{k5_by_step}")
+    for i in range(3):
+        if k5_by_step[f"request {i}"] != cfg.n_layers:
+            fail(f"K5 launched {k5_by_step[f'request {i}']} times in "
+                 f"scoring request {i}, not {cfg.n_layers}")
+    log("phase 4 (a): scoring request latency ms (1 x 8192 tokens, first "
+        "apart): first " + f"{latency[0]:.2f}; then "
+        + ", ".join(f"{v:.2f}" for v in latency[1:]))
+    log(f"phase 4 (a): peak device memory {peak / 2**30:.2f} GiB")
+    if gen_toks.shape != (4, 16) or gen_toks.min() < 0 \
+            or gen_toks.max() >= cfg.vocab:
+        fail(f"generate returned {gen_toks.shape} tokens out of range")
+    log(f"phase 4 (c): generate(batch=4, prompt_len=16, gen=16): "
+        f"{gen_s * 1e3:.1f} ms for 31 decode steps, "
+        f"{gen_toks.size / gen_s:.1f} tok/s; sample "
+        f"{gen_toks[0][:8].tolist()}")
+
+    # (d) Decode-step logits at the last prompt position against the
+    # forward logits of the same prompt (generate's prompt, seed 0).
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 16)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        fwd, _ = model_api.forward_logits(model, {"tokens": prompt}, cfg)
+        cache = model_api.init_cache(cfg, 4, 16, dtype=torch.float32,
+                                     device=dev)
+        for t in range(16):
+            lg, cache = model_api.decode_step(model, cache,
+                                              prompt[:, t:t + 1], t + 1, cfg)
+    log("phase 4 (d): decode against forward at the last prompt position")
+    compare("decode-step logits against forward_logits", lg[:, 0],
+            fwd[:, -1], "decode")
+    same = (lg[:, 0].argmax(-1) == fwd[:, -1].argmax(-1)).float().mean()
+    log(f"  greedy tokens agree in {same.item():.2f} of the 4 rows")
+
+    log("profile: one steady scoring request (torch.profiler)")
+
+    def classify(key):
+        k = key.lower()
+        if "flash_attention_kernel" in k:
+            return "K5 flash_attention"
+        if any(w in k for w in ("gemm", "nvjet", "cutlass", "xmma",
+                                "cublas")):
+            return "dense products (torch.matmul)"
+        return "rest (casts, norms, rope, softcap, elementwise)"
+
+    profile_request(torch, log, "gemma2-9b scoring request",
+                    lambda: model_api.forward_logits(
+                        model, {"tokens": requests[0]}, cfg),
+                    classify)
+    del model, cache
+    torch.cuda.empty_cache()
+    return dense_counts
 
 
 if __name__ == "__main__":

@@ -82,10 +82,18 @@ class ExecSpec:
 
     def torch_device(self) -> torch.device:
         """The spec's device, checked: a CUDA device needs a card."""
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"ExecSpec(device={self.device!r}) asks for a CUDA device "
-                "but torch.cuda.is_available() is False; pass "
-                "device='cpu' to run the plain path on the CPU")
-        return dev
+        return checked_device(self.device, f"ExecSpec(device={self.device!r})")
+
+
+def checked_device(device, who: str = "device") -> torch.device:
+    """``device`` as a :class:`torch.device`; a CUDA device needs a card.
+
+    Every entry point of the port defaults to ``"cuda"`` and goes through
+    this check, so without a card it raises instead of running on the CPU.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} asks for a CUDA device but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain path on the CPU")
+    return dev

@@ -344,7 +344,7 @@ class PlanArrays(Mapping):
     values from a runtime edge-value vector.
     """
 
-    def __init__(self, plan, device: torch.device | str = "cpu"):
+    def __init__(self, plan, device: torch.device | str):
         self.plan = plan
         self.device = torch.device(device)
         self.kind = "spmm" if isinstance(plan, SpMMPlan) else "sddmm"

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: C entry point → argument types. Pointers and the stream are
 #: ``c_void_p`` (a bare Python int would be cut to 32 bits).
@@ -40,8 +41,12 @@ SIGNATURES = {
     "sddmm_mxu_launch": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _P),
     # rows, cols, x, y, out, nel, kf, vec4, stream
     "sddmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # q, k, v, o, b, sq, sk, h, kv, d, q/k/v strides over (B, S, H),
+    # scale, softcap, causal, window, q_offset, dtype, stream
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                               _F, _F, _I, _L, _L, _I, _P),
 }
-
 
 
 class ApplyError(RuntimeError):

@@ -1,0 +1,177 @@
+"""K5 — fused flash-attention forward.
+
+The reference package runs this kernel on the TPU
+(``src/repro/kernels/flash_attention.py`` ``flash_attention_fused``);
+here it is a hand-written CUDA kernel for Hopper
+(``csrc/flash_attention.cu``): one block per (64-query tile, batch ×
+query head), 64-key tiles, ``mma.sync`` bf16/fp16 with fp32
+accumulators and the online softmax in registers.
+
+:func:`flash_attention_fused` launches the kernel for CUDA tensors and
+runs :func:`flash_attention_ref`, its plain twin, for CPU tensors; it
+never falls back from the card to the plain version. The layout is the
+reference's ``(B, S, H, D)``; the kernel reads Q, K and V through their
+strides, so no transposed copies are made.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG = -1e30
+BLOCK_K = 64
+#: Head dimensions the kernel is built for.
+HEAD_DIMS = (64, 128, 256)
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+
+
+def _key_blocks(sq, sk, *, causal, window, q_offset, block_k=BLOCK_K):
+    """Start offsets of the key blocks that hold an unmasked key for some
+    query (the kernel skips the others per query tile; skipping a fully
+    masked block changes no result, see :func:`flash_attention_ref`)."""
+    kend = sk
+    if causal:
+        kend = min(kend, q_offset + sq)
+    kbeg = max(0, q_offset - window + 1) if window > 0 else 0
+    return range(kbeg // block_k * block_k, max(kend, 0), block_k)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, q_offset: int = 0,
+                        block_k: int = BLOCK_K):
+    """Plain PyTorch twin of the kernel: the same arithmetic, block by block.
+
+    Per ``block_k`` keys: scores in fp32 from the inputs' exact values,
+    ``* 1/sqrt(D)``, then ``softcap · tanh(s / softcap)``, then the mask
+    (masked scores take the finite ``NEG``), then the online-softmax
+    update with ``p`` cast to V's type before PV. A block masked for
+    every query is skipped, as the kernel skips it: a row whose running
+    max is still ``NEG`` gets ``exp(0)`` garbage from such a block, which
+    the first real key's rescale ``exp(NEG - m) = 0`` wipes exactly, so
+    the result is the same either way.
+    """
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    qf = q.float().reshape(b, sq, kv, g, d).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3).unsqueeze(2)   # (b, kv, 1, sk, d)
+    vt = v.permute(0, 2, 1, 3).unsqueeze(2)           # (b, kv, 1, sk, d)
+    qpos = q_offset + torch.arange(sq, device=dev)[:, None]
+    m = torch.full((b, kv, g, sq, 1), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kv, g, sq, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kv, g, sq, d), dtype=torch.float32, device=dev)
+    for k0 in _key_blocks(sq, sk, causal=causal, window=window,
+                          q_offset=q_offset, block_k=block_k):
+        kb = kf[:, :, :, k0:k0 + block_k]
+        s = (qf @ kb.transpose(-1, -2)) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = k0 + torch.arange(kb.shape[3], device=dev)[None, :]
+        mask = kpos < sk
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window > 0:
+            mask = mask & (kpos > qpos - window)
+        s = torch.where(mask, s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = p.to(v.dtype).float() @ vt[:, :, :, k0:k0 + block_k].float()
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def _kernel_layout_ok(t) -> bool:
+    """Last dim contiguous, 16-byte aligned rows (cp.async of 16 bytes)."""
+    return (t.stride(3) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def flash_attention_fused(q, k, v, *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0, q_offset: int = 0):
+    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D). Returns (B, Sq, H, D).
+
+    ``window == 0`` disables the sliding-window constraint; otherwise key
+    ``kpos`` is visible to query ``qpos`` when ``kpos > qpos - window``.
+    ``q_offset`` is the absolute position of ``q[:, 0]``. On the card the
+    kernel takes bfloat16 or float16 (Q, K and V of one type) and head
+    dimensions in :data:`HEAD_DIMS`; anything else raises.
+    """
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if h % kv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(
+            f"flash_attention_fused: shapes q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    window = int(window)
+    if _build.on_cpu(q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("flash_attention_fused: operands must all be CUDA "
+                         "tensors (or all CPU tensors for the plain "
+                         f"version), got {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention_fused: the kernel has no backward yet (ROADMAP "
+            "queue 1, dense training); call it under torch.no_grad()")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"flash_attention_fused: {name} is on "
+                             f"{t.device}, not {dev}")
+        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+            raise TypeError(
+                "flash_attention_fused: the kernel takes bfloat16 or float16 "
+                f"q, k, v of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+        if not _kernel_layout_ok(t):
+            raise ValueError(
+                f"flash_attention_fused: {name} needs a contiguous last dim, "
+                "strides in multiples of 8 elements and a 16-byte aligned "
+                f"pointer; got strides {t.stride()}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_fused: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    if b * h > 65535:
+        raise ValueError(f"flash_attention_fused: B*H = {b * h} > 65535")
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _build.library().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, sk, h, kv, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], 1.0 / math.sqrt(d), float(softcap),
+            int(causal), window, int(q_offset), _DTYPES[q.dtype],
+            _build.stream_handle(dev))
+    _build.check(err, "flash_attention")
+    flash_attention_fused.launches += 1
+    return out
+
+
+flash_attention_fused.launches = 0
+
+
+def hbm_traffic_model(b, sq, sk, h, kv, d, chunk, dtype_bytes=2):
+    """Analytic HBM bytes: fused kernel vs unfused chunked attention.
+
+    Unfused: the (b·kv·g·sq·chunk) score tensor is written and read ~3×
+    per chunk sweep (QKᵀ out, softmax in/out, PV in) in f32.
+    Fused: q, k, v read once; o written once.
+    """
+    g = h // kv
+    nchunks = (sk + chunk - 1) // chunk
+    scores = b * kv * g * sq * chunk * 4  # f32
+    unfused = 3 * scores * nchunks + (2 * b * sq * h * d
+                                      + 2 * b * sk * kv * d) * dtype_bytes
+    fused = (2 * b * sq * h * d + 2 * b * sk * kv * d * g) * dtype_bytes
+    return {"unfused": float(unfused), "fused": float(fused),
+            "reduction": float(unfused / max(fused, 1))}

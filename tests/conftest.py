@@ -2,6 +2,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one "
+        "(run with `-m cuda` on the card)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

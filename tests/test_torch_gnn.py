@@ -67,7 +67,8 @@ def test_gcn_forward_matches_reference(name, cfg, backend):
     x = _features(a)
     norm = jgnn.gcn_norm_edges(a)
     want = jgnn.gcn_forward(params, jg, jnp.asarray(x), jnp.asarray(norm))
-    model = gcn_params_from_jax([{"w": np.asarray(p["w"])} for p in params])
+    model = gcn_params_from_jax([{"w": np.asarray(p["w"])} for p in params],
+                                device="cpu")
     with torch.no_grad():
         out = model(tg, torch.from_numpy(x), torch.from_numpy(norm))
     _check(out, want)
@@ -85,7 +86,8 @@ def test_agnn_forward_matches_reference(name, cfg, backend):
     x = _features(a)
     want = jgnn.agnn_forward(params, jg, jnp.asarray(x))
     model = agnn_params_from_jax(
-        [{k: np.asarray(v) for k, v in p.items()} for p in params])
+        [{k: np.asarray(v) for k, v in p.items()} for p in params],
+        device="cpu")
     with torch.no_grad():
         out = model(tg, torch.from_numpy(x))
     _check(out, want)
@@ -100,7 +102,8 @@ def test_gcn_forward_matches_reference_pallas():
     params = jgnn.init_gcn(jax.random.PRNGKey(2), DIMS)
     x, norm = _features(a, 34), jgnn.gcn_norm_edges(a)
     want = jgnn.gcn_forward(params, jg, jnp.asarray(x), jnp.asarray(norm))
-    model = gcn_params_from_jax([{"w": np.asarray(p["w"])} for p in params])
+    model = gcn_params_from_jax([{"w": np.asarray(p["w"])} for p in params],
+                                device="cpu")
     with torch.no_grad():
         out = model(tg, torch.from_numpy(x), torch.from_numpy(norm))
     _check(out, want)
@@ -127,7 +130,8 @@ def test_graph_helpers_match_reference():
 def test_convert_carries_parameters():
     params = jgnn.init_agnn(jax.random.PRNGKey(3), DIMS)
     model = agnn_params_from_jax(
-        [{k: np.asarray(v) for k, v in p.items()} for p in params])
+        [{k: np.asarray(v) for k, v in p.items()} for p in params],
+        device="cpu")
     assert model.dims == DIMS
     for w, beta, p in zip(model.weights, model.betas, params):
         np.testing.assert_array_equal(w.detach().numpy(), np.asarray(p["w"]))

@@ -4,10 +4,12 @@
   ``jax`` or the reference package ``repro`` (AST scan), and importing
   every module of the port loads no ``jax`` and builds no kernel.
 * Entry points default to the card: without one they raise instead of
-  running on the CPU, and ``chip_smoke.py`` exits non-zero and prints
-  no result.
-* What the slice does not port raises ``NotImplementedError`` naming its
-  ROADMAP item.
+  running on the CPU (the operators, the GNN and transformer converters,
+  the transformer constructor, ``api.init_params``/``init_cache`` and
+  ``launch.serve.generate``), and ``chip_smoke.py`` exits non-zero and
+  prints no result.
+* What the port does not cover yet raises ``NotImplementedError`` naming
+  its ROADMAP item (knobs, and the model families other than dense).
 """
 import ast
 import json
@@ -21,9 +23,13 @@ import pytest
 import torch
 
 from repro_torch.api import ExecSpec
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.sddmm import LibraSDDMM
 from repro_torch.core.spmm import LibraSpMM
+from repro_torch.launch.serve import generate
+from repro_torch.models import api, convert
 from repro_torch.models.gnn import GraphOps
+from repro_torch.models.transformer import Transformer
 from repro_torch.sparse import mixed_csr
 from repro_torch.tune.model import TuneConfig
 
@@ -78,6 +84,73 @@ def test_default_spec_raises_without_a_card(entry, monkeypatch):
     cls = {"spmm": LibraSpMM, "sddmm": LibraSDDMM, "graph": GraphOps}[entry]
     with pytest.raises(RuntimeError, match="is_available"):
         cls(a)
+
+
+def _dense_tree(cfg):
+    """A reference-layout parameter tree of zeros (layers stacked)."""
+    shapes = {name: tuple(t.shape) for name, t in Transformer(
+        cfg, device="cpu").layers[0].named_parameters()}
+    layers = {"attn_norm": {}, "attn": {}, "mlp_norm": {}, "mlp": {}}
+    for name, shape in shapes.items():
+        group, _, leaf = name.partition(".")
+        layers[group][leaf or "scale"] = np.zeros((cfg.n_layers, *shape),
+                                                  np.float32)
+    return {"embed": {"embedding": np.zeros((cfg.vocab_padded, cfg.d_model),
+                                            np.float32)},
+            "layers": layers,
+            "final_norm": {"scale": np.zeros(cfg.d_model, np.float32)}}
+
+
+@pytest.mark.parametrize("entry", [
+    "gcn_params_from_jax", "agnn_params_from_jax",
+    "transformer_params_from_jax", "Transformer", "init_params",
+    "init_cache", "generate"])
+def test_model_entry_points_raise_without_a_card(entry, monkeypatch):
+    cfg = get_smoke_config("gemma2-9b")
+    tree = _dense_tree(cfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gnn_params = [{"w": np.ones((4, 3), np.float32),
+                   "beta": np.float32(1.0)}]
+    calls = {
+        "gcn_params_from_jax": lambda: convert.gcn_params_from_jax(
+            [{"w": gnn_params[0]["w"]}]),
+        "agnn_params_from_jax": lambda: convert.agnn_params_from_jax(
+            gnn_params),
+        "transformer_params_from_jax":
+            lambda: convert.transformer_params_from_jax(tree, cfg),
+        "Transformer": lambda: Transformer(
+            cfg, generator=torch.Generator().manual_seed(0)),
+        "init_params": lambda: api.init_params(
+            torch.Generator().manual_seed(0), cfg),
+        "init_cache": lambda: api.init_cache(cfg, 1, 8),
+        "generate": lambda: generate(cfg, 1, 2, 2),
+    }
+    with pytest.raises(RuntimeError, match="is_available"):
+        calls[entry]()
+
+
+def test_dense_tree_round_trips_on_cpu():
+    cfg = get_smoke_config("granite-34b")
+    model = convert.transformer_params_from_jax(_dense_tree(cfg), cfg,
+                                                device="cpu")
+    assert all(not p.any() for p in model.parameters())
+
+
+@pytest.mark.parametrize("arch", [
+    "qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b", "mamba2_130m", "zamba2_7b",
+    "whisper_tiny", "qwen2_vl_7b"])
+def test_unported_families_name_their_roadmap_item(arch):
+    cfg = get_smoke_config(arch)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    for call in (lambda: api.init_params(gen, cfg, device="cpu"),
+                 lambda: api.forward_logits(None, {"tokens": tokens}, cfg),
+                 lambda: api.loss_fn(None, {"tokens": tokens,
+                                            "labels": tokens}, cfg),
+                 lambda: api.init_cache(cfg, 1, 8, device="cpu"),
+                 lambda: api.decode_step(None, {}, tokens[:, :1], 1, cfg)):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            call()
 
 
 @pytest.mark.parametrize("kw,item", [

@@ -188,6 +188,12 @@ def test_wrappers_raise_instead_of_falling_back(name):
         "sddmm_vpu": ((torch.empty(2, 4, **i32), torch.empty(2, 4, **i32),
                        torch.empty(16, 8, **meta), torch.empty(5, 8, **meta)),
                       {}),
+        "flash_attention": ((torch.empty(1, 64, 4, 64, dtype=torch.bfloat16,
+                                         **meta),
+                             torch.empty(1, 64, 2, 64, dtype=torch.bfloat16,
+                                         **meta),
+                             torch.empty(1, 64, 2, 64, dtype=torch.bfloat16,
+                                         **meta)), {"causal": True}),
     }[name]
     before = kernels.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
