@@ -9,13 +9,16 @@ Phases:
 
 0. Device and build: print the card's name and power limit, build the
    five Hopper kernels from ``src/repro_torch/kernels/csrc`` and print the
-   build time. Exits non-zero when there is no CUDA device.
+   build time and ``ptxas``'s registers, spills and shared memory (for
+   each K5 instance by type and head dim). Exits non-zero when there is
+   no CUDA device.
 1. Each kernel against its plain PyTorch twin on the card. K1–K4 on the
    plan tables of the matrices below: exactly on integer-valued data in
    [-4, 4], within the stated tolerance on random fp32 data. K5 (flash
    attention) on random bf16/fp16 data at gemma2-9b's global and local
    layer shapes (8192 tokens, 16/8 heads, head dim 256, softcap 50), a
-   ragged length, D=128 GQA 32/8, MQA 48/1, fp16 and a query offset.
+   ragged length, D=128 GQA 32/8, MQA 48/1, fp16, a query offset and
+   scores near the softcap's saturation.
 2. Operators at full size on ``mixed_csr(16384, 16384, seed=3)``:
    ``LibraSpMM`` at n=256 and ``LibraSDDMM`` at kf=128, with the configs
    that put about 90% (SpMM) and all (SDDMM) non-zeros on Tensor Cores.
@@ -42,7 +45,8 @@ on the dense path. GNN outputs are checked against the port's plain
 ``backend="torch"`` path on the card. Then each kernel is timed (CUDA events, median of 20
 launches) beside its plain twin, one PyTorch library call computing the
 same stream's function, and its bound (compulsory bytes over 3.35 TB/s
-or operations over the data-sheet peak, whichever is larger). Last, one
+or operations over the data-sheet peak, whichever is larger); K5 also
+at gemma2's local shape and at D=128 GQA 32/8. Last, one
 steady GCN and one AGNN request run under ``torch.profiler``: device busy
 time, idle share and the kernels that take the most device time.
 
@@ -60,6 +64,7 @@ from __future__ import annotations
 import copy
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -164,6 +169,8 @@ def main() -> int:
     for line in _build.last_build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
+    for inst, info in k5_ptxas(_build.last_build_log).items():
+        log(f"  ptxas K5 {inst}: {info}")
 
     # ------------------------------------------------ host: matrices, plans
     def timed(label, fn):
@@ -343,7 +350,8 @@ def main() -> int:
                      for shape in ((b, sq, h, d), (b, sk, kv, d),
                                    (b, sk, kv, d)))
 
-    flash_cases = {  # label → (b, sq, sk, h, kv, d, dtype, kernel kwargs)
+    flash_cases = {  # label → (b, sq, sk, h, kv, d, dtype, kwargs: the
+        # kernel's, and q_scale to scale Q)
         "gemma2 global S=8192": (1, 8192, 8192, 16, 8, 256, torch.bfloat16,
                                  dict(causal=True, softcap=50.0)),
         "gemma2 local S=8192 window 4096": (
@@ -360,10 +368,19 @@ def main() -> int:
         "q_offset 3072, Sq=1024 Sk=4096 window 2048": (
             2, 1024, 4096, 16, 8, 256, torch.bfloat16,
             dict(causal=True, window=2048, softcap=50.0, q_offset=3072)),
+        # Q x 50: |s / sqrt(D)| reaches 2-4x the cap, so most scores sit
+        # near it, where an error e in tanh moves a logit by 50 e.
+        "gemma2 near-saturation softcap (Q x 50) S=2048": (
+            1, 2048, 2048, 16, 8, 256, torch.bfloat16,
+            dict(causal=True, softcap=50.0, q_scale=50.0)),
     }
     for i, (label, (b, sq, sk, h, kv, d, dtype, kw)) in enumerate(
             flash_cases.items()):
+        kw = dict(kw)
+        q_scale = kw.pop("q_scale", None)
         q, k, v = qkv(50 + i, b, sq, sk, h, kv, d, dtype)
+        if q_scale:
+            q = (q.float() * q_scale).to(dtype)
         twin_err[("flash_attention", label)] = compare(
             f"flash_attention {label} {str(dtype)[6:]}",
             kernels.flash_attention_fused(q, k, v, **kw),
@@ -556,13 +573,9 @@ def main() -> int:
             useful = int(host["vpu_mask"].sum())
         out = kern(*args)
         lib_a = stream_csr(graph, pos, ones)
-        try:  # the yardstick only: the port never calls it
-            library_ms = median_ms(lambda: torch.sparse.sampled_addmm(
-                lib_a, x_graph, x_graph.t(), beta=0.0))
-        except RuntimeError as exc:
-            log(f"  {name}: torch.sparse.sampled_addmm unavailable ({exc}); "
-                "library_ms null")
-            library_ms = None
+        # The yardstick only: the port never calls it.
+        library_ms = median_ms(lambda: torch.sparse.sampled_addmm(
+            lib_a, x_graph, x_graph.t(), beta=0.0))
         record(name, label, median_ms(lambda: kern(*args)),
                median_ms(lambda: twin(*args), reps=3), library_ms,
                nbytes(*args[:-1], out), 2 * useful * x_graph.shape[1])
@@ -583,14 +596,48 @@ def main() -> int:
     library_ms = median_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
+    def k5_pairs(b, sq, sk, h, causal=True, window=0, **_):
+        """Unmasked (query, key) pairs: the work these inputs need."""
+        qpos = np.arange(sq, dtype=np.int64)
+        hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+        lo = np.maximum(qpos - window + 1, 0) if window > 0 else 0
+        return int(np.maximum(hi - lo, 0).sum()) * b * h
+
     b, sq, sk, h, kv, d = shape
-    qpos = np.arange(sq)
-    pairs = int(np.minimum(qpos + 1, sk).sum()) * b * h   # causal, no window
+    pairs = k5_pairs(b, sq, sk, h, **kw)
     log(f"  flash_attention: softcap 0 (SDPA's function) {k5_nocap_ms:.4f} "
         f"ms; {pairs / (b * h) / 1e6:.2f} M (q, k) pairs per head")
     record("flash_attention", "gemma2 global S=8192", k5_ms, plain_ms,
            library_ms, nbytes(q, k, v, k5_out), 4 * d * pairs)
     del q, k, v, qt, kt, vt, k5_out
+    # K5 at gemma2's local layer and at the D = 128 width of the other
+    # dense configs (timing lines only; the kernels line keeps the global
+    # shape). SDPA has no sliding window without a materialised mask, so
+    # the local shape has no library time.
+    for label, shape, kw in (
+            ("gemma2 local S=8192 window 4096", (1, 8192, 8192, 16, 8, 256),
+             dict(causal=True, window=4096, softcap=50.0)),
+            ("GQA 32/8 D=128 S=4096", (1, 4096, 4096, 32, 8, 128),
+             dict(causal=True))):
+        b, sq, sk, h, kv, d = shape
+        q, k, v = qkv(71, *shape, torch.bfloat16)
+        out = kernels.flash_attention_fused(q, k, v, **kw)
+        ms = median_ms(lambda: kernels.flash_attention_fused(q, k, v, **kw))
+        lib = "null"
+        if not kw.get("window"):
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = "{:.4f}".format(median_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)))
+            del qt, kt, vt
+        pairs = k5_pairs(b, sq, sk, h, **kw)
+        bound_ms, bound_by = bound(nbytes(q, k, v, out), 4 * d * pairs,
+                                   "bf16")
+        log(f"  flash_attention [{label}]: {ms:.4f} ms, library (SDPA) "
+            f"{lib} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({pairs / (b * h) / 1e6:.2f} M pairs per head, "
+            f"{4 * d * pairs / ms / 1e9:.1f} TFLOP/s)")
+        del q, k, v, out
 
     # ------------------------------------------------ profile: one request
     # Device time by kernel for one steady request of each model. This is
@@ -609,6 +656,33 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def k5_ptxas(build_log: str) -> dict[str, str]:
+    """Registers, spills and shared memory of each K5 instance, from the
+    ``ptxas -v`` report. K5's shared memory is dynamic, so ptxas reports
+    none: it is (128 + 4 · 64) · D · 2 bytes plus 1 KB of alignment
+    slack, as ``launch`` in ``csrc/flash_attention.cu`` requests."""
+    out, entry, spill = {}, "", ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spill = m.group(1), ""
+        k5 = re.search(r"flash_attention_kernelI(13__nv_bfloat16|6__half)"
+                       r"Li(\d+)E", entry)
+        if not k5:
+            continue
+        if "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            d = int(k5.group(2))
+            dtype = "bf16" if "bfloat16" in k5.group(1) else "fp16"
+            out[f"<{dtype}, D={d}>"] = (
+                f"{m.group(1)} registers a thread; {spill}; dynamic shared "
+                f"memory {(128 + 4 * 64) * d * 2 + 1024} bytes")
+            entry = ""
+    return out
 
 
 def profile_request(torch, log, name, run, classify=None):

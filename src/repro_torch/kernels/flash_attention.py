@@ -3,9 +3,13 @@
 The reference package runs this kernel on the TPU
 (``src/repro/kernels/flash_attention.py`` ``flash_attention_fused``);
 here it is a hand-written CUDA kernel for Hopper
-(``csrc/flash_attention.cu``): one block per (64-query tile, batch ×
-query head), 64-key tiles, ``mma.sync`` bf16/fp16 with fp32
-accumulators and the online softmax in registers.
+(``csrc/flash_attention.cu``): one block of two warpgroups per
+(128-query tile, batch × query head), 64-key tiles of K and V in a
+two-stage ``cp.async`` double buffer in 128-byte-swizzled shared memory,
+both products on ``wgmma`` (QKᵀ with Q and K from shared memory, PV with
+P from registers) with fp32 accumulators, and the online softmax in
+registers on ``ex2``/``tanh`` intrinsics, masking only the tiles that a
+mask edge cuts.
 
 :func:`flash_attention_fused` launches the kernel for CUDA tensors and
 runs :func:`flash_attention_ref`, its plain twin, for CPU tensors; it

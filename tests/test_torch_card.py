@@ -64,9 +64,15 @@ def _qkv(dev, b, sq, sk, h, kv, d, dtype, seed=0):
         "q_offset", "no-keys", "window-empties-all"])
 def test_kernel_matches_twin(card, case):
     b, sq, sk, h, kv, d, causal, window, softcap, q_offset, dt = case
-    q, k, v = _qkv(card, b, sq, sk, h, kv, d, dt)
-    kw = dict(causal=causal, window=window, softcap=softcap,
-              q_offset=q_offset)
+    _check(card, b, sq, sk, h, kv, d, dt, causal=causal, window=window,
+           softcap=softcap, q_offset=q_offset)
+
+
+def _check(card, b, sq, sk, h, kv, d, dt, seed=0, q_scale=1.0, **kw):
+    """One K5 launch against the twin on seeded inputs (Q times q_scale)."""
+    q, k, v = _qkv(card, b, sq, sk, h, kv, d, dt, seed)
+    if q_scale != 1.0:
+        q = (q.float() * q_scale).to(dt)
     before = fa.flash_attention_fused.launches
     out = fa.flash_attention_fused(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -74,6 +80,50 @@ def test_kernel_matches_twin(card, case):
     want = fa.flash_attention_ref(q, k, v, **kw)
     assert out.shape == want.shape and out.dtype == dt
     _close(out, want)
+
+
+@pytest.mark.parametrize("sq", [1, 37, 64, 65, 129, 200])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_kernel_ragged_query_tiles(card, sq, d):
+    """Query tiles of 128 rows over two warpgroups of 64: Sq not a
+    multiple of 128, and Sq <= 64, where the second warpgroup has no
+    row."""
+    _check(card, 2, sq, sq + 3, 4, 2, d, torch.bfloat16, causal=True,
+           q_offset=3, softcap=30.0)
+
+
+@pytest.mark.parametrize("window", [1, 63, 65, 4095])
+@pytest.mark.parametrize("q_offset", [1, 63, 64, 65, 127])
+def test_kernel_tile_classes(card, q_offset, window):
+    """Every tile class for both warpgroups: interior, cut by the causal
+    diagonal, by the window's edge and by the end of Sk (Sk = q_offset +
+    Sq, so each query sees its own key)."""
+    sq = 300
+    _check(card, 1, sq, q_offset + sq, 4, 1, 128, torch.bfloat16,
+           seed=q_offset, causal=True, window=window, q_offset=q_offset)
+
+
+@pytest.mark.parametrize("window", [0, 65])
+def test_kernel_window_without_causal(card, window):
+    _check(card, 1, 190, 260, 4, 2, 64, torch.bfloat16, causal=False,
+           window=window, q_offset=70)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_kernel_head_dims_and_types(card, d, dtype):
+    _check(card, 1, 333, 333, 8, 2, d, dtype, causal=True, softcap=50.0)
+    _check(card, 1, 333, 333, 8, 2, d, dtype, seed=1, causal=True)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_kernel_near_saturation_softcap(card, d):
+    """Q scaled by 50, so that |s / sqrt(D)| reaches 2-4x the cap of 50:
+    most scores sit near +-50, where the kernel's tanh must stay accurate
+    in absolute terms (an error e in tanh moves the logit by 50 e)."""
+    _check(card, 1, 512, 512, 8, 4, d, torch.bfloat16, q_scale=50.0,
+           causal=True, softcap=50.0)
 
 
 def test_kernel_reads_strided_inputs(card):
