@@ -10,15 +10,17 @@ Phases:
 0. Device and build: print the card's name and power limit, build the
    five Hopper kernels from ``src/repro_torch/kernels/csrc`` and print the
    build time and ``ptxas``'s registers, spills and shared memory (for
-   each K5 instance by type and head dim). Exits non-zero when there is
-   no CUDA device.
+   each K5 instance by type and head dim, each K2/K4 instance by float4
+   or scalar columns). Exits non-zero when there is no CUDA device.
 1. Each kernel against its plain PyTorch twin on the card. K1–K4 on the
    plan tables of the matrices below: exactly on integer-valued data in
-   [-4, 4], within the stated tolerance on random fp32 data. K5 (flash
-   attention) on random bf16/fp16 data at gemma2-9b's global and local
-   layer shapes (8192 tokens, 16/8 heads, head dim 256, softcap 50), a
-   ragged length, D=128 GQA 32/8, MQA 48/1, fp16, a query offset and
-   scores near the softcap's saturation.
+   [-4, 4], within the stated tolerance on random fp32 data; K2 also
+   with the plan's real-prefix lengths, bit for bit against the lengths
+   it derives, and with non-finite B rows against its twin's inf/NaN
+   pattern. K5 (flash attention) on random bf16/fp16 data at gemma2-9b's
+   global and local layer shapes (8192 tokens, 16/8 heads, head dim 256,
+   softcap 50), a ragged length, D=128 GQA 32/8, MQA 48/1, fp16, a query
+   offset and scores near the softcap's saturation.
 2. Operators at full size on ``mixed_csr(16384, 16384, seed=3)``:
    ``LibraSpMM`` at n=256 and ``LibraSDDMM`` at kf=128, with the configs
    that put about 90% (SpMM) and all (SDDMM) non-zeros on Tensor Cores.
@@ -41,12 +43,15 @@ Phases 2 and 3 are the GNN main path and phase 4's (a) and (c) the dense
 main path: every kernel's launch counter is set to 0 just before each
 path and read just after it. Each of K1–K4 must have launched on the
 GNN path, and K5 exactly 42 times (once per layer) per scoring request
-on the dense path. GNN outputs are checked against the port's plain
-``backend="torch"`` path on the card. Then each kernel is timed (CUDA events, median of 20
-launches) beside its plain twin, one PyTorch library call computing the
-same stream's function, and its bound (compulsory bytes over 3.35 TB/s
-or operations over the data-sheet peak, whichever is larger); K5 also
-at gemma2's local shape and at D=128 GQA 32/8. Last, one
+on the dense path; K1–K4's launches are also split by matrix and width
+from the per-step counts. GNN outputs are checked against the port's
+plain ``backend="torch"`` path on the card. Then each kernel is timed
+(CUDA events, median of 20 launches) beside its plain twin, one PyTorch
+library call computing the same stream's function, and its bound
+(compulsory bytes over 3.35 TB/s or operations over the data-sheet peak,
+whichever is larger; for K2 and K4 the bytes count the real non-zeros'
+table entries, not the padding); K2 also at n=128 and 40, K4 at kf=256,
+K5 at gemma2's local shape and at D=128 GQA 32/8. Last, one
 steady GCN and one AGNN request run under ``torch.profiler``: device busy
 time, idle share and the kernels that take the most device time.
 
@@ -169,8 +174,8 @@ def main() -> int:
     for line in _build.last_build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
-    for inst, info in k5_ptxas(_build.last_build_log).items():
-        log(f"  ptxas K5 {inst}: {info}")
+    for inst, info in kernel_ptxas(_build.last_build_log).items():
+        log(f"  ptxas {inst}: {info}")
 
     # ------------------------------------------------ host: matrices, plans
     def timed(label, fn):
@@ -298,15 +303,23 @@ def main() -> int:
                 ref.spmm_tc_compact_ref(t["tc_seg_vals"], t["tc_seg_cols"],
                                         t["tc_seg_rank"], b, nseg),
                 kind or "tf32")
+            k2 = kernels.spmm_vpu(t["vpu_seg_vals"], t["vpu_seg_cols"], b)
             twin_err[("spmm_vpu", label)] = compare(
-                f"spmm_vpu {label} {data}",
-                kernels.spmm_vpu(t["vpu_seg_vals"], t["vpu_seg_cols"], b),
+                f"spmm_vpu {label} {data}", k2,
                 ref.spmm_tile_partials(t["vpu_seg_vals"],
                                        t["vpu_seg_cols"], b),
                 kind or "fp32")
-    # K2 multiplies every slot, padding (value 0, column 0) included, as
-    # its twin does: with non-finite B rows and an exact-zero weight both
-    # give the same inf/NaN pattern, bit for bit.
+            # The main path passes the plan's lengths; phase 1 lets the
+            # wrapper derive them from the values. Both must agree.
+            if not torch.equal(kernels.spmm_vpu(
+                    t["vpu_seg_vals"], t["vpu_seg_cols"], b,
+                    seg_len=t["vpu_len"]), k2):
+                fail(f"spmm_vpu {label} {data}: the plan's lengths and the "
+                     "derived ones give different results")
+    # K2 reads only each row's real prefix but adds the padding's
+    # 0 * B[0] once to every shorter row, and its twin multiplies every
+    # slot: with non-finite B rows and an exact-zero weight both give the
+    # same inf/NaN pattern, bit for bit, with derived and plan lengths.
     t = ref.revalue_spmm_arrays(gops.arrs.for_backend("cuda", revalue=True),
                                 int_edges(graph, 14))
     vv, vc = t["vpu_seg_vals"].clone(), t["vpu_seg_cols"]
@@ -315,11 +328,13 @@ def main() -> int:
     b = seeded(15, graph.k, 40, integers=True)
     b[0] = float("inf")
     b[vc.flatten()[real[1]], :8] = float("nan")
-    out, want = kernels.spmm_vpu(vv, vc, b), ref.spmm_tile_partials(vv, vc, b)
-    same = (out == want) | (out.isnan() & want.isnan())
-    torch.cuda.synchronize()
-    if not bool(same.all()) or not bool(want.isnan().any()):
-        fail("spmm_vpu with non-finite B rows: kernel and twin differ")
+    want = ref.spmm_tile_partials(vv, vc, b)
+    for out in (kernels.spmm_vpu(vv, vc, b),
+                kernels.spmm_vpu(vv, vc, b, seg_len=t["vpu_len"])):
+        same = (out == want) | (out.isnan() & want.isnan())
+        torch.cuda.synchronize()
+        if not bool(same.all()) or not bool(want.isnan().any()):
+            fail("spmm_vpu with non-finite B rows: kernel and twin differ")
     log(f"  spmm_vpu non-finite B, exact-zero weight: "
         f"{int(want.isnan().sum())} NaN and {int(want.isinf().sum())} inf "
         "entries, identical to the twin")
@@ -434,6 +449,10 @@ def main() -> int:
                if v <= 0 and k != "flash_attention"]
     if missing:
         fail(f"kernels never launched on the GNN path: {missing}")
+    by_shape = launches_by_shape(counts_by_step, gcn.dims, agnn.dims)
+    if any(sum(v.values()) != main_counts[k] for k, v in by_shape.items()):
+        fail(f"launches by shape {by_shape} do not add up to {main_counts}")
+    log(f"phases 2-3 launches by shape: {by_shape}")
     for name, ms in latency.items():
         log(f"phase 3: {name} [128, 256, 256, 40] per-request latency ms: "
             + ", ".join(f"{v:.2f}" for v in ms))
@@ -540,45 +559,76 @@ def main() -> int:
            median_ms(lambda: torch.sparse.mm(lib_a, b_mix)),
            nbytes(*k1, k1_out),
            2 * int(torch.count_nonzero(t["tc_seg_vals"])) * b_mix.shape[1])
-    # K2 at a GCN layer: GraphOps A with normalized edges, n=256.
+    # K2 at a GCN layer (GraphOps A with normalized edges, n=256) with the
+    # plan's lengths, as the main path calls it; also at the other widths
+    # the main path gives it (AGNN's first aggregation n=128, GCN's last
+    # n=40). Bytes: the real (value, column) pairs, the lengths, B once
+    # and the partials; operations 2 x real pairs x n.
     t = ref.revalue_spmm_arrays(gops.arrs.for_backend("cuda", revalue=True),
                                 norm)
-    b_gcn = seeded(41, graph.k, 256)
-    k2 = (t["vpu_seg_vals"], t["vpu_seg_cols"], b_gcn)
-    k2_out = kernels.spmm_vpu(*k2)
+    real = int(np.count_nonzero(gops.arrs.host["vpu_seg_pos"] >= 0))
     lib_a = stream_csr(graph, gops.arrs.host["vpu_pos"].ravel(), norm)
-    record("spmm_vpu", "graph GraphOps A n=256",
-           median_ms(lambda: kernels.spmm_vpu(*k2)),
-           median_ms(lambda: ref.spmm_tile_partials(*k2), reps=3),
-           median_ms(lambda: torch.sparse.mm(lib_a, b_gcn)),
-           nbytes(*k2, k2_out),
-           2 * int(torch.count_nonzero(t["vpu_seg_vals"])) * 256)
-    # K3 at LibraSDDMM graph kf=128; K4 at the AGNN first layer (kf=128).
+    for n in (256, 128, 40):
+        b_gcn = seeded(41, graph.k, n)
+        k2 = (t["vpu_seg_vals"], t["vpu_seg_cols"], b_gcn)
+        k2_out = kernels.spmm_vpu(*k2, seg_len=t["vpu_len"])
+        k2_ms = median_ms(lambda: kernels.spmm_vpu(*k2,
+                                                   seg_len=t["vpu_len"]))
+        lib_ms = median_ms(lambda: torch.sparse.mm(lib_a, b_gcn))
+        k2_bytes = real * 8 + nbytes(t["vpu_len"], b_gcn, k2_out)
+        if n == 256:
+            record("spmm_vpu", "graph GraphOps A n=256", k2_ms,
+                   median_ms(lambda: ref.spmm_tile_partials(*k2), reps=3),
+                   lib_ms, k2_bytes, 2 * real * n)
+        else:
+            bound_ms, bound_by = bound(k2_bytes, 2 * real * n, "fp32")
+            log(f"  spmm_vpu [graph GraphOps A n={n}]: {k2_ms:.4f} ms, "
+                f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                f"{bound_by} ({k2_bytes / 1e6:.1f} MB)")
+    del k2, k2_out, b_gcn
+    # K3 at LibraSDDMM graph kf=128; K4 at the AGNN first layer (kf=128)
+    # and, as a timing line, at its later layers (kf=256). X and Y are
+    # one tensor here, as in AGNN, and count once. K4's bytes: the real
+    # (row, column) pairs, X once and the real scores.
     ones = torch.ones(graph.nnz, device=dev)
-    for name, pa, label in (
-            ("sddmm_mxu", sddmm_graph.arrays, "graph LibraSDDMM kf=128"),
-            ("sddmm_vpu", gops.arrs_sd, "graph GraphOps SDDMM kf=128")):
+    x_graph256 = seeded(35, graph.m, 256)
+    for name, pa, label, xg in (
+            ("sddmm_mxu", sddmm_graph.arrays, "graph LibraSDDMM kf=128",
+             x_graph),
+            ("sddmm_vpu", gops.arrs_sd, "graph GraphOps SDDMM kf=128",
+             x_graph),
+            ("sddmm_vpu", gops.arrs_sd, "graph GraphOps SDDMM kf=256",
+             x_graph256)):
         t = pa.for_backend("cuda")
         host = pa.host
+        kf = xg.shape[1]
         if name == "sddmm_mxu":
             args = (t["tc_seg_cols"], t["tc_seg_bitmap"], t["tc_seg_window"],
-                    x_graph, x_graph)
+                    xg, xg)
             kern, twin = kernels.sddmm_mxu, ref.sddmm_tc_ref
             pos = host["tc_out_pos"].ravel()
             useful = int(np.count_nonzero(pos >= 0))
+            nb = nbytes(*args[:-1], kern(*args))
         else:
-            args = (*element_tables(t), x_graph, x_graph)
+            args = (*element_tables(t), xg, xg)
             kern, twin = kernels.sddmm_vpu, ref.sddmm_pair_scores
             pos = np.where(host["vpu_mask"], host["vpu_out_pos"], -1).ravel()
             useful = int(host["vpu_mask"].sum())
-        out = kern(*args)
+            nb = useful * 12 + nbytes(xg)
         lib_a = stream_csr(graph, pos, ones)
         # The yardstick only: the port never calls it.
         library_ms = median_ms(lambda: torch.sparse.sampled_addmm(
-            lib_a, x_graph, x_graph.t(), beta=0.0))
-        record(name, label, median_ms(lambda: kern(*args)),
-               median_ms(lambda: twin(*args), reps=3), library_ms,
-               nbytes(*args[:-1], out), 2 * useful * x_graph.shape[1])
+            lib_a, xg, xg.t(), beta=0.0))
+        ms = median_ms(lambda: kern(*args))
+        if kf == 128:
+            record(name, label, ms, median_ms(lambda: twin(*args), reps=3),
+                   library_ms, nb, 2 * useful * kf)
+        else:
+            bound_ms, bound_by = bound(nb, 2 * useful * kf, "fp32")
+            log(f"  {name} [{label}]: {ms:.4f} ms, library {library_ms:.4f} "
+                f"ms, bound {bound_ms:.4f} ms by {bound_by} "
+                f"({nb / 1e6:.1f} MB)")
+    del x_graph256
 
     # K5 at gemma2-9b's global layer (the costliest attention call of a
     # scoring request). The library yardstick is one SDPA call; SDPA has
@@ -658,31 +708,75 @@ def main() -> int:
     return 0
 
 
-def k5_ptxas(build_log: str) -> dict[str, str]:
-    """Registers, spills and shared memory of each K5 instance, from the
-    ``ptxas -v`` report. K5's shared memory is dynamic, so ptxas reports
-    none: it is (128 + 4 · 64) · D · 2 bytes plus 1 KB of alignment
-    slack, as ``launch`` in ``csrc/flash_attention.cu`` requests."""
-    out, entry, spill = {}, "", ""
+def kernel_ptxas(build_log: str) -> dict[str, str]:
+    """Registers, spills and shared memory of each K2, K4 and K5 instance,
+    from the ``ptxas -v`` report. K5's shared memory is dynamic, so ptxas
+    reports none: it is (128 + 4 · 64) · D · 2 bytes plus 1 KB of
+    alignment slack, as ``launch`` in ``csrc/flash_attention.cu``
+    requests. K2 and K4 use only the static shared memory ptxas reports."""
+    out, inst, spill = {}, None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            entry, spill = m.group(1), ""
-        k5 = re.search(r"flash_attention_kernelI(13__nv_bfloat16|6__half)"
-                       r"Li(\d+)E", entry)
-        if not k5:
+            inst, spill = _instance(m.group(1)), ""
+        if inst is None:
             continue
         if "spill" in line:
             spill = line.strip()
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            d = int(k5.group(2))
-            dtype = "bf16" if "bfloat16" in k5.group(1) else "fp16"
-            out[f"<{dtype}, D={d}>"] = (
-                f"{m.group(1)} registers a thread; {spill}; dynamic shared "
-                f"memory {(128 + 4 * 64) * d * 2 + 1024} bytes")
-            entry = ""
+            name, dynamic = inst
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name] = (f"{m.group(1)} registers a thread; {spill}; "
+                         f"shared memory {smem.group(1) if smem else 0} "
+                         f"bytes static, {dynamic} dynamic")
+            inst = None
     return out
+
+
+def _instance(entry: str):
+    """(label, dynamic shared memory bytes) of a K2/K4/K5 entry function's
+    mangled name, or None for another kernel."""
+    k5 = re.search(r"flash_attention_kernelI(13__nv_bfloat16|6__half)"
+                   r"Li(\d+)E", entry)
+    if k5:
+        d = int(k5.group(2))
+        dtype = "bf16" if "bfloat16" in k5.group(1) else "fp16"
+        return f"K5 <{dtype}, D={d}>", (128 + 4 * 64) * d * 2 + 1024
+    vpu = re.search(r"(spmm|sddmm)_vpu_kernelILi(\d+)E", entry)
+    if vpu:
+        kind = "float4" if vpu.group(2) == "4" else "scalar"
+        return f"{'K2' if vpu.group(1) == 'spmm' else 'K4'} <{kind}>", 0
+    return None
+
+
+def launches_by_shape(counts_by_step, gcn_dims, agnn_dims):
+    """Launches of K1–K4 on the GNN main path by matrix and width, from
+    the per-step counts: a LibraSpMM/LibraSDDMM step applies once at its
+    own width; a GCN request aggregates at each layer's output width, an
+    AGNN request scores and aggregates at each layer's input width.
+    Fails if a step's count differs from its number of applies."""
+    widths = {"spmm": {}, "sddmm": {}}
+    for step, counts in counts_by_step.items():
+        plan = {"spmm": [], "sddmm": []}
+        op, matrix, width = step.split()[:3]
+        if op in ("LibraSpMM", "LibraSDDMM"):
+            plan[op[5:].lower()] = [f"{matrix} {op} {width}"]
+        elif op == "GCN":
+            plan["spmm"] = [f"graph GraphOps n={d}" for d in gcn_dims[1:]]
+        elif op == "AGNN":
+            plan["spmm"] = [f"graph GraphOps n={d}" for d in agnn_dims[:-1]]
+            plan["sddmm"] = [f"graph GraphOps kf={d}"
+                             for d in agnn_dims[:-1]]
+        for op, names in plan.items():
+            for kern in (f"{op}_mxu", f"{op}_vpu"):
+                if counts[kern] != len(names):
+                    fail(f"{step}: {counts[kern]} {kern} launches, expected "
+                         f"{len(names)} ({names})")
+            for label in names:
+                widths[op][label] = widths[op].get(label, 0) + 1
+    return {f"{op}_{s}": dict(w) for op, w in widths.items()
+            for s in ("mxu", "vpu")}
 
 
 def profile_request(torch, log, name, run, classify=None):

@@ -324,6 +324,16 @@ _REVALUE_OF = {"tc_vals": "tc_pos", "vpu_vals": "vpu_pos",
                "tc_seg_vals": "tc_seg_pos", "vpu_seg_vals": "vpu_seg_pos"}
 
 
+def real_prefix_lengths(pos: np.ndarray) -> np.ndarray:
+    """(rows,) i32: one past the last real slot (``pos >= 0``) of each row
+    of a CUDA-core SpMM table. Real slots form a prefix of every row
+    (:func:`segment_take` puts a segment's real tiles first, and a tile
+    fills its slots in order), so this is each row's real length."""
+    slot = np.arange(1, pos.shape[1] + 1, dtype=np.int32)
+    return np.where(pos >= 0, slot, 0).max(axis=1, initial=0).astype(
+        np.int32)
+
+
 def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     # 8-bit occupancy bitmaps travel as int32: torch's uint32 lacks shift
     # and bitwise ops on many builds, and the bits fit either way.
@@ -341,7 +351,9 @@ class PlanArrays(Mapping):
     tables for segmented streams and compact tables otherwise;
     ``revalue=True`` swaps each value tensor for its position map, which
     :func:`repro_torch.kernels.ref.revalue_spmm_arrays` turns back into
-    values from a runtime edge-value vector.
+    values from a runtime edge-value vector. An SpMM plan's ``"cuda"``
+    dict also carries ``"vpu_len"`` (:meth:`vpu_len`), which is derived
+    on the host and is no plan key.
     """
 
     def __init__(self, plan, device: torch.device | str):
@@ -351,6 +363,7 @@ class PlanArrays(Mapping):
         self._host = _host_arrays(plan)
         self._dev: dict[str, torch.Tensor] = {}
         self._bcache: dict[tuple, dict] = {}
+        self._vpu_len: torch.Tensor | None = None
 
     def __getitem__(self, key: str) -> torch.Tensor:
         arr = self._dev.get(key)
@@ -405,4 +418,17 @@ class PlanArrays(Mapping):
             cached = self._bcache[ck] = {
                 k: self[k]
                 for k in self.backend_keys(backend, revalue=revalue)}
+            if self.kind == "spmm" and backend == "cuda":
+                cached["vpu_len"] = self.vpu_len()
         return cached
+
+    def vpu_len(self) -> torch.Tensor:
+        """(ntiles,) i32 real length of each row of the CUDA-core SpMM
+        table the kernel path reads (Cs segments, else tiles), derived
+        once from its position map and kept on the device."""
+        if self._vpu_len is None:
+            seg = "_seg" if "vpu_seg_vals" in self._host else ""
+            self._vpu_len = _to_tensor(
+                real_prefix_lengths(self._host[f"vpu{seg}_pos"]),
+                self.device)
+        return self._vpu_len

@@ -35,12 +35,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     # vals, cols, rank, b, out, nb, bk, n, atomic_out, vec4, stream
     "spmm_mxu_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # vals, cols, b, out, ntiles, ts, n, vec4, stream
-    "spmm_vpu_launch": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
+    # vals, cols, row_len, b, out, ntiles, ts, n, slice_cols, vec4, stream
+    "spmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     # cols, bitmap, window, x, y, out, nb, bk, kf, mrows, stream
     "sddmm_mxu_launch": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _P),
-    # rows, cols, x, y, out, nel, kf, vec4, stream
-    "sddmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # rows, cols, x, y, out, nel, kf, slice_feats, vec4, stream
+    "sddmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     # q, k, v, o, b, sq, sk, h, kv, d, q/k/v strides over (B, S, H),
     # scale, softcap, causal, window, q_offset, dtype, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -182,6 +182,13 @@ def check_operands(name: str, *specs):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     return dev
+
+
+#: Bytes of a gathered operand's column slice that the CUDA-core streams
+#: (K2, K4) keep in L2 while the slice runs: most of the H100's 50 MB.
+#: On the GNN graph 43 MB slices beat 22 MB ones (fewer passes over the
+#: tables) and 87 MB ones (L2 misses): tools/ab_vpu_kernels.py.
+L2_SLICE_BYTES = 44 << 20
 
 
 def aligned16(*tensors) -> bool:

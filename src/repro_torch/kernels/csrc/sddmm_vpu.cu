@@ -5,73 +5,121 @@
 // tile table, s[e] = <X[rows[e]], Y[cols[e]]>. The caller applies the
 // tile mask.
 //
-// Bound on H100: bytes. Each element gathers one X row and one Y row
-// (8 kf bytes) for 2 kf flops; the compulsory traffic is rows + cols + X
-// and Y once + the scores.
+// Bound on H100: bytes. Each element gathers one random Y row (4 kf
+// bytes) for 2 kf flops; the compulsory traffic is the (row, column)
+// pairs, X and Y once and the scores. On a graph Y is larger than the
+// 50 MB L2, so gathers over all of kf go to HBM.
 //
-// Design: a group of G lanes per element (G = 32 for kf >= 128, fewer
-// for narrow features, so a warp scores 32 / G elements at once). Lanes
-// stride the feature dimension with float4 loads (kf % 4 == 0) or scalar
-// loads, multiply-add in fp32, and reduce across the group with
-// butterfly shuffles. Consecutive elements share rows (tiles follow the
-// row-major mask), so the X gathers mostly hit L1/L2.
+// Design:
+// - Feature slices. The kf axis is cut into slices of slice_feats,
+//   chosen by the caller so that k * slice_feats * 4 bytes of Y fit
+//   most of the L2, and each slice is one launch: its Y
+//   gathers hit L2. Launches run in order on the stream; the first
+//   stores its partial dot products and each later one adds its own, so
+//   the sum is taken in a fixed slice order and is deterministic.
+// - Runs of elements. A warp scores 32 consecutive elements: each lane
+//   loads one element's (row, column) pair, coalesced; a group of
+//   slice_feats / 4 lanes (a power of two, float4 features; one feature
+//   a lane when kf % 4 != 0 or an operand is unaligned) scores the
+//   group's elements one after another, so that every lane ends up
+//   holding its own element's score and the store is coalesced.
+//   Elements follow the mask's window order, so a run touches a few X
+//   rows again and again: X is read through L1, Y around it (L2 only).
+// - Many gathers in flight: each lane issues the X and Y loads of
+//   kUnroll elements before it reduces any; the group sums with
+//   log2(group) butterfly shuffles.
+// FP32 FMA.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;   // warps a block
+constexpr int kUnroll = 2;  // elements a lane has in flight
 
+template <int kV>
 __global__ void __launch_bounds__(kWarps * 32)
 sddmm_vpu_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
                  const float* __restrict__ x, const float* __restrict__ y,
-                 float* __restrict__ out, long long nel, int kf, int group,
-                 int vec4) {
+                 float* __restrict__ out, long long nel, int kf, int f0,
+                 int group, int accumulate) {
   const int lane = threadIdx.x & 31;
-  const int per_warp = 32 / group;
-  const int64_t wid = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int64_t e = wid * per_warp + lane / group;
-  if (wid * per_warp >= nel) return;  // uniform per warp
-  const int gl = lane % group;
+  const long long base =
+      ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32;
+  if (base >= nel) return;  // uniform per warp
+  const long long e = base + lane;
   const bool valid = e < nel;
-  float acc = 0.f;
+  int row = 0, col = 0;
   if (valid) {
-    const float* xr = x + (int64_t)__ldg(rows + e) * kf;
-    const float* yr = y + (int64_t)__ldg(cols + e) * kf;
-    if (vec4) {
-      for (int f = gl * 4; f < kf; f += group * 4) {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(xr + f));
-        const float4 b = __ldg(reinterpret_cast<const float4*>(yr + f));
-        acc = fmaf(a.x, b.x, acc);
-        acc = fmaf(a.y, b.y, acc);
-        acc = fmaf(a.z, b.z, acc);
-        acc = fmaf(a.w, b.w, acc);
-      }
-    } else {
-      for (int f = gl; f < kf; f += group) {
-        acc = fmaf(__ldg(xr + f), __ldg(yr + f), acc);
+    row = __ldcs(rows + e);
+    col = __ldcs(cols + e);
+  }
+  const int gl = lane & (group - 1);  // lane within the group
+  const int first = lane - gl;        // the group's first lane
+  const int f = f0 + gl * kV;
+  const bool feat = f < kf;  // kV == 4: kf % 4 == 0
+  float mine = 0.f;
+  for (int u0 = 0; u0 < group; u0 += kUnroll) {
+    float p[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int src = first + min(u0 + u, group - 1);
+      const int64_t r = __shfl_sync(libra::kFullMask, row, src);
+      const int64_t cc = __shfl_sync(libra::kFullMask, col, src);
+      p[u] = 0.f;
+      if (feat && u0 + u < group) {
+        if constexpr (kV == 4) {
+          const float4 a =
+              __ldg(reinterpret_cast<const float4*>(x + r * kf + f));
+          const float4 bb =
+              __ldcg(reinterpret_cast<const float4*>(y + cc * kf + f));
+          p[u] = fmaf(a.x, bb.x, p[u]);
+          p[u] = fmaf(a.y, bb.y, p[u]);
+          p[u] = fmaf(a.z, bb.z, p[u]);
+          p[u] = fmaf(a.w, bb.w, p[u]);
+        } else {
+          p[u] = __ldg(x + r * kf + f) * __ldcg(y + cc * kf + f);
+        }
       }
     }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float s = p[u];
+      for (int off = group >> 1; off > 0; off >>= 1) {
+        s += __shfl_xor_sync(libra::kFullMask, s, off, group);
+      }
+      if (gl == u0 + u) mine = s;
+    }
   }
-  for (int off = group >> 1; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(libra::kFullMask, acc, off, group);
-  }
-  if (valid && gl == 0) out[e] = acc;
+  if (!valid) return;
+  if (accumulate) mine += __ldcs(out + e);
+  __stcs(out + e, mine);  // streaming: keep the slice in L2
 }
 
 }  // namespace
 
 extern "C" int sddmm_vpu_launch(const int* rows, const int* cols,
                                 const float* x, const float* y, float* out,
-                                long long nel, int kf, int vec4,
-                                cudaStream_t stream) {
-  // Lanes per element: enough to cover kf in one pass, a power of two.
-  const int need = vec4 ? (kf + 3) / 4 : kf;
-  int group = 1;
-  while (group < 32 && group < need) group <<= 1;
-  const long long per_warp = 32 / group;
-  const long long warps = (nel + per_warp - 1) / per_warp;
+                                long long nel, int kf, int slice_feats,
+                                int vec4, cudaStream_t stream) {
+  const int v = vec4 ? 4 : 1;
+  const int group = slice_feats / v;
+  if (slice_feats <= 0 || slice_feats % v != 0 || group > 32 ||
+      (group & (group - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long warps = (nel + 31) / 32;
   const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  sddmm_vpu_kernel<<<blocks, kWarps * 32, 0, stream>>>(rows, cols, x, y, out,
-                                                       nel, kf, group, vec4);
-  return static_cast<int>(cudaGetLastError());
+  for (int f0 = 0; f0 < kf; f0 += slice_feats) {
+    const int accumulate = f0 > 0;
+    if (vec4) {
+      sddmm_vpu_kernel<4><<<blocks, kWarps * 32, 0, stream>>>(
+          rows, cols, x, y, out, nel, kf, f0, group, accumulate);
+    } else {
+      sddmm_vpu_kernel<1><<<blocks, kWarps * 32, 0, stream>>>(
+          rows, cols, x, y, out, nel, kf, f0, group, accumulate);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }

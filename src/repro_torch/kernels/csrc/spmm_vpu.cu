@@ -2,99 +2,159 @@
 //
 // Replaces the TPU kernel spmm_vpu in src/repro/kernels/spmm_vpu.py
 // (function spmm_vpu, body _kernel): per residual tile or §4.3 Cs
-// segment t (ts non-zeros of one row), p[t] = sum_j vals[t,j] * B[cols[t,j], :],
-// written to a (ntiles, n) partial.
+// segment t (one row's residual non-zeros, zero padded to the table's
+// width), p[t] = sum_j vals[t,j] * B[cols[t,j], :], written to a
+// (ntiles, n) partial.
 //
-// Bound on H100: bytes. Each non-zero costs one gathered B row (4n bytes)
-// for 2n flops; the compulsory traffic is vals + cols + B once + the
-// partials, far below the FP32 ridge.
+// Bound on H100: bytes. Each non-zero gathers one random row of B (4n
+// bytes) for 2n flops; the compulsory traffic is the real (value,
+// column) pairs, B once and the partials. On a graph B is several times
+// the 50 MB L2, so gathers over all of n go to HBM.
 //
-// Design: one warp per (tile, column chunk). The warp reads 32 (value,
-// column) pairs at a time with one coalesced load and broadcasts them by
-// shuffle; each lane then accumulates 4 consecutive columns with one
-// float4 load of the gathered B row (n % 4 == 0, 128 columns per warp),
-// or one column with scalar loads otherwise (32 per warp). Every slot is
-// multiplied, padding (value 0, column 0) included, as the TPU kernel and
-// the plain twin do, so a non-finite B row or an exact-zero weight gives
-// the same result in all three; padding re-reads B row 0, which stays in
-// cache. FP32 FMA, summed in tile order.
+// Design:
+// - Real slots only. The real non-zeros of a row are a prefix of it;
+//   the caller passes each row's length (one past its last real slot),
+//   and only [0, len) is read and multiplied. The padding (value 0,
+//   column 0) adds 0 * B[0, c]: that term is added once to every row
+//   shorter than the table, so a non-finite B row 0 gives the inf/NaN
+//   pattern of the TPU kernel and the plain twin, which multiply every
+//   slot.
+// - L2-resident column slices. The columns of B are cut into slices of
+//   slice_cols, chosen by the caller so that k * slice_cols * 4 bytes
+//   fit most of the L2, and the grid runs slice-major (the slice is the
+//   outer part of the linear block id, which the scheduler walks in
+//   order): while one slice runs, its random gathers hit L2.
+// - Several rows a warp, gathers in flight. slice_cols / 4 lanes
+//   (float4 columns; one column a lane when n % 4 != 0) share one row,
+//   so a warp holds several rows and few lanes idle at narrow n. A group
+//   reads its row's (value, column) pairs with one coalesced streaming
+//   load, broadcasts them by shuffle, and each lane issues kUnroll
+//   independent B loads (L2 only) before it consumes any. Small blocks
+//   and few loads a lane measured fastest: the L2, not the number of
+//   loads in flight, sets the pace once a slice is resident.
+// FP32 FMA, summed in slot order; the partials are written once, with
+// streaming stores.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;   // warps a block
+constexpr int kUnroll = 4;  // B rows a lane has in flight
 
+template <int kV>
+struct Row {
+  float v[kV];
+};
+
+template <int kV>
+__device__ __forceinline__ Row<kV> gather(const float* p) {
+  Row<kV> r;
+  if constexpr (kV == 4) {
+    const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+    r.v[0] = t.x, r.v[1] = t.y, r.v[2] = t.z, r.v[3] = t.w;
+  } else {
+    r.v[0] = __ldcg(p);
+  }
+  return r;
+}
+
+template <int kV>
 __global__ void __launch_bounds__(kWarps * 32)
 spmm_vpu_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
-                const float* __restrict__ b, float* __restrict__ out,
-                long long ntiles, int ts, int n, int vec4) {
+                const int* __restrict__ row_len, const float* __restrict__ b,
+                float* __restrict__ out, long long ntiles, int width, int n,
+                int slice_cols, long long blocks_per_slice) {
+  const int group = slice_cols / kV;  // lanes per row, <= 32
+  const int per_warp = 32 / group;    // rows per warp
   const int lane = threadIdx.x & 31;
-  const int cols_per_warp = vec4 ? 128 : 32;
-  const int nchunks = (n + cols_per_warp - 1) / cols_per_warp;
-  const int64_t wid = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (wid >= ntiles * nchunks) return;  // uniform per warp
-  const int64_t tile = wid / nchunks;
-  const int chunk = static_cast<int>(wid % nchunks);
-  const float* tv = vals + tile * ts;
-  const int* tc = cols + tile * ts;
+  const int grp = lane / group;
+  const int gl = lane - grp * group;
+  const long long slice = blockIdx.x / blocks_per_slice;
+  const long long sblk = blockIdx.x - slice * blocks_per_slice;
+  const long long tile =
+      (sblk * kWarps + (threadIdx.x >> 5)) * per_warp + grp;
+  const bool live = grp < per_warp && tile < ntiles;
+  const int c = static_cast<int>(slice) * slice_cols + gl * kV;
+  const bool active = live && c < n;  // kV == 4: n % 4 == 0
+  const int len = live ? min(__ldcs(row_len + tile), width) : 0;
+  const int max_len = __reduce_max_sync(libra::kFullMask, len);
+  const float* tv = vals + tile * width;
+  const int* tc = cols + tile * width;
+  const int first = grp * group;  // the group's first lane
 
-  if (vec4) {
-    const int c = chunk * 128 + lane * 4;
-    const bool active = c < n;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int j0 = 0; j0 < ts; j0 += 32) {
-      float v = 0.f;
-      int col = 0;
-      if (j0 + lane < ts) {
-        v = __ldg(tv + j0 + lane);
-        col = __ldg(tc + j0 + lane);
+  float acc[kV] = {};
+  for (int j0 = 0; j0 < max_len; j0 += group) {
+    // Lane gl holds slot j0 + gl of its row.
+    float v = 0.f;
+    int col = 0;
+    if (j0 + gl < len) {
+      v = __ldcs(tv + j0 + gl);
+      col = __ldcs(tc + j0 + gl);
+    }
+    const int chunk = min(group, max_len - j0);  // uniform per warp
+    for (int u0 = 0; u0 < chunk; u0 += kUnroll) {
+      float vu[kUnroll];
+      Row<kV> bu[kUnroll];
+      bool ok[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int jj = u0 + u;
+        const int src = first + min(jj, group - 1);
+        vu[u] = __shfl_sync(libra::kFullMask, v, src);
+        const int cu = __shfl_sync(libra::kFullMask, col, src);
+        ok[u] = active && jj < group && j0 + jj < len;
+        if (ok[u]) bu[u] = gather<kV>(b + static_cast<int64_t>(cu) * n + c);
       }
-      const int cnt = min(32, ts - j0);
-      for (int jj = 0; jj < cnt; ++jj) {
-        const float vj = __shfl_sync(libra::kFullMask, v, jj);
-        const int64_t cj = __shfl_sync(libra::kFullMask, col, jj);
-        if (active) {
-          const float4 bv =
-              __ldg(reinterpret_cast<const float4*>(b + cj * n + c));
-          acc.x = fmaf(vj, bv.x, acc.x);
-          acc.y = fmaf(vj, bv.y, acc.y);
-          acc.z = fmaf(vj, bv.z, acc.z);
-          acc.w = fmaf(vj, bv.w, acc.w);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (ok[u]) {
+#pragma unroll
+          for (int q = 0; q < kV; ++q) {
+            acc[q] = fmaf(vu[u], bu[u].v[q], acc[q]);
+          }
         }
       }
     }
-    if (active) *reinterpret_cast<float4*>(out + tile * n + c) = acc;
+  }
+  if (!active) return;
+  if (len < width) {  // the padding's term, once
+    const Row<kV> b0 = gather<kV>(b + c);
+#pragma unroll
+    for (int q = 0; q < kV; ++q) acc[q] = fmaf(0.f, b0.v[q], acc[q]);
+  }
+  float* o = out + tile * n + c;  // streaming: keep the slice in L2
+  if constexpr (kV == 4) {
+    __stcs(reinterpret_cast<float4*>(o),
+           make_float4(acc[0], acc[1], acc[2], acc[3]));
   } else {
-    const int c = chunk * 32 + lane;
-    const bool active = c < n;
-    float acc = 0.f;
-    for (int j0 = 0; j0 < ts; j0 += 32) {
-      float v = 0.f;
-      int col = 0;
-      if (j0 + lane < ts) {
-        v = __ldg(tv + j0 + lane);
-        col = __ldg(tc + j0 + lane);
-      }
-      const int cnt = min(32, ts - j0);
-      for (int jj = 0; jj < cnt; ++jj) {
-        const float vj = __shfl_sync(libra::kFullMask, v, jj);
-        const int64_t cj = __shfl_sync(libra::kFullMask, col, jj);
-        if (active) acc = fmaf(vj, __ldg(b + cj * n + c), acc);
-      }
-    }
-    if (active) out[tile * n + c] = acc;
+    __stcs(o, acc[0]);
   }
 }
 
 }  // namespace
 
 extern "C" int spmm_vpu_launch(const float* vals, const int* cols,
-                               const float* b, float* out, long long ntiles,
-                               int ts, int n, int vec4, cudaStream_t stream) {
-  const int cols_per_warp = vec4 ? 128 : 32;
-  const long long warps = ntiles * ((n + cols_per_warp - 1) / cols_per_warp);
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  spmm_vpu_kernel<<<blocks, kWarps * 32, 0, stream>>>(vals, cols, b, out,
-                                                      ntiles, ts, n, vec4);
+                               const int* row_len, const float* b, float* out,
+                               long long ntiles, int width, int n,
+                               int slice_cols, int vec4, cudaStream_t stream) {
+  const int v = vec4 ? 4 : 1;
+  if (slice_cols <= 0 || slice_cols % v != 0 || slice_cols / v > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int per_warp = 32 / (slice_cols / v);
+  const long long rows_per_block = static_cast<long long>(kWarps) * per_warp;
+  const long long blocks_per_slice =
+      (ntiles + rows_per_block - 1) / rows_per_block;
+  const long long slices = (n + slice_cols - 1) / slice_cols;
+  const unsigned blocks = static_cast<unsigned>(blocks_per_slice * slices);
+  if (vec4) {
+    spmm_vpu_kernel<4><<<blocks, kWarps * 32, 0, stream>>>(
+        vals, cols, row_len, b, out, ntiles, width, n, slice_cols,
+        blocks_per_slice);
+  } else {
+    spmm_vpu_kernel<1><<<blocks, kWarps * 32, 0, stream>>>(
+        vals, cols, row_len, b, out, ntiles, width, n, slice_cols,
+        blocks_per_slice);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -68,13 +68,13 @@ def spmm_apply(arrs, b: torch.Tensor, *, m: int, nwin: int,
         tc = spmm_mxu(arrs["tc_vals"], arrs["tc_cols"], arrs["tc_rank"], b,
                       n_active=n_active)
         tc_rows = arrs["tc_active_row"]
-    if "vpu_seg_vals" in arrs:
-        # §4.3 Cs: one row-segment of ≤ cs residual elements per warp.
-        partials = spmm_vpu(arrs["vpu_seg_vals"], arrs["vpu_seg_cols"], b)
-        vpu_rows = arrs["vpu_seg_row"]
-    else:
-        partials = spmm_vpu(arrs["vpu_vals"], arrs["vpu_cols"], b)
-        vpu_rows = arrs["vpu_row"]
+    # CUDA cores: §4.3 Cs row-segments of ≤ cs residual elements when the
+    # plan has them, else tiles; the kernel reads each row's real prefix
+    # (``vpu_len``).
+    seg = "_seg" if "vpu_seg_vals" in arrs else ""
+    partials = spmm_vpu(arrs[f"vpu{seg}_vals"], arrs[f"vpu{seg}_cols"], b,
+                        seg_len=arrs.get("vpu_len"))
+    vpu_rows = arrs[f"vpu{seg}_row"]
     # Combine: one scatter-add of both streams' partials into a zeroed C
     # (rows ≥ m from the padded last window are sliced off).
     rows = torch.cat([tc_rows, vpu_rows]).long()

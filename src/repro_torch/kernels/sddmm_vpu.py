@@ -2,8 +2,10 @@
 
 Stream mapping: the reference package runs this stream on the TPU's VPU
 (``src/repro/kernels/sddmm_vpu.py``); here it runs on the H100's CUDA
-cores. The CUDA kernel (``csrc/sddmm_vpu.cu``) scores each element with
-a group of lanes (float4 loads, FP32 FMA, shuffle reduction).
+cores. The CUDA kernel (``csrc/sddmm_vpu.cu``) scores runs of 32
+consecutive elements a warp, a group of lanes an element, over feature
+slices of Y small enough to stay in L2 (:func:`slice_feats`), one launch
+a slice, adding the slices' partial dot products in order.
 
 :func:`sddmm_vpu` launches the kernel for CUDA tensors and runs
 :func:`repro_torch.kernels.ref.sddmm_pair_scores`, its plain
@@ -15,6 +17,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
+
+
+def slice_feats(k: int, kf: int, vec4: bool) -> int:
+    """Features of Y that one launch gathers: the widest power-of-two
+    number of lanes (float4 or scalar features each, at most 32) whose
+    ``k`` rows fit :data:`_build.L2_SLICE_BYTES`, narrowed to the fewest
+    lanes that cover ``kf`` in as many slices."""
+    unit = 4 if vec4 else 1
+    widest = 32 * unit
+    while widest > unit and k * widest * 4 > _build.L2_SLICE_BYTES:
+        widest //= 2
+    nslices = -(-kf // widest)
+    need = -(-kf // nslices)
+    width = unit
+    while width < need:
+        width *= 2
+    return width
 
 
 def sddmm_vpu(rows, cols, x, y):
@@ -40,11 +59,14 @@ def sddmm_vpu(rows, cols, x, y):
     nel = rows.numel()
     if nel == 0:
         return out
+    if kf == 0:
+        return out.zero_()
     vec4 = kf % 4 == 0 and _build.aligned16(x, y)
     with torch.cuda.device(dev):
         err = _build.library().sddmm_vpu_launch(
             rows.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-            out.data_ptr(), nel, kf, int(vec4), _build.stream_handle(dev))
+            out.data_ptr(), nel, kf, slice_feats(y.shape[0], kf, vec4),
+            int(vec4), _build.stream_handle(dev))
     _build.check(err, "sddmm_vpu")
     sddmm_vpu.launches += 1
     return out

@@ -1,25 +1,35 @@
-"""K5 and the dense path on the card: the CUDA kernel against its twin.
+"""Kernels on the card against their plain twins: K5 and the dense path,
+and the two CUDA-core streams K2 (``spmm_vpu``) and K4 (``sddmm_vpu``).
 
 These tests need an NVIDIA GPU (Hopper, ``sm_90a``) and ``nvcc``; they
 are marked ``cuda`` and skip without a card. On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
 
-Tolerance: max|Δ| ≤ 2e-2·max|ref| (the repo's low-precision tolerance),
-and on every row (last axis) ‖Δ‖₂ ≤ 2e-2·‖ref‖₂, so that the test scales
-with rows far smaller than the largest: the kernel and the twin round the
-same values at the same points and differ only in the order of fp32
-sums, which flips the last bit of a bf16/fp16 value here and there.
+K5's tolerance: max|Δ| ≤ 2e-2·max|ref| (the repo's low-precision
+tolerance), and on every row (last axis) ‖Δ‖₂ ≤ 2e-2·‖ref‖₂, so that the
+test scales with rows far smaller than the largest: the kernel and the
+twin round the same values at the same points and differ only in the
+order of fp32 sums, which flips the last bit of a bf16/fp16 value here
+and there. K2 and K4: exact on integer data in [-4, 4] (fp32 sums of
+small integers are exact in any order), rtol 1e-5 and atol
+1e-5·max|ref| on random fp32 data (sums in another order).
 """
 from unittest import mock
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.api import ExecSpec
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.spmm import LibraSpMM
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+from repro_torch.kernels.spmm_vpu import real_lengths
 from repro_torch.models import api, layers
+from repro_torch.sparse import power_law_csr
 
 REL = 2e-2
 
@@ -171,3 +181,154 @@ def test_dense_forward_through_k5_matches_twin(card):
             want, _ = api.forward_logits(model, {"tokens": tokens}, cfg)
         assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
     _close(out, want)
+
+
+# --------------------------------------------------------------- K2, K4
+# B and Y have enough rows that all but the narrowest widths below take
+# several column slices.
+K_BIG = 200_000
+FP32_RTOL = 1e-5
+# Real lengths of the rows of a Cs segment table 128 slots wide: empty
+# (the dummy segment of an empty path), one slot, either side of a
+# 32-slot tile, a full row, and a spread of others.
+SEG_LENS = [0, 1, 31, 33, 128, 127, 64, 2, 17, 96]
+
+
+def _data(gen, integers, *shape):
+    if integers:
+        return torch.randint(-4, 5, shape, generator=gen).float()
+    return torch.randn(*shape, generator=gen)
+
+
+def _seg_table(gen, k, nrows, width=128, integers=True):
+    """A segment table with real prefixes of the lengths above (cycled)
+    and padding (value 0, column 0) after them; real values non-zero."""
+    lens = torch.tensor(SEG_LENS * -(-nrows // len(SEG_LENS)))[:nrows]
+    real = torch.arange(width)[None, :] < lens[:, None]
+    vals = _data(gen, integers, nrows, width)
+    vals = torch.where(vals == 0, 1.0, vals)
+    cols = torch.randint(0, k, (nrows, width), generator=gen,
+                         dtype=torch.int32)
+    return (torch.where(real, vals, 0.0), torch.where(real, cols, 0),
+            lens.to(torch.int32))
+
+
+def _agree(out, want, integers):
+    torch.cuda.synchronize()
+    assert out.shape == want.shape
+    if integers:
+        assert torch.equal(out, want)
+    else:
+        scale = want.abs().max().item()
+        assert torch.allclose(out, want, rtol=FP32_RTOL,
+                              atol=FP32_RTOL * scale)
+
+
+@pytest.mark.parametrize("integers", [True, False], ids=["int", "rand"])
+@pytest.mark.parametrize("n", [256, 128, 40, 37, 100])
+def test_spmm_vpu_matches_twin(card, n, integers):
+    """Every main-path width (n = 256, 128, 40: one slice of all 40
+    columns), the scalar path (37) and widths that are no multiple of the
+    slice width (37: 32 + 5; 100: 3 x 32 + 4); the explicit and the
+    derived lengths give identical results."""
+    gen = torch.Generator().manual_seed(n)
+    vals, cols, lens = _seg_table(gen, K_BIG, 1500, integers=integers)
+    b = _data(gen, integers, K_BIG, n).to(card)
+    vals, cols, lens = vals.to(card), cols.to(card), lens.to(card)
+    assert torch.equal(real_lengths(vals, cols), lens)
+    before = kernels.spmm_vpu.launches
+    out = kernels.spmm_vpu(vals, cols, b, seg_len=lens)
+    derived = kernels.spmm_vpu(vals, cols, b)
+    assert kernels.spmm_vpu.launches == before + 2
+    _agree(out, ref.spmm_tile_partials(vals, cols, b), integers)
+    assert torch.equal(out, derived)
+
+
+@pytest.mark.parametrize("n", [256, 40, 37])
+def test_spmm_vpu_non_finite_pattern_matches_twin(card, n):
+    """Non-finite B rows, B[0] (the padding's row) among them, an
+    exact-zero weight inside a real prefix and a real zero weight at
+    column 0 in the last slot of a full row: the twin's inf/NaN pattern,
+    bit for bit, with explicit and derived lengths. Rows 4 and 14 are
+    full (128 real slots), so only they can hold an inf."""
+    gen = torch.Generator().manual_seed(7)
+    vals, cols, lens = _seg_table(gen, K_BIG, 400)
+    vals[4, 10] = 0.0                      # exact zero, real column
+    vals[5, 63], cols[5, 63] = 0.0, 0      # real zero at column 0
+    vals[14, 127], cols[14, 127] = 0.0, 0  # ... in a full row's last slot
+    b = _data(gen, True, K_BIG, n)
+    b[0] = float("inf")
+    b[cols[4, 3], : n // 2] = float("nan")
+    b[cols[4, 5], n // 2:] = -float("inf")
+    vals, cols, lens, b = (t.to(card) for t in (vals, cols, lens, b))
+    want = ref.spmm_tile_partials(vals, cols, b)
+    for got in (kernels.spmm_vpu(vals, cols, b, seg_len=lens),
+                kernels.spmm_vpu(vals, cols, b)):
+        torch.cuda.synchronize()
+        same = (got == want) | (got.isnan() & want.isnan())
+        assert bool(same.all())
+    assert bool(want.isnan().any()) and bool(want.isinf().any())
+
+
+def test_spmm_vpu_full_rows_skip_the_padding_term(card):
+    """Rows with every slot real take no padding term: a non-finite B[0]
+    that no real slot names leaves them finite, as in the twin."""
+    gen = torch.Generator().manual_seed(8)
+    vals = _data(gen, True, 64, 32).clamp(min=1.0)
+    cols = torch.randint(1, 500, (64, 32), generator=gen, dtype=torch.int32)
+    b = _data(gen, True, 500, 64)
+    b[0] = float("nan")
+    vals, cols, b = vals.to(card), cols.to(card), b.to(card)
+    out = kernels.spmm_vpu(vals, cols, b)
+    _agree(out, ref.spmm_tile_partials(vals, cols, b), True)
+
+
+def test_spmm_operator_reads_plan_lengths(card):
+    """The apply passes the plan's own lengths (``PlanArrays.vpu_len``):
+    the operator through the kernels equals the plain path exactly."""
+    a = power_law_csr(3000, 2500, 9.0, seed=5)
+    rng = np.random.default_rng(5)
+    a.data[:] = rng.integers(1, 5, a.nnz) * rng.choice([-1, 1], a.nnz)
+    op = LibraSpMM(a, spec=ExecSpec(device="cuda"))
+    b = torch.from_numpy(rng.integers(-4, 5, (a.k, 40)).astype(
+        np.float32)).to(card)
+    lens = op.arrays.for_backend("cuda")["vpu_len"]
+    t = op.arrays.for_backend("cuda")
+    assert torch.equal(lens, real_lengths(t["vpu_seg_vals"],
+                                          t["vpu_seg_cols"]))
+    assert torch.equal(op(b), op(b, backend="torch"))
+
+
+@pytest.mark.parametrize("integers", [True, False], ids=["int", "rand"])
+@pytest.mark.parametrize("kf", [128, 256, 30, 36])
+def test_sddmm_vpu_matches_twin(card, kf, integers):
+    """Every main-path width (kf = 128, 256), the scalar path (30) and a
+    width that is no multiple of the slice width (36: 32 + 4)."""
+    gen = torch.Generator().manual_seed(kf)
+    nel, m = 32 * 700 + 13, 3000
+    rows = torch.randint(0, m, (nel,), generator=gen, dtype=torch.int32)
+    rows = rows.sort().values.reshape(-1, 1)   # runs of one row, as in a plan
+    cols = torch.randint(0, K_BIG, (nel, 1), generator=gen, dtype=torch.int32)
+    x = _data(gen, integers, m, kf).to(card)
+    y = _data(gen, integers, K_BIG, kf).to(card)
+    rows, cols = rows.to(card), cols.to(card)
+    before = kernels.sddmm_vpu.launches
+    out = kernels.sddmm_vpu(rows, cols, x, y)
+    assert kernels.sddmm_vpu.launches == before + 1
+    _agree(out, ref.sddmm_pair_scores(rows, cols, x, y), integers)
+
+
+def test_sddmm_vpu_unaligned_operand_takes_the_scalar_path(card):
+    """X at an address that is not 16-byte aligned: one feature a lane,
+    over several slices, still exact."""
+    gen = torch.Generator().manual_seed(3)
+    m, kf = 500, 128
+    buf = _data(gen, True, m * kf + 1).to(card)
+    x = buf[1:].view(m, kf)
+    y = _data(gen, True, K_BIG, kf).to(card)
+    rows = torch.randint(0, m, (40, 32), generator=gen,
+                         dtype=torch.int32).to(card)
+    cols = torch.randint(0, K_BIG, (40, 32), generator=gen,
+                         dtype=torch.int32).to(card)
+    _agree(kernels.sddmm_vpu(rows, cols, x, y),
+           ref.sddmm_pair_scores(rows, cols, x, y), True)
