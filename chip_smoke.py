@@ -10,14 +10,17 @@ Phases:
 0. Device and build: print the card's name and power limit, build the
    five Hopper kernels from ``src/repro_torch/kernels/csrc`` and print the
    build time and ``ptxas``'s registers, spills and shared memory (for
-   each K5 instance by type and head dim, each K2/K4 instance by float4
-   or scalar columns). Exits non-zero when there is no CUDA device.
+   each K5 instance by type and head dim, each K1/K2/K4 instance by
+   float4 or scalar copies, each K3 instance by feature-slice width as
+   well). Exits non-zero when there is no CUDA device.
 1. Each kernel against its plain PyTorch twin on the card. K1–K4 on the
    plan tables of the matrices below: exactly on integer-valued data in
-   [-4, 4], within the stated tolerance on random fp32 data; K2 also
-   with the plan's real-prefix lengths, bit for bit against the lengths
-   it derives, and with non-finite B rows against its twin's inf/NaN
-   pattern. K5 (flash attention) on random bf16/fp16 data at gemma2-9b's
+   [-4, 4], within the stated tolerance on random fp32 data; K1 and K2
+   also with the plan's real-prefix lengths, bit for bit against the
+   lengths they derive, and with non-finite B rows against their twins'
+   inf/NaN pattern; K3 with NaN Y rows behind zero bitmaps against its
+   twin's pattern. K5 (flash attention) on random bf16/fp16 data at
+   gemma2-9b's
    global and local layer shapes (8192 tokens, 16/8 heads, head dim 256,
    softcap 50), a ragged length, D=128 GQA 32/8, MQA 48/1, fp16, a query
    offset and scores near the softcap's saturation.
@@ -49,11 +52,15 @@ plain ``backend="torch"`` path on the card. Then each kernel is timed
 (CUDA events, median of 20 launches) beside its plain twin, one PyTorch
 library call computing the same stream's function, and its bound
 (compulsory bytes over 3.35 TB/s or operations over the data-sheet peak,
-whichever is larger; for K2 and K4 the bytes count the real non-zeros'
-table entries, not the padding); K2 also at n=128 and 40, K4 at kf=256,
-K5 at gemma2's local shape and at D=128 GQA 32/8. Last, one
-steady GCN and one AGNN request run under ``torch.profiler``: device busy
-time, idle share and the kernels that take the most device time.
+whichever is larger; for K1–K4 the bytes count the real non-zeros' or
+real vectors' table entries, not the padding); K2 also at n=128 and 40,
+K3 at the mixed matrix, K4 at kf=256, K5 at gemma2's local shape and at
+D=128 GQA 32/8. K1 and K3 also run on their tables with every column
+folded into the first 4096 rows of the gathered operand, where every
+gather hits L2: the all-L2-hit yardstick. Last, one
+steady GCN and one AGNN request, and one apply of each operator of phase
+2 and of the graph's ``LibraSDDMM``, run under ``torch.profiler``: device
+busy time, idle share and the kernels that take the most device time.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -112,6 +119,10 @@ TF32_REL = 2e-2
 FP32_PATH_REL = 1e-4
 BF16_REL = 2e-2
 DECODE_REL = 5e-2
+
+# Rows of the gathered operand that the all-L2-hit yardstick folds every
+# column into.
+HOT = 4096
 
 KERNEL_INFO = {
     "spmm_mxu": ("src/repro/kernels/spmm_mxu.py:121", "tf32"),
@@ -295,14 +306,18 @@ def main() -> int:
             t = ref.revalue_spmm_arrays(seg, ev)
             nseg = t["tc_seg_rank"].shape[0]
             kind = "exact" if data == "integer" else None
+            k1_args = (t["tc_seg_vals"], t["tc_seg_cols"], t["tc_seg_rank"],
+                       b)
+            k1 = kernels.spmm_mxu(*k1_args, n_active=nseg, unique_ranks=True,
+                                  seg_len=t["tc_len"])
             twin_err[("spmm_mxu", label)] = compare(
-                f"spmm_mxu {label} {data}",
-                kernels.spmm_mxu(t["tc_seg_vals"], t["tc_seg_cols"],
-                                 t["tc_seg_rank"], b, n_active=nseg,
-                                 unique_ranks=True),
-                ref.spmm_tc_compact_ref(t["tc_seg_vals"], t["tc_seg_cols"],
-                                        t["tc_seg_rank"], b, nseg),
-                kind or "tf32")
+                f"spmm_mxu {label} {data}", k1,
+                ref.spmm_tc_compact_ref(*k1_args, nseg), kind or "tf32")
+            # As for K2: the plan's lengths against the derived ones.
+            if not torch.equal(kernels.spmm_mxu(
+                    *k1_args, n_active=nseg, unique_ranks=True), k1):
+                fail(f"spmm_mxu {label} {data}: the plan's lengths and the "
+                     "derived ones give different results")
             k2 = kernels.spmm_vpu(t["vpu_seg_vals"], t["vpu_seg_cols"], b)
             twin_err[("spmm_vpu", label)] = compare(
                 f"spmm_vpu {label} {data}", k2,
@@ -338,6 +353,37 @@ def main() -> int:
     log(f"  spmm_vpu non-finite B, exact-zero weight: "
         f"{int(want.isnan().sum())} NaN and {int(want.isinf().sum())} inf "
         "entries, identical to the twin")
+    # K1 likewise, on the mixed matrix's segments (and the graph's one
+    # all-padding segment, which reads only B[0]): an exact-zero weight
+    # in a real vector, B[0] infinite and a NaN B row that a real vector
+    # names.
+    for a, pa, n in ((a_mix, spmm_mix.arrays, 256), (graph, gops.arrs, 40)):
+        t = ref.revalue_spmm_arrays(pa.for_backend("cuda", revalue=True),
+                                    int_edges(a, 16))
+        tv, tcols, trank = (t["tc_seg_vals"].clone(), t["tc_seg_cols"],
+                            t["tc_seg_rank"])
+        nseg = trank.shape[0]
+        real = torch.nonzero(tv.flatten()).flatten()
+        b = seeded(17, a.k, n, integers=True)
+        b[0] = float("inf")
+        if real.numel() > 1:
+            tv.view(-1)[real[0]] = 0.0
+            w, idx = tv.shape[2], int(real[1])
+            b[tcols[idx // (8 * w), idx % w], :8] = float("nan")
+        want = ref.spmm_tc_compact_ref(tv, tcols, trank, b, nseg)
+        for out in (kernels.spmm_mxu(tv, tcols, trank, b, n_active=nseg,
+                                     unique_ranks=True),
+                    kernels.spmm_mxu(tv, tcols, trank, b, n_active=nseg,
+                                     unique_ranks=True,
+                                     seg_len=t["tc_len"])):
+            same = (out == want) | (out.isnan() & want.isnan())
+            torch.cuda.synchronize()
+            if not bool(same.all()) or not bool(want.isnan().any()):
+                fail(f"spmm_mxu n={n} with non-finite B rows: kernel and "
+                     "twin differ")
+        log(f"  spmm_mxu n={n} non-finite B, exact-zero weight "
+            f"({nseg} segments): {int(want.isnan().sum())} NaN and "
+            f"{int(want.isinf().sum())} inf entries, identical to the twin")
     for label, (pa, a, kf) in sddmm_cases.items():
         t = pa.for_backend("cuda")
         for data in ("integer", "random"):
@@ -356,6 +402,42 @@ def main() -> int:
             twin_err[("sddmm_vpu", label)] = compare(
                 f"sddmm_vpu {label} {data}", kernels.sddmm_vpu(rows, cols, x, y),
                 ref.sddmm_pair_scores(rows, cols, x, y), kind or "fp32")
+    # K3 gathers nothing for a zero-bitmap column and scores it 0, as its
+    # twin's where(mask, s, 0) does: NaN Y rows that only zero-bitmap
+    # columns name (Y[0], the padding's row, among them) leave the scores
+    # finite, and a NaN X row gives the twin's pattern bit for bit.
+    for label, (pa, a, kf) in sddmm_cases.items():
+        if kf != 128:
+            continue
+        t = pa.for_backend("cuda")
+        tcols, tbits, twnd = (t["tc_seg_cols"], t["tc_seg_bitmap"],
+                              t["tc_seg_window"])
+        named = torch.zeros(a.k, dtype=torch.bool, device=dev)
+        named[tcols[tbits != 0].long()] = True
+        x = seeded(23, a.m, kf, integers=True)
+        y = seeded(24, a.k, kf, integers=True)
+        y[~named] = float("nan")
+        got = kernels.sddmm_mxu(tcols, tbits, twnd, x, y)
+        want = ref.sddmm_tc_ref(tcols, tbits, twnd, x, y)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not bool(torch.isfinite(got).all()):
+            fail(f"sddmm_mxu {label}: NaN Y rows behind zero bitmaps")
+        # The row of the first kept score of the table.
+        first = int(torch.nonzero(tbits.flatten())[0])
+        word = int(tbits.flatten()[first])
+        x[8 * int(twnd[first // tbits.shape[1]])
+          + (word & -word).bit_length() - 1] = float("nan")
+        got = kernels.sddmm_mxu(tcols, tbits, twnd, x, y)
+        want = ref.sddmm_tc_ref(tcols, tbits, twnd, x, y)
+        same = (got == want) | (got.isnan() & want.isnan())
+        torch.cuda.synchronize()
+        if not bool(same.all()) or not bool(want.isnan().any()):
+            fail(f"sddmm_mxu {label}: NaN X row, kernel and twin differ")
+        log(f"  sddmm_mxu {label}: {int((~named).sum())} NaN Y rows behind "
+            f"zero bitmaps: finite and equal to the twin; a NaN X row: "
+            f"{int(want.isnan().sum())} NaN scores, identical to the twin")
+    # Nothing of these checks stays alive into the paths timed below.
+    del x, y, got, want, same, named, tv, tcols, trank
 
     # K5 at every shape the dense path gives it, and the other dense
     # models' widths. Inputs are random normal values rounded to the type.
@@ -545,20 +627,40 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": library_ms})
 
     log("timing: kernel and plain twin, CUDA events, median of 20 / 3 runs")
-    # K1 at LibraSpMM mixed n=256 (the operator's own values).
+
+    def yardstick(name, label, fn):
+        """The kernel on its own tables with every column folded into the
+        first HOT rows of the gathered operand: every gather hits L2."""
+        log(f"  {name} [{label}], every gather an L2 hit (columns folded "
+            f"into the first {HOT} rows): {median_ms(fn):.4f} ms")
+
+    # K1 at LibraSpMM mixed n=256 (the operator's own values) with the
+    # plan's lengths, as the main path calls it. Bytes: the real vectors'
+    # 8 values and column (36 bytes each), the lengths and ranks, B once
+    # and the output; operations 2 x real non-zeros x n.
     t = spmm_mix.arrays.for_backend("cuda")
     nseg = t["tc_seg_rank"].shape[0]
     k1 = (t["tc_seg_vals"], t["tc_seg_cols"], t["tc_seg_rank"], b_mix)
-    k1_out = kernels.spmm_mxu(*k1, n_active=nseg, unique_ranks=True)
+    k1_kw = dict(n_active=nseg, unique_ranks=True, seg_len=t["tc_len"])
+    k1_out = kernels.spmm_mxu(*k1, **k1_kw)
+    vectors = int(t["tc_len"].sum())
     vals = torch.from_numpy(a_mix.data).to(dev)
     lib_a = stream_csr(a_mix, spmm_mix.arrays.host["tc_pos"].ravel(), vals)
+    k1_bytes = vectors * 36 + nbytes(t["tc_len"], t["tc_seg_rank"], b_mix,
+                                     k1_out)
+    log(f"  spmm_mxu bytes: {vectors} real vectors of "
+        f"{t['tc_seg_cols'].numel()} slots, {k1_bytes / 1e6:.1f} MB (the "
+        f"padded tables counted whole: {nbytes(*k1, k1_out) / 1e6:.1f} MB)")
     record("spmm_mxu", "mixed LibraSpMM n=256",
-           median_ms(lambda: kernels.spmm_mxu(*k1, n_active=nseg,
-                                              unique_ranks=True)),
+           median_ms(lambda: kernels.spmm_mxu(*k1, **k1_kw)),
            median_ms(lambda: ref.spmm_tc_compact_ref(*k1, nseg), reps=3),
-           median_ms(lambda: torch.sparse.mm(lib_a, b_mix)),
-           nbytes(*k1, k1_out),
+           median_ms(lambda: torch.sparse.mm(lib_a, b_mix)), k1_bytes,
            2 * int(torch.count_nonzero(t["tc_seg_vals"])) * b_mix.shape[1])
+    hot = t["tc_seg_cols"] % HOT
+    yardstick("spmm_mxu", "mixed LibraSpMM n=256",
+              lambda: kernels.spmm_mxu(t["tc_seg_vals"], hot, *k1[2:],
+                                       **k1_kw))
+    del k1_out, hot
     # K2 at a GCN layer (GraphOps A with normalized edges, n=256) with the
     # plan's lengths, as the main path calls it; also at the other widths
     # the main path gives it (AGNN's first aggregation n=128, GCN's last
@@ -586,48 +688,65 @@ def main() -> int:
                 f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
                 f"{bound_by} ({k2_bytes / 1e6:.1f} MB)")
     del k2, k2_out, b_gcn
-    # K3 at LibraSDDMM graph kf=128; K4 at the AGNN first layer (kf=128)
-    # and, as a timing line, at its later layers (kf=256). X and Y are
-    # one tensor here, as in AGNN, and count once. K4's bytes: the real
-    # (row, column) pairs, X once and the real scores.
-    ones = torch.ones(graph.nnz, device=dev)
+    # K3 at LibraSDDMM graph kf=128 and, as a timing line, on the mixed
+    # matrix; K4 at the AGNN first layer (kf=128) and, as a timing line, at
+    # its later layers (kf=256). On the graph X and Y are one tensor, as in
+    # AGNN, and count once. K3's bytes: the real columns' (column, bitmap)
+    # pairs, the window ids, X and Y once and the scores once; K4's: the
+    # real (row, column) pairs, X once and the real scores.
     x_graph256 = seeded(35, graph.m, 256)
-    for name, pa, label, xg in (
-            ("sddmm_mxu", sddmm_graph.arrays, "graph LibraSDDMM kf=128",
-             x_graph),
-            ("sddmm_vpu", gops.arrs_sd, "graph GraphOps SDDMM kf=128",
-             x_graph),
-            ("sddmm_vpu", gops.arrs_sd, "graph GraphOps SDDMM kf=256",
-             x_graph256)):
+    for name, pa, a, label, xg, yg in (
+            ("sddmm_mxu", sddmm_graph.arrays, graph,
+             "graph LibraSDDMM kf=128", x_graph, x_graph),
+            ("sddmm_mxu", sddmm_mix.arrays, a_mix, "mixed LibraSDDMM kf=128",
+             x_mix, y_mix),
+            ("sddmm_vpu", gops.arrs_sd, graph, "graph GraphOps SDDMM kf=128",
+             x_graph, x_graph),
+            ("sddmm_vpu", gops.arrs_sd, graph, "graph GraphOps SDDMM kf=256",
+             x_graph256, x_graph256)):
         t = pa.for_backend("cuda")
         host = pa.host
         kf = xg.shape[1]
+        xy = nbytes(xg) + (nbytes(yg) if yg is not xg else 0)
         if name == "sddmm_mxu":
             args = (t["tc_seg_cols"], t["tc_seg_bitmap"], t["tc_seg_window"],
-                    xg, xg)
+                    xg, yg)
             kern, twin = kernels.sddmm_mxu, ref.sddmm_tc_ref
             pos = host["tc_out_pos"].ravel()
             useful = int(np.count_nonzero(pos >= 0))
-            nb = nbytes(*args[:-1], kern(*args))
+            out = kern(*args)
+            columns = int(torch.count_nonzero(args[1]))
+            nb = columns * 8 + nbytes(args[2], out) + xy
+            log(f"  sddmm_mxu [{label}] bytes: {columns} real columns of "
+                f"{args[0].numel()}, {nb / 1e6:.1f} MB (the padded tables "
+                f"counted whole: {nbytes(*args[:3], out) / 1e6 + xy / 1e6:.1f}"
+                " MB)")
+            del out
         else:
-            args = (*element_tables(t), xg, xg)
+            args = (*element_tables(t), xg, yg)
             kern, twin = kernels.sddmm_vpu, ref.sddmm_pair_scores
             pos = np.where(host["vpu_mask"], host["vpu_out_pos"], -1).ravel()
             useful = int(host["vpu_mask"].sum())
-            nb = useful * 12 + nbytes(xg)
-        lib_a = stream_csr(graph, pos, ones)
+            nb = useful * 12 + xy
+        lib_a = stream_csr(a, pos, torch.ones(a.nnz, device=dev))
         # The yardstick only: the port never calls it.
         library_ms = median_ms(lambda: torch.sparse.sampled_addmm(
-            lib_a, xg, xg.t(), beta=0.0))
+            lib_a, xg, yg.t(), beta=0.0))
         ms = median_ms(lambda: kern(*args))
-        if kf == 128:
+        if label in ("graph LibraSDDMM kf=128",
+                     "graph GraphOps SDDMM kf=128"):
             record(name, label, ms, median_ms(lambda: twin(*args), reps=3),
                    library_ms, nb, 2 * useful * kf)
         else:
-            bound_ms, bound_by = bound(nb, 2 * useful * kf, "fp32")
+            bound_ms, bound_by = bound(nb, 2 * useful * kf,
+                                       KERNEL_INFO[name][1])
             log(f"  {name} [{label}]: {ms:.4f} ms, library {library_ms:.4f} "
                 f"ms, bound {bound_ms:.4f} ms by {bound_by} "
                 f"({nb / 1e6:.1f} MB)")
+        if name == "sddmm_mxu":
+            hot = args[0] % HOT
+            yardstick(name, label, lambda: kern(hot, *args[1:]))
+            del hot
     del x_graph256
 
     # K5 at gemma2-9b's global layer (the costliest attention call of a
@@ -693,10 +812,15 @@ def main() -> int:
     # Device time by kernel for one steady request of each model. This is
     # a measurement, not a check: a profiler that records no device time
     # is reported as such.
-    log("profile: one steady request per model (torch.profiler, device "
-        "time by kernel)")
+    log("profile: one steady request per model and one apply per "
+        "operator (torch.profiler, device time by kernel)")
     for name, run in (("GCN", lambda: gcn(gops, requests[0], norm)),
-                      ("AGNN", lambda: agnn(gops, requests[0]))):
+                      ("AGNN", lambda: agnn(gops, requests[0])),
+                      ("LibraSpMM mixed n=256", lambda: spmm_mix(b_mix)),
+                      ("LibraSDDMM mixed kf=128",
+                       lambda: sddmm_mix(x_mix, y_mix)),
+                      ("LibraSDDMM graph kf=128",
+                       lambda: sddmm_graph(x_graph, x_graph))):
         profile_request(torch, log, name, run)
 
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
@@ -708,12 +832,23 @@ def main() -> int:
     return 0
 
 
+# K1's and K3's block constants (csrc/spmm_mxu.cu, csrc/sddmm_mxu.cu),
+# for the dynamic shared memory their launches request.
+K1_STAGES, K1_TILE_COLS = 2, 128
+K3_WARPS, K3_STAGES = 4, 2
+
+
 def kernel_ptxas(build_log: str) -> dict[str, str]:
-    """Registers, spills and shared memory of each K2, K4 and K5 instance,
-    from the ``ptxas -v`` report. K5's shared memory is dynamic, so ptxas
-    reports none: it is (128 + 4 · 64) · D · 2 bytes plus 1 KB of
-    alignment slack, as ``launch`` in ``csrc/flash_attention.cu``
-    requests. K2 and K4 use only the static shared memory ptxas reports."""
+    """Registers, spills and shared memory of each K1–K5 instance, from
+    the ``ptxas -v`` report. K1's, K3's and K5's shared memory is
+    dynamic, so ptxas reports none: K5 takes (128 + 4 · 64) · D · 2 bytes
+    plus 1 KB of alignment slack, as ``launch`` in
+    ``csrc/flash_attention.cu`` requests; K1 two stages of 32 B rows at a
+    pitch of nt + 4 and 8 value rows of 40 (nt = 128 columns at n >= 128);
+    K3 two stages a warp of a chunk's Y rows (32, or 16 at kF = 128) and
+    8 X rows at a pitch of kF + 16 (16 at kF = 16), 8 rows of earlier
+    scores and the chunk's bitmaps and indices. K2 and K4 use only the
+    static shared memory ptxas reports."""
     out, inst, spill = {}, None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -735,7 +870,7 @@ def kernel_ptxas(build_log: str) -> dict[str, str]:
 
 
 def _instance(entry: str):
-    """(label, dynamic shared memory bytes) of a K2/K4/K5 entry function's
+    """(label, dynamic shared memory bytes) of a K1–K5 entry function's
     mangled name, or None for another kernel."""
     k5 = re.search(r"flash_attention_kernelI(13__nv_bfloat16|6__half)"
                    r"Li(\d+)E", entry)
@@ -747,6 +882,21 @@ def _instance(entry: str):
     if vpu:
         kind = "float4" if vpu.group(2) == "4" else "scalar"
         return f"{'K2' if vpu.group(1) == 'spmm' else 'K4'} <{kind}>", 0
+    k1 = re.search(r"spmm_mxu_kernelILb([01])E", entry)
+    if k1:
+        kind = "float4" if k1.group(1) == "1" else "scalar"
+        nt = K1_TILE_COLS
+        return (f"K1 <{kind}>",
+                K1_STAGES * (32 * (nt + 4) + 8 * 40) * 4)
+    k3 = re.search(r"sddmm_mxu_kernelILi(\d+)ELb([01])E", entry)
+    if k3:
+        kf = int(k3.group(1))
+        kind = "float4" if k3.group(2) == "1" else "scalar"
+        pitch = kf + 16 if kf % 32 == 0 else kf
+        cols = 16 if kf >= 128 else 32
+        stage = ((cols + 8) * pitch + 8 * cols + cols + 4 + 3) // 4 * 4
+        return (f"K3 <{kind}, {kf} features>",
+                K3_WARPS * K3_STAGES * stage * 4)
     return None
 
 
@@ -780,27 +930,39 @@ def launches_by_shape(counts_by_step, gcn_dims, agnn_dims):
 
 
 def profile_request(torch, log, name, run, classify=None):
-    """Run ``run()`` once under ``torch.profiler`` and print its device
-    busy time, span, idle shares and top kernels; with ``classify``
-    (kernel name → group) also the device time by group."""
+    """Run ``run()`` twice under ``torch.profiler``, the first as a
+    warm-up step, and print the second's device busy time, span, idle
+    shares and top kernels; with ``classify`` (kernel name → group) also
+    the device time by group."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    # The profiler missed the first kernel launched after it started (the
+    # operators' first kernel was absent from their profiles), so a first
+    # run is a warm-up step whose events are discarded.
     with torch.no_grad(), profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     # Device-side events only (kernels, memcpy, memset): a CPU op's
-    # device time repeats that of the kernels it launched.
+    # device time repeats that of the kernels it launched, and the step's
+    # own device-side range ("ProfilerStep#") spans all of them.
+    def on_device(e):
+        return (e.device_type == DeviceType.CUDA
+                and not e.key.startswith("ProfilerStep"))
+
     rows = sorted(((getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0)) / 1e3,
                     e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+                   if on_device(e)), reverse=True)
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if on_device(e))
     if not rows or not spans:
         log(f"  {name}: wall {wall_ms:.3f} ms (profiled); the profiler "
             "recorded no device time")

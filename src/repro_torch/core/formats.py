@@ -334,6 +334,15 @@ def real_prefix_lengths(pos: np.ndarray) -> np.ndarray:
         np.int32)
 
 
+def real_vector_lengths(pos: np.ndarray) -> np.ndarray:
+    """(blocks,) i32: one past the last real condensed vector of each
+    block or segment of a Tensor Core SpMM table (``pos`` is ``(nb, 8,
+    bk)``; a vector is real when any of its 8 rows is). Only a window's
+    last block is partly filled, and :func:`segment_take` puts a
+    segment's real blocks first, so real vectors form a prefix."""
+    return real_prefix_lengths(pos.max(axis=1, initial=-1))
+
+
 def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     # 8-bit occupancy bitmaps travel as int32: torch's uint32 lacks shift
     # and bitwise ops on many builds, and the bits fit either way.
@@ -352,8 +361,9 @@ class PlanArrays(Mapping):
     ``revalue=True`` swaps each value tensor for its position map, which
     :func:`repro_torch.kernels.ref.revalue_spmm_arrays` turns back into
     values from a runtime edge-value vector. An SpMM plan's ``"cuda"``
-    dict also carries ``"vpu_len"`` (:meth:`vpu_len`), which is derived
-    on the host and is no plan key.
+    dict also carries ``"tc_len"`` (:meth:`tc_len`) and ``"vpu_len"``
+    (:meth:`vpu_len`), which are derived on the host and are no plan
+    keys.
     """
 
     def __init__(self, plan, device: torch.device | str):
@@ -363,6 +373,7 @@ class PlanArrays(Mapping):
         self._host = _host_arrays(plan)
         self._dev: dict[str, torch.Tensor] = {}
         self._bcache: dict[tuple, dict] = {}
+        self._tc_len: torch.Tensor | None = None
         self._vpu_len: torch.Tensor | None = None
 
     def __getitem__(self, key: str) -> torch.Tensor:
@@ -419,8 +430,19 @@ class PlanArrays(Mapping):
                 k: self[k]
                 for k in self.backend_keys(backend, revalue=revalue)}
             if self.kind == "spmm" and backend == "cuda":
+                cached["tc_len"] = self.tc_len()
                 cached["vpu_len"] = self.vpu_len()
         return cached
+
+    def tc_len(self) -> torch.Tensor:
+        """(nb,) i32 real-vector count of each segment (else block) of the
+        Tensor Core SpMM table the kernel path reads, derived once from
+        its position map and kept on the device."""
+        if self._tc_len is None:
+            seg = "_seg" if "tc_seg_vals" in self._host else ""
+            self._tc_len = _to_tensor(
+                real_vector_lengths(self._host[f"tc{seg}_pos"]), self.device)
+        return self._tc_len
 
     def vpu_len(self) -> torch.Tensor:
         """(ntiles,) i32 real length of each row of the CUDA-core SpMM

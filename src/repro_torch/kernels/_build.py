@@ -33,12 +33,14 @@ _F = ctypes.c_float
 #: C entry point → argument types. Pointers and the stream are
 #: ``c_void_p`` (a bare Python int would be cut to 32 bits).
 SIGNATURES = {
-    # vals, cols, rank, b, out, nb, bk, n, atomic_out, vec4, stream
-    "spmm_mxu_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # vals, cols, seg_len, rank, b, out, nb, bk, n, atomic_out, vec4, stream
+    "spmm_mxu_launch": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     # vals, cols, row_len, b, out, ntiles, ts, n, slice_cols, vec4, stream
     "spmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # cols, bitmap, window, x, y, out, nb, bk, kf, mrows, stream
-    "sddmm_mxu_launch": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _P),
+    # cols, bitmap, window, x, y, out, nb, bk, kf, mrows, slice_feats,
+    # vec4, stream
+    "sddmm_mxu_launch": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I,
+                         _P),
     # rows, cols, x, y, out, nel, kf, slice_feats, vec4, stream
     "sddmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     # q, k, v, o, b, sq, sk, h, kv, d, q/k/v strides over (B, S, H),
@@ -184,11 +186,27 @@ def check_operands(name: str, *specs):
     return dev
 
 
-#: Bytes of a gathered operand's column slice that the CUDA-core streams
-#: (K2, K4) keep in L2 while the slice runs: most of the H100's 50 MB.
+#: Bytes of a gathered operand's column slice that K2, K3 and K4 keep in
+#: L2 while the slice runs: most of the H100's 50 MB.
 #: On the GNN graph 43 MB slices beat 22 MB ones (fewer passes over the
 #: tables) and 87 MB ones (L2 misses): tools/ab_vpu_kernels.py.
 L2_SLICE_BYTES = 44 << 20
+
+
+def pow2_slice(k: int, width: int, narrowest: int, widest: int) -> int:
+    """Width of one slice of a gathered operand's ``width`` columns: the
+    widest power-of-two multiple of ``narrowest``, at most ``widest``,
+    whose ``k`` rows fit :data:`L2_SLICE_BYTES`, narrowed to the fewest
+    that cover ``width`` in as many slices."""
+    top = widest
+    while top > narrowest and k * top * 4 > L2_SLICE_BYTES:
+        top //= 2
+    nslices = -(-width // top)
+    need = -(-width // nslices)
+    out = narrowest
+    while out < need:
+        out *= 2
+    return out
 
 
 def aligned16(*tensors) -> bool:

@@ -1,5 +1,6 @@
-// Shared helpers for the Libra Hopper kernels: the 8-row window and the
-// TF32 Tensor Core instruction used by the two Tensor Core streams.
+// Shared helpers for the Libra Hopper kernels: the 8-row window, the
+// TF32 Tensor Core instruction of the two Tensor Core streams (K1, K3) and
+// the cp.async copies that stage their gathers and K5's tiles.
 #pragma once
 
 #include <cstdint>
@@ -31,6 +32,38 @@ __device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy through L2 only; valid = false reads nothing and
+// zero-fills the destination.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+
+// 4-byte async copy (for operands that are not 16-byte aligned); valid =
+// false reads nothing and zero-fills the destination.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace libra

@@ -57,16 +57,17 @@ def spmm_apply(arrs, b: torch.Tensor, *, m: int, nwin: int,
     n0 = b.shape[1]
     if "tc_seg_vals" in arrs:
         # Segment-granular launch (§4.3 Ts): one segment of ≤ ts blocks
-        # of one window per thread block, each with its own output slab.
+        # of one window per thread block, each with its own output slab;
+        # the kernel reads each segment's real vectors (``tc_len``).
         nseg = arrs["tc_seg_rank"].shape[0]
         tc = spmm_mxu(arrs["tc_seg_vals"], arrs["tc_seg_cols"],
                       arrs["tc_seg_rank"], b, n_active=nseg,
-                      unique_ranks=True)
+                      unique_ranks=True, seg_len=arrs.get("tc_len"))
         tc_rows = arrs["tc_seg_row"]
     else:
         n_active = arrs["tc_active_row"].shape[0] // WINDOW
         tc = spmm_mxu(arrs["tc_vals"], arrs["tc_cols"], arrs["tc_rank"], b,
-                      n_active=n_active)
+                      n_active=n_active, seg_len=arrs.get("tc_len"))
         tc_rows = arrs["tc_active_row"]
     # CUDA cores: §4.3 Cs row-segments of ≤ cs residual elements when the
     # plan has them, else tiles; the kernel reads each row's real prefix

@@ -25,15 +25,7 @@ def slice_feats(k: int, kf: int, vec4: bool) -> int:
     ``k`` rows fit :data:`_build.L2_SLICE_BYTES`, narrowed to the fewest
     lanes that cover ``kf`` in as many slices."""
     unit = 4 if vec4 else 1
-    widest = 32 * unit
-    while widest > unit and k * widest * 4 > _build.L2_SLICE_BYTES:
-        widest //= 2
-    nslices = -(-kf // widest)
-    need = -(-kf // nslices)
-    width = unit
-    while width < need:
-        width *= 2
-    return width
+    return _build.pow2_slice(k, kf, unit, 32 * unit)
 
 
 def sddmm_vpu(rows, cols, x, y):

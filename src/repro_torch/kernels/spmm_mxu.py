@@ -4,7 +4,9 @@ Stream mapping: the reference package runs this stream on the TPU's MXU
 (``src/repro/kernels/spmm_mxu.py``); here it runs on the H100's Tensor
 Cores, as in the paper. The CUDA kernel (``csrc/spmm_mxu.cu``) computes
 ``outᵀ = B[cols]ᵀ · valsᵀ`` with ``mma.sync`` m16n8k8 TF32, the 8-row
-window on the n=8 side (swap-and-transpose).
+window on the n=8 side (swap-and-transpose). It reads only each
+segment's real vectors (:func:`real_lengths`), gathering their B rows
+through a ``cp.async`` ring.
 
 :func:`spmm_mxu` launches the kernel for CUDA tensors and runs
 :func:`repro_torch.kernels.ref.spmm_tc_compact_ref`, its plain
@@ -17,10 +19,22 @@ import torch
 
 from repro_torch.core.formats import WINDOW
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.spmm_vpu import real_lengths as row_lengths
+
+
+def real_lengths(vals: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """(nb,) i32: one past the last condensed vector of each block whose
+    column or any of whose 8 values is non-zero (K2's rule,
+    :func:`repro_torch.kernels.spmm_vpu.real_lengths`, on each vector's
+    largest |value|).
+    Vectors past it are padding (values 0, column 0); a real all-zero
+    vector at column 0 past the last such vector adds exactly what the
+    padding adds, so the kernel gives the same result."""
+    return row_lengths(vals.abs().amax(dim=1), cols)
 
 
 def spmm_mxu(tc_vals, tc_cols, tc_rank, b, *, n_active: int,
-             unique_ranks: bool = False):
+             unique_ranks: bool = False, seg_len=None):
     """Compacted Tensor Core partial output, shape ``(n_active * 8, n)``.
 
     Args:
@@ -34,6 +48,11 @@ def spmm_mxu(tc_vals, tc_cols, tc_rank, b, *, n_active: int,
       unique_ranks: every block owns its own slab (the segment table
         guarantees it), so the kernel stores; otherwise the output is
         zeroed and blocks sharing a slab add atomically.
+      seg_len: optional (nb,) i32 length of each block's real prefix:
+        vectors ``[0, len)`` are real, the rest is padding (the plan's
+        own, :meth:`PlanArrays.tc_len`). Derived from the values and
+        columns by :func:`real_lengths` when absent. The plain twin
+        multiplies every vector, which gives the same result.
     """
     if _build.on_cpu(tc_vals, tc_cols, tc_rank, b):
         # The plain twin's scatter-add covers both rank layouts.
@@ -57,12 +76,19 @@ def spmm_mxu(tc_vals, tc_cols, tc_rank, b, *, n_active: int,
     out = alloc((n_active * WINDOW, n), dtype=torch.float32, device=dev)
     if nb == 0 or n == 0 or bk == 0:
         return out.zero_()
+    if seg_len is None:
+        seg_len = real_lengths(tc_vals, tc_cols)
+    _build.check_operands("spmm_mxu", ("tc_vals", tc_vals, torch.float32, 3),
+                          ("seg_len", seg_len, torch.int32, 1))
+    if seg_len.shape[0] != nb:
+        raise ValueError(f"spmm_mxu: seg_len {tuple(seg_len.shape)} for "
+                         f"{nb} blocks")
     vec4 = n % 4 == 0 and _build.aligned16(b, out)
     with torch.cuda.device(dev):
         err = _build.library().spmm_mxu_launch(
-            tc_vals.data_ptr(), tc_cols.data_ptr(), tc_rank.data_ptr(),
-            b.data_ptr(), out.data_ptr(), nb, bk, n, int(not unique_ranks),
-            int(vec4), _build.stream_handle(dev))
+            tc_vals.data_ptr(), tc_cols.data_ptr(), seg_len.data_ptr(),
+            tc_rank.data_ptr(), b.data_ptr(), out.data_ptr(), nb, bk, n,
+            int(not unique_ranks), int(vec4), _build.stream_handle(dev))
     _build.check(err, "spmm_mxu")
     spmm_mxu.launches += 1
     return out

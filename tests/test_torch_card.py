@@ -1,5 +1,6 @@
 """Kernels on the card against their plain twins: K5 and the dense path,
-and the two CUDA-core streams K2 (``spmm_vpu``) and K4 (``sddmm_vpu``).
+the two CUDA-core streams K2 (``spmm_vpu``) and K4 (``sddmm_vpu``), and
+the two Tensor Core streams K1 (``spmm_mxu``) and K3 (``sddmm_mxu``).
 
 These tests need an NVIDIA GPU (Hopper, ``sm_90a``) and ``nvcc``; they
 are marked ``cuda`` and skip without a card. On the card:
@@ -13,7 +14,9 @@ twin round the same values at the same points and differ only in the
 order of fp32 sums, which flips the last bit of a bf16/fp16 value here
 and there. K2 and K4: exact on integer data in [-4, 4] (fp32 sums of
 small integers are exact in any order), rtol 1e-5 and atol
-1e-5·max|ref| on random fp32 data (sums in another order).
+1e-5·max|ref| on random fp32 data (sums in another order). K1 and K3
+compute in TF32 (10 mantissa bits): exact on integer data in [-4, 4]
+(TF32 holds such values exactly), max|Δ| ≤ 2e-2·max|ref| on random data.
 """
 from unittest import mock
 
@@ -24,12 +27,16 @@ import torch
 from repro_torch import kernels
 from repro_torch.api import ExecSpec
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.sddmm import LibraSDDMM
 from repro_torch.core.spmm import LibraSpMM
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels.spmm_mxu import real_lengths as tc_real_lengths
 from repro_torch.kernels.spmm_vpu import real_lengths
 from repro_torch.models import api, layers
-from repro_torch.sparse import power_law_csr
+from repro_torch.sparse import mixed_csr, power_law_csr
+from repro_torch.tune.model import TuneConfig
 
 REL = 2e-2
 
@@ -332,3 +339,285 @@ def test_sddmm_vpu_unaligned_operand_takes_the_scalar_path(card):
                          dtype=torch.int32).to(card)
     _agree(kernels.sddmm_vpu(rows, cols, x, y),
            ref.sddmm_pair_scores(rows, cols, x, y), True)
+
+
+# --------------------------------------------------------------- K1, K3
+TF32_REL = 2e-2
+
+
+def _agree_tf32(out, want, integers):
+    torch.cuda.synchronize()
+    assert out.shape == want.shape
+    if integers:
+        assert torch.equal(out, want)
+    else:
+        assert bool(torch.isfinite(out).all())
+        err = (out - want).abs().max().item()
+        assert err <= TF32_REL * want.abs().max().item(), err
+
+
+def _same_non_finite(got, want):
+    torch.cuda.synchronize()
+    same = (got == want) | (got.isnan() & want.isnan())
+    assert bool(same.all())
+
+
+def _tc_table(gen, k, nb, width=128, integers=True):
+    """A K1 segment table: real prefixes of the SEG_LENS lengths (cycled,
+    clipped to the width) with random values in all 8 rows (row 0 never
+    zero, so every real vector shows in its values) and padding (values
+    0, column 0) after them."""
+    lens = torch.tensor(SEG_LENS * -(-nb // len(SEG_LENS)))[:nb]
+    lens = lens.clamp(max=width)
+    real = torch.arange(width)[None, :] < lens[:, None]
+    vals = _data(gen, integers, nb, 8, width)
+    vals[:, 0] = torch.where(vals[:, 0] == 0, 1.0, vals[:, 0])
+    cols = torch.randint(0, k, (nb, width), generator=gen, dtype=torch.int32)
+    return (torch.where(real[:, None, :], vals, 0.0),
+            torch.where(real, cols, 0), lens.to(torch.int32))
+
+
+def _spmm_mxu_both(vals, cols, rank, b, n_active, unique, lens):
+    """K1 with the table's lengths and with the lengths it derives: both
+    launch and give identical results."""
+    before = kernels.spmm_mxu.launches
+    out = kernels.spmm_mxu(vals, cols, rank, b, n_active=n_active,
+                           unique_ranks=unique, seg_len=lens)
+    derived = kernels.spmm_mxu(vals, cols, rank, b, n_active=n_active,
+                               unique_ranks=unique)
+    assert kernels.spmm_mxu.launches == before + 2
+    torch.cuda.synchronize()
+    if unique:
+        assert torch.equal(out, derived)
+    return out
+
+
+@pytest.mark.parametrize("integers", [True, False], ids=["int", "rand"])
+@pytest.mark.parametrize("n", [256, 128, 40, 37, 300])
+@pytest.mark.parametrize("width", [128, 48])
+def test_spmm_mxu_matches_twin(card, n, width, integers):
+    """Every main-path width (n = 256, 128, 40), the scalar path (37) and
+    a width of two column tiles (300); segment lengths 0, 1, partial and
+    full, over tables of four 32-vector chunks and of one and a half;
+    unique ranks in a shuffled order; explicit and derived lengths."""
+    gen = torch.Generator().manual_seed(n + width)
+    nb = 700
+    vals, cols, lens = _tc_table(gen, 5000, nb, width, integers)
+    assert torch.equal(tc_real_lengths(vals, cols), lens)
+    rank = torch.randperm(nb, generator=gen).to(torch.int32)
+    b = _data(gen, integers, 5000, n)
+    vals, cols, lens, rank, b = (t.to(card) for t in (vals, cols, lens,
+                                                      rank, b))
+    out = _spmm_mxu_both(vals, cols, rank, b, nb, True, lens)
+    _agree_tf32(out, ref.spmm_tc_compact_ref(vals, cols, rank, b, nb),
+                integers)
+
+
+@pytest.mark.parametrize("integers", [True, False], ids=["int", "rand"])
+@pytest.mark.parametrize("n", [256, 40])
+def test_spmm_mxu_shared_ranks_add_atomically(card, n, integers):
+    """The compact per-block layout: blocks share output slabs, the
+    wrapper zeroes the output and the kernel adds atomically (integer
+    sums are exact in any order)."""
+    gen = torch.Generator().manual_seed(n)
+    nb, n_active = 600, 97
+    vals, cols, lens = _tc_table(gen, 3000, nb, 32, integers)
+    rank = torch.randint(0, n_active, (nb,), generator=gen,
+                         dtype=torch.int32)
+    b = _data(gen, integers, 3000, n)
+    vals, cols, lens, rank, b = (t.to(card) for t in (vals, cols, lens,
+                                                      rank, b))
+    out = _spmm_mxu_both(vals, cols, rank, b, n_active, False, lens)
+    want = ref.spmm_tc_compact_ref(vals, cols, rank, b, n_active)
+    _agree_tf32(out, want, integers)
+    _agree_tf32(kernels.spmm_mxu(vals, cols, rank, b, n_active=n_active),
+                want, integers)
+
+
+@pytest.mark.parametrize("n", [256, 40, 37])
+def test_spmm_mxu_non_finite_pattern_matches_twin(card, n):
+    """Non-finite B rows, B[0] (the padding's row) among them, an
+    exact-zero weight inside a real vector, and a real all-zero vector
+    at column 0 in the last slot of a full segment: the twin's inf/NaN
+    pattern, bit for bit, with explicit and derived lengths."""
+    gen = torch.Generator().manual_seed(9)
+    vals, cols, lens = _tc_table(gen, 2000, 300)
+    vals[4, 3, 10] = 0.0                           # exact zero, real vector
+    vals[14, :, 127], cols[14, 127] = 0.0, 0       # real zero vector at 0
+    b = _data(gen, True, 2000, n)
+    b[0] = float("inf")
+    b[cols[4, 10], : n // 2] = float("nan")
+    b[cols[4, 5], n // 2:] = -float("inf")
+    rank = torch.arange(300, dtype=torch.int32)
+    vals, cols, lens, rank, b = (t.to(card) for t in (vals, cols, lens,
+                                                      rank, b))
+    want = ref.spmm_tc_compact_ref(vals, cols, rank, b, 300)
+    for got in (kernels.spmm_mxu(vals, cols, rank, b, n_active=300,
+                                 unique_ranks=True, seg_len=lens),
+                kernels.spmm_mxu(vals, cols, rank, b, n_active=300,
+                                 unique_ranks=True)):
+        _same_non_finite(got, want)
+    assert bool(want.isnan().any()) and bool(want.isinf().any())
+
+
+def test_spmm_mxu_unaligned_operands_take_the_scalar_path(card):
+    """B and the values at addresses that are not 16-byte aligned, and a
+    table width that is no multiple of 4: 4-byte copies, still exact."""
+    gen = torch.Generator().manual_seed(4)
+    nb, width, k, n = 300, 18, 900, 64
+    vals, cols, lens = _tc_table(gen, k, nb, width)
+    vbuf = torch.zeros(vals.numel() + 1)
+    vbuf[1:] = vals.flatten()
+    bbuf = _data(gen, True, k * n + 1)
+    rank = torch.arange(nb, dtype=torch.int32)
+    vbuf, bbuf, cols, lens, rank = (t.to(card) for t in (vbuf, bbuf, cols,
+                                                         lens, rank))
+    vals, b = vbuf[1:].view(nb, 8, width), bbuf[1:].view(k, n)
+    out = _spmm_mxu_both(vals, cols, rank, b, nb, True, lens)
+    _agree_tf32(out, ref.spmm_tc_compact_ref(vals, cols, rank, b, nb), True)
+
+
+def _int_csr(a, seed):
+    rng = np.random.default_rng(seed)
+    a.data[:] = rng.integers(1, 5, a.nnz) * rng.choice([-1, 1], a.nnz)
+    return a, rng
+
+
+@pytest.mark.parametrize("layout", [{}, {"ts": 0, "cs": 0}],
+                         ids=["segment", "compact"])
+def test_spmm_operator_tensor_core_path_reads_plan_lengths(card, layout):
+    """A plan that puts most non-zeros on K1: the apply passes the plan's
+    real-vector counts (``PlanArrays.tc_len``), equal to the derived ones,
+    and the operator equals the plain path exactly."""
+    a, rng = _int_csr(mixed_csr(1024, 1024, seed=3), 5)
+    op = LibraSpMM(a, spec=ExecSpec(device="cuda", tune=TuneConfig(
+        threshold=6, bk=32, ts_tile=32, **({"ts": 4} | layout))))
+    assert op.plan.meta["tc_nnz"] > 0.5 * a.nnz
+    t = op.arrays.for_backend("cuda")
+    seg = "_seg" if "tc_seg_vals" in t else ""
+    assert torch.equal(t["tc_len"], tc_real_lengths(t[f"tc{seg}_vals"],
+                                                    t[f"tc{seg}_cols"]))
+    b = torch.from_numpy(rng.integers(-4, 5, (a.k, 256)).astype(
+        np.float32)).to(card)
+    before = kernels.spmm_mxu.launches
+    got = op(b)
+    assert kernels.spmm_mxu.launches == before + 1
+    assert torch.equal(got, op(b, backend="torch"))
+
+
+def _sddmm_table(gen, k, m, nb, width, one_bit=False):
+    """A K3 segment table: windows in runs (as the plan orders them), the
+    last ones past the end of X; real columns a prefix of the SEG_LENS
+    lengths with random non-zero bitmaps (one bit each, as on a graph,
+    with ``one_bit``), padding (column 0, bitmap 0) after them."""
+    lens = torch.tensor(SEG_LENS * -(-nb // len(SEG_LENS)))[:nb]
+    lens = lens.clamp(max=width)
+    real = torch.arange(width)[None, :] < lens[:, None]
+    if one_bit:
+        bits = 1 << torch.randint(0, 8, (nb, width), generator=gen)
+    else:
+        bits = torch.randint(1, 256, (nb, width), generator=gen)
+    cols = torch.randint(0, k, (nb, width), generator=gen, dtype=torch.int32)
+    window = torch.randint(0, -(-m // 8) + 1, (nb,), generator=gen).sort()
+    return (torch.where(real, cols, 0),
+            torch.where(real, bits, 0).to(torch.int32),
+            window.values.to(torch.int32))
+
+
+@pytest.mark.parametrize("integers", [True, False], ids=["int", "rand"])
+@pytest.mark.parametrize("kf", [128, 64, 256, 30, 36])
+@pytest.mark.parametrize("width,one_bit", [(32, True), (128, False)],
+                         ids=["graph-like", "mixed-like"])
+def test_sddmm_mxu_matches_twin(card, kf, width, one_bit, integers):
+    """Every main-path width (kf = 128, 256) and 64, the scalar path
+    (30), a width that is no multiple of 16 (36); Y has enough rows that
+    kf is cut into 64-feature slices (two at kf = 128). Tables like the
+    graph's (32 columns, one bit a column, many chunks a warp) and the
+    mixed matrix's (128 columns, full bitmaps), with windows past the end
+    of X and segment lengths 0, 1, partial and full."""
+    gen = torch.Generator().manual_seed(kf + width)
+    m = 3001
+    cols, bits, window = _sddmm_table(gen, K_BIG, m, 3000, width, one_bit)
+    x = _data(gen, integers, m, kf).to(card)
+    y = _data(gen, integers, K_BIG, kf).to(card)
+    cols, bits, window = cols.to(card), bits.to(card), window.to(card)
+    before = kernels.sddmm_mxu.launches
+    out = kernels.sddmm_mxu(cols, bits, window, x, y)
+    assert kernels.sddmm_mxu.launches == before + 1
+    _agree_tf32(out, ref.sddmm_tc_ref(cols, bits, window, x, y), integers)
+
+
+@pytest.mark.parametrize("budget", [1, 64 * 4 * 3001], ids=["16", "64"])
+def test_sddmm_mxu_over_many_slices(card, budget):
+    """A smaller L2 budget cuts kf = 128 into eight 16-feature slices (or
+    two of 64): the later launches add their partial dot products to the
+    kept scores in order, exactly on integers."""
+    gen = torch.Generator().manual_seed(budget % 1000)
+    m, k, kf = 900, 3001, 128
+    cols, bits, window = _sddmm_table(gen, k, m, 500, 128)
+    x = _data(gen, True, m, kf).to(card)
+    y = _data(gen, True, k, kf).to(card)
+    cols, bits, window = cols.to(card), bits.to(card), window.to(card)
+    with mock.patch.object(_build, "L2_SLICE_BYTES", budget):
+        out = kernels.sddmm_mxu(cols, bits, window, x, y)
+    _agree_tf32(out, ref.sddmm_tc_ref(cols, bits, window, x, y), True)
+
+
+def test_sddmm_mxu_nan_rows_behind_zero_bitmaps(card):
+    """NaN Y rows that only padding or zero-bitmap columns name (Y[0],
+    the padding's row, among them), and NaN in an X row: the twin's
+    pattern bit for bit; a zero-bitmap column scores 0 whatever its Y row
+    holds."""
+    gen = torch.Generator().manual_seed(5)
+    m, k, kf = 800, 4000, 128
+    cols, bits, window = _sddmm_table(gen, k, m, 400, 128)
+    bits[3, 5:9] = 0                        # real columns, nothing kept
+    x = _data(gen, True, m, kf)
+    y = _data(gen, True, k, kf)
+    named = torch.zeros(k, dtype=torch.bool)
+    named[cols[bits != 0].long()] = True
+    hidden = torch.nonzero(~named).flatten()
+    y[0] = float("nan")
+    y[hidden[1:50]] = float("nan")
+    cols[3, 5:9] = hidden[1:5].to(torch.int32)
+    x[8 * int(window[7]) + 2] = float("nan")  # one X row of a window
+    x, y, cols, bits, window = (t.to(card) for t in (x, y, cols, bits,
+                                                     window))
+    got = kernels.sddmm_mxu(cols, bits, window, x, y)
+    want = ref.sddmm_tc_ref(cols, bits, window, x, y)
+    _same_non_finite(got, want)
+    assert bool(want.isnan().any())
+    assert not bool(got[3, :, 5:9].isnan().any())
+
+
+def test_sddmm_mxu_unaligned_operand_takes_the_scalar_path(card):
+    """X at an address that is not 16-byte aligned: 4-byte copies and
+    scalar X loads, over two 128-feature slices, still exact."""
+    gen = torch.Generator().manual_seed(6)
+    m, kf = 500, 256
+    buf = _data(gen, True, m * kf + 1).to(card)
+    x = buf[1:].view(m, kf)
+    y = _data(gen, True, K_BIG, kf).to(card)
+    cols, bits, window = (t.to(card) for t in _sddmm_table(
+        gen, K_BIG, m, 300, 32))
+    _agree_tf32(kernels.sddmm_mxu(cols, bits, window, x, y),
+                ref.sddmm_tc_ref(cols, bits, window, x, y), True)
+
+
+@pytest.mark.parametrize("layout", [{}, {"ts": 0, "cs": 0}],
+                         ids=["segment", "compact"])
+def test_sddmm_operator_tensor_core_path_matches_plain(card, layout):
+    """A plan that puts every non-zero on K3: the operator through the
+    kernels equals the plain path exactly on integers."""
+    a, rng = _int_csr(mixed_csr(1024, 1024, seed=3), 6)
+    op = LibraSDDMM(a, spec=ExecSpec(device="cuda", tune=TuneConfig(
+        threshold=1, bk=16, ts_tile=32, **({"ts": 8} | layout))))
+    assert op.plan.meta["tc_nnz"] == a.nnz
+    x = torch.from_numpy(rng.integers(-4, 5, (a.m, 128)).astype(
+        np.float32)).to(card)
+    y = torch.from_numpy(rng.integers(-4, 5, (a.k, 128)).astype(
+        np.float32)).to(card)
+    before = kernels.sddmm_mxu.launches
+    got = op(x, y)
+    assert kernels.sddmm_mxu.launches == before + 1
+    assert torch.equal(got, op(x, y, backend="torch"))
