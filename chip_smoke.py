@@ -41,26 +41,45 @@ Phases:
    ``generate(batch=4, prompt_len=16, gen=16)``; (d) the decode-step
    logits at the last prompt position against ``forward_logits`` on the
    same prompt; one more request under ``torch.profiler``.
+5. GNN training on the same graph: ``GraphOps`` built again with
+   ``ExecSpec(reorder="on")`` (host seconds, each leg's Tensor Core share
+   before and after), K1–K4 against their twins on the tables training
+   adds (A^T, and the reordered A, A^T and SDDMM(A)), then GCN and AGNN
+   ``[128, 256, 256, 40]`` from phase 3's weights take three full-batch
+   SGD steps each (cross-entropy over 40 seeded labels, lr 0.2) on both
+   ``GraphOps``: step ms, losses (the last must be below the first),
+   peak memory, and launches by plan leg and width. The first step's
+   gradients of every weight and β are held to the same step through
+   ``backend="torch"``, and both models' logits through the reordered
+   ``GraphOps`` to those through the unreordered one.
 
-Phases 2 and 3 are the GNN main path and phase 4's (a) and (c) the dense
-main path: every kernel's launch counter is set to 0 just before each
-path and read just after it. Each of K1–K4 must have launched on the
-GNN path, and K5 exactly 42 times (once per layer) per scoring request
-on the dense path; K1–K4's launches are also split by matrix and width
-from the per-step counts. GNN outputs are checked against the port's
-plain ``backend="torch"`` path on the card. Then each kernel is timed
+Phases 2 and 3 are the GNN inference path, phase 5's steps the GNN
+training path, and phase 4's (a) and (c) the dense main path: every
+kernel's launch counter is set to 0 just before each path and read just
+after it. Each of K1–K4 must have launched on both GNN paths, K1 and K3
+on the reordered A and SDDMM(A) (whose tables must hold real vectors and
+columns), and K5 exactly 42 times (once per layer) per scoring request
+on the dense path; K1–K4's launches are also split by matrix, plan leg
+and width from the per-step counts. GNN outputs are checked against the
+port's plain ``backend="torch"`` path on the card. Then each kernel is timed
 (CUDA events, median of 20 launches) beside its plain twin, one PyTorch
 library call computing the same stream's function, and its bound
 (compulsory bytes over 3.35 TB/s or operations over the data-sheet peak,
 whichever is larger; for K1–K4 the bytes count the real non-zeros' or
-real vectors' table entries, not the padding); K2 also at n=128 and 40,
-K3 at the mixed matrix, K4 at kf=256, K5 at gemma2's local shape and at
-D=128 GQA 32/8. K1 and K3 also run on their tables with every column
-folded into the first 4096 rows of the gathered operand, where every
-gather hits L2: the all-L2-hit yardstick. Last, one
-steady GCN and one AGNN request, and one apply of each operator of phase
-2 and of the graph's ``LibraSDDMM``, run under ``torch.profiler``: device
-busy time, idle share and the kernels that take the most device time.
+real vectors' table entries, not the padding, and once each row of a
+gathered operand that they name, not the whole operand). K1 and K3 are
+timed at the operators of phases 2-3 and where the training path gives
+them real work (the reordered A at n=256, the reordered SDDMM(A) at
+kf=128); K2 also at n=128 and 40, K4 at kf=256, K5 at gemma2's local
+shape and at D=128 GQA 32/8. K1 and K3 also run on their
+tables with every column folded into the first 4096 rows of the gathered
+operand, where every gather hits L2: the all-L2-hit yardstick. The
+reordered SDDMM(A) apply is split into its kernels and its combine. Last,
+one steady GCN and one AGNN request, one apply of each operator of phase
+2 and of the graph's ``LibraSDDMM``, and one steady GCN and one AGNN
+training step on the reordered ``GraphOps`` run under
+``torch.profiler``: device busy time, idle share, device time by group
+and the kernels that take the most device time.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises.
@@ -124,6 +143,22 @@ DECODE_REL = 5e-2
 # column into.
 HOT = 4096
 
+# Clock cycles of the device-side sleep that timed launches queue behind
+# (about 50 ms at the H100's 1.98 GHz).
+SLEEP_CYCLES = 100_000_000
+
+# The shape of each kernel's entry in the kernels line, the same since the
+# kernels were first timed: K1 at the mixed LibraSpMM, K3 at the graph's
+# LibraSDDMM, K2 and K4 at a GCN and an AGNN layer, K5 at gemma2-9b's
+# global layer. K1 and K3 at the reordered GNN legs are timing lines.
+KERNELS_LINE = {
+    "spmm_mxu": "mixed LibraSpMM n=256",
+    "spmm_vpu": "graph GraphOps A n=256",
+    "sddmm_mxu": "graph LibraSDDMM kf=128",
+    "sddmm_vpu": "graph GraphOps SDDMM kf=128",
+    "flash_attention": "gemma2 global S=8192",
+}
+
 KERNEL_INFO = {
     "spmm_mxu": ("src/repro/kernels/spmm_mxu.py:121", "tf32"),
     "spmm_vpu": ("src/repro/kernels/spmm_vpu.py:73", "fp32"),
@@ -160,7 +195,13 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.launch.serve import generate
     from repro_torch.models import api as model_api
-    from repro_torch.models.gnn import AGNN, GCN, GraphOps, gcn_norm_edges
+    from repro_torch.models.gnn import (
+        AGNN,
+        GCN,
+        GraphOps,
+        gcn_norm_edges,
+        train_step,
+    )
     from repro_torch.sparse import mixed_csr, power_law_csr
     from repro_torch.tune.model import TuneConfig
 
@@ -208,13 +249,20 @@ def main() -> int:
             threshold=1, bk=16, ts_tile=32, ts=8, cs=128))))
     gops = timed("GraphOps plans A, A^T, SDDMM(A) (graph, tune=off)",
                  lambda: GraphOps(graph))
+    gops_on = timed("GraphOps plans A, A^T, SDDMM(A) (graph, tune=off, "
+                    "reorder=on)",
+                    lambda: GraphOps(graph, spec=ExecSpec(reorder="on")))
     sddmm_graph = timed("LibraSDDMM plan (graph)", lambda: LibraSDDMM(
         graph, spec=ExecSpec(tune=TuneConfig(
             threshold=8, bk=16, ts_tile=32, ts=2, cs=32))))
     for label, plan in (("LibraSpMM mixed", spmm_mix.plan),
                         ("LibraSDDMM mixed", sddmm_mix.plan),
                         ("GraphOps SpMM", gops.arrs.plan),
+                        ("GraphOps SpMM A^T", gops.arrs_t.plan),
                         ("GraphOps SDDMM", gops.arrs_sd.plan),
+                        ("GraphOps SpMM reordered", gops_on.arrs.plan),
+                        ("GraphOps SpMM A^T reordered", gops_on.arrs_t.plan),
+                        ("GraphOps SDDMM reordered", gops_on.arrs_sd.plan),
                         ("LibraSDDMM graph", sddmm_graph.plan)):
         log(f"plan: {label}: tc_nnz={plan.meta['tc_nnz']} "
             f"vpu_nnz={plan.meta['vpu_nnz']} "
@@ -293,15 +341,18 @@ def main() -> int:
         "graph LibraSDDMM kf=128": (sddmm_graph.arrays, graph, 128),
     }
     twin_err: dict[tuple[str, str], float] = {}
-    log("phase 1: each kernel against its plain twin on the card")
-    for label, (pa, a, n) in spmm_cases.items():
+
+    def check_spmm(label, pa, a, n, ev_random):
+        """K1 and K2 on the tables of one SpMM plan at width n, against
+        their twins: integer data, then ``ev_random`` (the values the
+        main path gives this plan) with random B."""
         seg = pa.for_backend("cuda", revalue=True)
         for data in ("integer", "random"):
             if data == "integer":
                 ev = int_edges(a, 11)
                 b = seeded(12, a.k, n, integers=True)
             else:
-                ev = norm if a is graph else torch.from_numpy(a.data).to(dev)
+                ev = ev_random
                 b = seeded(13, a.k, n)
             t = ref.revalue_spmm_arrays(seg, ev)
             nseg = t["tc_seg_rank"].shape[0]
@@ -331,6 +382,32 @@ def main() -> int:
                     seg_len=t["vpu_len"]), k2):
                 fail(f"spmm_vpu {label} {data}: the plan's lengths and the "
                      "derived ones give different results")
+
+    def check_sddmm(label, pa, a, kf):
+        """K3 and K4 on the tables of one SDDMM plan at width kf, against
+        their twins on integer and random data."""
+        t = pa.for_backend("cuda")
+        for data in ("integer", "random"):
+            integers = data == "integer"
+            x = seeded(21, a.m, kf, integers=integers)
+            y = seeded(22, a.k, kf, integers=integers)
+            kind = "exact" if integers else None
+            twin_err[("sddmm_mxu", label)] = compare(
+                f"sddmm_mxu {label} {data}",
+                kernels.sddmm_mxu(t["tc_seg_cols"], t["tc_seg_bitmap"],
+                                  t["tc_seg_window"], x, y),
+                ref.sddmm_tc_ref(t["tc_seg_cols"], t["tc_seg_bitmap"],
+                                 t["tc_seg_window"], x, y),
+                kind or "tf32")
+            rows, cols = element_tables(t)
+            twin_err[("sddmm_vpu", label)] = compare(
+                f"sddmm_vpu {label} {data}", kernels.sddmm_vpu(rows, cols, x, y),
+                ref.sddmm_pair_scores(rows, cols, x, y), kind or "fp32")
+
+    log("phase 1: each kernel against its plain twin on the card")
+    for label, (pa, a, n) in spmm_cases.items():
+        check_spmm(label, pa, a, n, norm if a is graph
+                   else torch.from_numpy(a.data).to(dev))
     # K2 reads only each row's real prefix but adds the padding's
     # 0 * B[0] once to every shorter row, and its twin multiplies every
     # slot: with non-finite B rows and an exact-zero weight both give the
@@ -385,23 +462,7 @@ def main() -> int:
             f"({nseg} segments): {int(want.isnan().sum())} NaN and "
             f"{int(want.isinf().sum())} inf entries, identical to the twin")
     for label, (pa, a, kf) in sddmm_cases.items():
-        t = pa.for_backend("cuda")
-        for data in ("integer", "random"):
-            integers = data == "integer"
-            x = seeded(21, a.m, kf, integers=integers)
-            y = seeded(22, a.k, kf, integers=integers)
-            kind = "exact" if integers else None
-            twin_err[("sddmm_mxu", label)] = compare(
-                f"sddmm_mxu {label} {data}",
-                kernels.sddmm_mxu(t["tc_seg_cols"], t["tc_seg_bitmap"],
-                                  t["tc_seg_window"], x, y),
-                ref.sddmm_tc_ref(t["tc_seg_cols"], t["tc_seg_bitmap"],
-                                 t["tc_seg_window"], x, y),
-                kind or "tf32")
-            rows, cols = element_tables(t)
-            twin_err[("sddmm_vpu", label)] = compare(
-                f"sddmm_vpu {label} {data}", kernels.sddmm_vpu(rows, cols, x, y),
-                ref.sddmm_pair_scores(rows, cols, x, y), kind or "fp32")
+        check_sddmm(label, pa, a, kf)
     # K3 gathers nothing for a zero-bitmap column and scores it 0, as its
     # twin's where(mask, s, 0) does: NaN Y rows that only zero-bitmap
     # columns name (Y[0], the padding's row, among them) leave the scores
@@ -531,7 +592,16 @@ def main() -> int:
                if v <= 0 and k != "flash_attention"]
     if missing:
         fail(f"kernels never launched on the GNN path: {missing}")
-    by_shape = launches_by_shape(counts_by_step, gcn.dims, agnn.dims)
+    applies = {"LibraSpMM mixed n=256": {"spmm": ["mixed LibraSpMM n=256"],
+                                         "sddmm": []},
+               "LibraSDDMM mixed kf=128": {
+                   "spmm": [], "sddmm": ["mixed LibraSDDMM kf=128"]},
+               "LibraSDDMM graph kf=128": {
+                   "spmm": [], "sddmm": ["graph LibraSDDMM kf=128"]}}
+    for i in range(len(requests)):
+        applies[f"GCN request {i}"] = gnn_applies("GCN", gcn.dims)
+        applies[f"AGNN request {i}"] = gnn_applies("AGNN", agnn.dims)
+    by_shape = launches_by_shape(counts_by_step, applies)
     if any(sum(v.values()) != main_counts[k] for k, v in by_shape.items()):
         fail(f"launches by shape {by_shape} do not add up to {main_counts}")
     log(f"phases 2-3 launches by shape: {by_shape}")
@@ -572,18 +642,180 @@ def main() -> int:
     dense_counts = dense_phase(torch, np, dev, log, fail, compare, kernels,
                                model_api, get_config, generate)
 
+    # ------------------------------------------------ phase 5: GNN training
+    # The reordered legs, then kernels against their twins on the tables
+    # the training path adds (A^T, and the reordered A, A^T and SDDMM(A)).
+    legs = {"A": ("arrs", norm), "A^T": ("arrs_t", norm[gops.perm_dev]),
+            "SDDMM(A)": ("arrs_sd", None)}
+    for leg, (attr, _) in legs.items():
+        off, on = getattr(gops, attr).plan, getattr(gops_on, attr).plan
+        rep = on.meta["reorder"]
+        if not rep["enabled"]:
+            fail(f"phase 5: the reordered GraphOps leg {leg} is not reordered")
+        log(f"phase 5: leg {leg}: reorder report: projected TC fraction at "
+            f"the build's threshold {rep['tc_frac_before']:.4f} -> "
+            f"{rep['tc_frac_after']:.4f}, window density "
+            f"{rep['window_density_before']:.4f} -> "
+            f"{rep['window_density_after']:.4f}; plan TC nnz "
+            f"{off.meta['tc_nnz']} -> {on.meta['tc_nnz']} of {graph.nnz} "
+            f"(tc_ratio {off.meta['tc_ratio']:.4f} -> "
+            f"{on.meta['tc_ratio']:.4f})")
+    real_vectors = int(gops_on.arrs.tc_len().sum())
+    real_columns = int(torch.count_nonzero(
+        gops_on.arrs_sd.for_backend("cuda")["tc_seg_bitmap"]))
+    log(f"phase 5: reordered A: {real_vectors} real Tensor Core vectors; "
+        f"reordered SDDMM(A): {real_columns} real Tensor Core columns")
+    if not real_vectors or not real_columns:
+        fail("phase 5: the reordered A or SDDMM(A) plan gives K1 or K3 no "
+             "real work")
+    log("phase 5: kernels against their twins on the training path's "
+        "tables")
+    for tag, g in (("", gops), (" reordered", gops_on)):
+        for leg, widths in (("A", (256, 128, 40)), ("A^T", (256, 40))):
+            if leg == "A" and not tag:
+                continue          # phase 1 checked these
+            attr, ev = legs[leg]
+            for n in widths:
+                check_spmm(f"graph GraphOps {leg}{tag} n={n}",
+                           getattr(g, attr), graph, n, ev)
+    for kf in (128, 256):
+        check_sddmm(f"graph GraphOps SDDMM(A) reordered kf={kf}",
+                    gops_on.arrs_sd, graph, kf)
+
+    # Three full-batch SGD steps of each model on each GraphOps: the
+    # training path. Both models start from phase 3's weights. The labels
+    # are a teacher's: the argmax of a GCN of the same widths with seeded
+    # weights, through the plain path. Labels drawn independently of the
+    # features carry no signal, and at this graph's size their gradients
+    # average out so far that GCN's mean loss stays the same fp32 number
+    # over three steps at lr 0.2; a teacher's labels can be learned.
+    dims = gcn.dims
+    x_train = seeded(120, graph.m, dims[0])
+    with torch.no_grad():
+        teacher = GCN(dims, generator=torch.Generator().manual_seed(121))
+        labels = teacher.to(dev)(gops_plain, x_train, norm).argmax(-1)
+    del teacher
+    log(f"phase 5: labels from a seeded teacher GCN: "
+        f"{int(torch.unique(labels).numel())} of {dims[-1]} classes used, "
+        f"the largest {int(torch.bincount(labels).max())} of {graph.m} "
+        "nodes")
+    runs = [(f"{name} reorder {r}", g, model, args, r == "on")
+            for r, g in (("off", gops), ("on", gops_on))
+            for name, model, args in (("GCN", gcn, (norm,)),
+                                      ("AGNN", agnn, ()))]
+    train_counts_by_step, train_applies, trained = {}, {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for label, g, model0, args, reordered in runs:
+        model = copy.deepcopy(model0)
+        losses, ms = [], []
+        for i in range(3):
+            step_label = f"{label} step {i}"
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = train_step(model, g, x_train, labels, *args, lr=0.2)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            after = kernels.launch_counts()
+            train_counts_by_step[step_label] = {
+                k: after[k] - before[k] for k in after}
+            train_applies[step_label] = gnn_applies(
+                label.split()[0], dims, train=True, reordered=reordered)
+            losses.append(loss.item())
+            if i == 0:
+                grads0 = [p.grad.clone() for p in model.parameters()]
+        trained[label] = (losses, ms, grads0)
+    torch.cuda.synchronize()
+    train_counts = kernels.launch_counts()
+    train_peak = torch.cuda.max_memory_allocated()
+    log(f"phase 5 (training path) launches: {train_counts}")
+    for label, c in train_counts_by_step.items():
+        log(f"  {label}: {c}")
+    missing = [k for k, v in train_counts.items()
+               if v <= 0 and k != "flash_attention"]
+    if missing:
+        fail(f"kernels never launched on the training path: {missing}")
+    train_by_shape = launches_by_shape(train_counts_by_step, train_applies)
+    log(f"phase 5 launches by leg and width: {train_by_shape}")
+    for kern, leg in (("spmm_mxu", "graph GraphOps A reordered"),
+                      ("sddmm_mxu", "graph GraphOps SDDMM(A) reordered")):
+        if not any(k.startswith(leg) for k in train_by_shape[kern]):
+            fail(f"phase 5: {kern} never launched on {leg}")
+    for label, (losses, ms, _) in trained.items():
+        log(f"phase 5: {label} [128, 256, 256, 40] training step ms (host "
+            f"clock, first apart): first {ms[0]:.2f}; then "
+            + ", ".join(f"{v:.2f}" for v in ms[1:])
+            + "; losses " + ", ".join(repr(v) for v in losses))
+    log(f"phase 5: peak device memory {train_peak / 2**30:.2f} GiB")
+    flat = [label for label, (losses, _, _) in trained.items()
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]]
+    if flat:
+        fail(f"phase 5: the loss did not fall in {flat}")
+
+    log("phase 5: first-step gradients against the same step through "
+        "backend='torch' on the card; logits reordered against unreordered")
+    for label, g, model0, args, _ in runs:
+        plain = copy.copy(g)
+        plain.backend = "torch"
+        model = copy.deepcopy(model0)
+        train_step(model, plain, x_train, labels, *args, lr=0.2)
+        plans = [g.arrs.plan, g.arrs_t.plan]
+        if label.startswith("AGNN"):
+            plans.append(g.arrs_sd.plan)
+        kind = tol_kind(*plans)
+        names = [n for n, _ in model0.named_parameters()]
+        for name, got, p in zip(names, trained[label][2],
+                                model.parameters()):
+            compare(f"{label} first-step gradient {name}", got, p.grad, kind)
+    with torch.no_grad():
+        for name, model, args in (("GCN", gcn, (norm,)), ("AGNN", agnn, ())):
+            compare(f"{name} logits, GraphOps reorder on against off",
+                    model(gops_on, x_train, *args),
+                    model(gops, x_train, *args),
+                    tol_kind(gops_on.arrs.plan, gops_on.arrs_sd.plan))
+
     # ------------------------------------------------ timing and bounds
     def median_ms(fn, reps=20):
+        """Median device time of ``fn`` over ``reps`` runs, each between two
+        CUDA events. The runs are queued behind a device-side sleep of
+        about 50 ms, so the card runs them back to back and the events
+        time the card, not the host's launch path, which takes longer than
+        a short kernel. An event recorded right after the sleep shows
+        whether the sleep outlasted the host's enqueue of all the runs; if
+        not, the runs are timed again behind a sleep four times as long,
+        and if that is outlasted too, a line names the measurement (by
+        the line of ``fn`` in this file): its times include the host's
+        launch path (a plain twin that waits on the card does)."""
         fn()
         torch.cuda.synchronize()
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-        for s, e in ev:
-            s.record()
-            fn()
-            e.record()
-        torch.cuda.synchronize()
+        for cycles in (SLEEP_CYCLES, 4 * SLEEP_CYCLES):
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+            torch.cuda._sleep(cycles)
+            slept = torch.cuda.Event()
+            slept.record()
+            for s, e in ev:
+                s.record()
+                fn()
+                e.record()
+            queued = not slept.query()
+            torch.cuda.synchronize()
+            if queued:
+                break
+        else:
+            log(f"  (timing at chip_smoke.py:{fn.__code__.co_firstlineno}: "
+                f"the host's enqueue of {reps} runs outlasted a sleep of "
+                f"{cycles} cycles; these times include the host's launch "
+                "path)")
         return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+    def rows_read(*ids):
+        """Distinct rows that the index tensors ``ids`` name together: the
+        rows of a gathered operand a kernel must read at least once."""
+        return int(torch.unique(torch.cat(
+            [i.reshape(-1).long() for i in ids])).numel())
 
     coo_rows = {id(a): a.to_coo()[0] for a in (a_mix, graph)}
 
@@ -609,19 +841,28 @@ def main() -> int:
 
     entries = []
 
+    # The kernels line counts the launches of both GNN main paths:
+    # inference (phases 2-3) and training (phase 5).
+    gnn_counts = {k: main_counts[k] + train_counts[k] for k in main_counts}
+
     def record(name, label, ms, plain_ms, library_ms, nb, ops):
+        """Log one kernel's times and bound; at the kernel's shape in
+        KERNELS_LINE, also make it the kernel's entry in the kernels
+        line."""
         replaces, kind = KERNEL_INFO[name]
         bound_ms, bound_by = bound(nb, ops, kind)
         lib = "null" if library_ms is None else f"{library_ms:.4f}"
         log(f"  {name} [{label}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {lib} ms, bound {bound_ms:.4f} ms by {bound_by} "
             f"({nb / 1e6:.1f} MB, {ops / 1e9:.2f} G {kind} ops)")
+        if KERNELS_LINE[name] != label:
+            return
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
             "launches": (dense_counts if name == "flash_attention"
-                         else main_counts)[name],
+                         else gnn_counts)[name],
             "max_abs_err": twin_err[(name, label)], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms})
@@ -634,70 +875,101 @@ def main() -> int:
         log(f"  {name} [{label}], every gather an L2 hit (columns folded "
             f"into the first {HOT} rows): {median_ms(fn):.4f} ms")
 
-    # K1 at LibraSpMM mixed n=256 (the operator's own values) with the
-    # plan's lengths, as the main path calls it. Bytes: the real vectors'
-    # 8 values and column (36 bytes each), the lengths and ranks, B once
-    # and the output; operations 2 x real non-zeros x n.
-    t = spmm_mix.arrays.for_backend("cuda")
-    nseg = t["tc_seg_rank"].shape[0]
-    k1 = (t["tc_seg_vals"], t["tc_seg_cols"], t["tc_seg_rank"], b_mix)
-    k1_kw = dict(n_active=nseg, unique_ranks=True, seg_len=t["tc_len"])
-    k1_out = kernels.spmm_mxu(*k1, **k1_kw)
-    vectors = int(t["tc_len"].sum())
-    vals = torch.from_numpy(a_mix.data).to(dev)
-    lib_a = stream_csr(a_mix, spmm_mix.arrays.host["tc_pos"].ravel(), vals)
-    k1_bytes = vectors * 36 + nbytes(t["tc_len"], t["tc_seg_rank"], b_mix,
-                                     k1_out)
-    log(f"  spmm_mxu bytes: {vectors} real vectors of "
-        f"{t['tc_seg_cols'].numel()} slots, {k1_bytes / 1e6:.1f} MB (the "
-        f"padded tables counted whole: {nbytes(*k1, k1_out) / 1e6:.1f} MB)")
-    record("spmm_mxu", "mixed LibraSpMM n=256",
-           median_ms(lambda: kernels.spmm_mxu(*k1, **k1_kw)),
-           median_ms(lambda: ref.spmm_tc_compact_ref(*k1, nseg), reps=3),
-           median_ms(lambda: torch.sparse.mm(lib_a, b_mix)), k1_bytes,
-           2 * int(torch.count_nonzero(t["tc_seg_vals"])) * b_mix.shape[1])
-    hot = t["tc_seg_cols"] % HOT
-    yardstick("spmm_mxu", "mixed LibraSpMM n=256",
-              lambda: kernels.spmm_mxu(t["tc_seg_vals"], hot, *k1[2:],
-                                       **k1_kw))
-    del k1_out, hot
+    # K1 at LibraSpMM mixed n=256 (the operator's own values), the kernels
+    # line's shape, and where the training path gives it real work: the
+    # reordered GraphOps A at a GCN layer (normalized edges, n=256). Both
+    # with the plan's lengths, as the main path calls it. Bytes: the real
+    # vectors' 8 values and column (36 bytes each), the lengths and ranks,
+    # once each B row that a real vector names, and the output; operations
+    # 2 x real non-zeros x n.
+    b_graph = seeded(36, graph.k, 256)
+    for label, pa, a, vals, b in (
+            ("mixed LibraSpMM n=256", spmm_mix.arrays, a_mix,
+             torch.from_numpy(a_mix.data).to(dev), b_mix),
+            ("graph GraphOps A reordered n=256", gops_on.arrs, graph, norm,
+             b_graph)):
+        t = ref.revalue_spmm_arrays(pa.for_backend("cuda", revalue=True),
+                                    vals)
+        nseg = t["tc_seg_rank"].shape[0]
+        k1 = (t["tc_seg_vals"], t["tc_seg_cols"], t["tc_seg_rank"], b)
+        k1_kw = dict(n_active=nseg, unique_ranks=True, seg_len=t["tc_len"])
+        k1_out = kernels.spmm_mxu(*k1, **k1_kw)
+        vectors = int(t["tc_len"].sum())
+        real = (torch.arange(k1[1].shape[1], device=dev)
+                < t["tc_len"][:, None])
+        b_rows = rows_read(k1[1][real])
+        b_read = b_rows * b.shape[1] * b.element_size()
+        lib_a = stream_csr(a, pa.host["tc_pos"].ravel(), vals)
+        k1_bytes = vectors * 36 + b_read + nbytes(t["tc_len"],
+                                                  t["tc_seg_rank"], k1_out)
+        log(f"  spmm_mxu [{label}] bytes: {vectors} real vectors of "
+            f"{k1[1].numel()} slots, naming {b_rows} of B's {b.shape[0]} "
+            f"rows: {k1_bytes / 1e6:.1f} MB (B counted whole: "
+            f"{(k1_bytes - b_read + nbytes(b)) / 1e6:.1f} MB; the padded "
+            f"tables too: {nbytes(*k1, k1_out) / 1e6:.1f} MB)")
+        record("spmm_mxu", label,
+               median_ms(lambda: kernels.spmm_mxu(*k1, **k1_kw)),
+               median_ms(lambda: ref.spmm_tc_compact_ref(*k1, nseg), reps=3),
+               median_ms(lambda: torch.sparse.mm(lib_a, b)), k1_bytes,
+               2 * int(torch.count_nonzero(t["tc_seg_vals"])) * b.shape[1])
+        hot = t["tc_seg_cols"] % HOT
+        yardstick("spmm_mxu", label,
+                  lambda: kernels.spmm_mxu(t["tc_seg_vals"], hot, *k1[2:],
+                                           **k1_kw))
+        del k1_out, hot, t, k1, real
+    del b_graph
     # K2 at a GCN layer (GraphOps A with normalized edges, n=256) with the
     # plan's lengths, as the main path calls it; also at the other widths
     # the main path gives it (AGNN's first aggregation n=128, GCN's last
-    # n=40). Bytes: the real (value, column) pairs, the lengths, B once
-    # and the partials; operations 2 x real pairs x n.
+    # n=40). Bytes: the real (value, column) pairs, the lengths, once each
+    # B row that a row's real prefix names, and the partials; operations
+    # 2 x real pairs x n.
     t = ref.revalue_spmm_arrays(gops.arrs.for_backend("cuda", revalue=True),
                                 norm)
     real = int(np.count_nonzero(gops.arrs.host["vpu_seg_pos"] >= 0))
+    prefix = (torch.arange(t["vpu_seg_cols"].shape[1], device=dev)
+              < t["vpu_len"][:, None])
+    b_rows = rows_read(t["vpu_seg_cols"][prefix])
+    del prefix
     lib_a = stream_csr(graph, gops.arrs.host["vpu_pos"].ravel(), norm)
     for n in (256, 128, 40):
+        label = f"graph GraphOps A n={n}"
         b_gcn = seeded(41, graph.k, n)
         k2 = (t["vpu_seg_vals"], t["vpu_seg_cols"], b_gcn)
         k2_out = kernels.spmm_vpu(*k2, seg_len=t["vpu_len"])
         k2_ms = median_ms(lambda: kernels.spmm_vpu(*k2,
                                                    seg_len=t["vpu_len"]))
         lib_ms = median_ms(lambda: torch.sparse.mm(lib_a, b_gcn))
-        k2_bytes = real * 8 + nbytes(t["vpu_len"], b_gcn, k2_out)
+        b_read = b_rows * n * b_gcn.element_size()
+        k2_bytes = real * 8 + b_read + nbytes(t["vpu_len"], k2_out)
+        log(f"  spmm_vpu [{label}] bytes: {real} real pairs naming {b_rows} "
+            f"of B's {graph.k} rows: {k2_bytes / 1e6:.1f} MB (B counted "
+            f"whole: {(k2_bytes - b_read + nbytes(b_gcn)) / 1e6:.1f} MB)")
         if n == 256:
-            record("spmm_vpu", "graph GraphOps A n=256", k2_ms,
+            record("spmm_vpu", label, k2_ms,
                    median_ms(lambda: ref.spmm_tile_partials(*k2), reps=3),
                    lib_ms, k2_bytes, 2 * real * n)
         else:
             bound_ms, bound_by = bound(k2_bytes, 2 * real * n, "fp32")
-            log(f"  spmm_vpu [graph GraphOps A n={n}]: {k2_ms:.4f} ms, "
-                f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-                f"{bound_by} ({k2_bytes / 1e6:.1f} MB)")
-    del k2, k2_out, b_gcn
-    # K3 at LibraSDDMM graph kf=128 and, as a timing line, on the mixed
+            log(f"  spmm_vpu [{label}]: {k2_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+    del k2, k2_out, b_gcn, t
+    # K3 at LibraSDDMM graph kf=128 (the kernels line's shape), where the
+    # training path gives it real work (the reordered GraphOps SDDMM(A) at
+    # AGNN's first layer, kf=128) and, as a timing line, on the mixed
     # matrix; K4 at the AGNN first layer (kf=128) and, as a timing line, at
     # its later layers (kf=256). On the graph X and Y are one tensor, as in
-    # AGNN, and count once. K3's bytes: the real columns' (column, bitmap)
-    # pairs, the window ids, X and Y once and the scores once; K4's: the
-    # real (row, column) pairs, X once and the real scores.
+    # AGNN. K3's bytes: the real columns' (column, bitmap) pairs, the
+    # window ids, once each X row of a window with a real column and each
+    # Y row a real column names (a row of the one tensor once), and the
+    # scores; K4's: the real (row, column) pairs, once each X and Y row
+    # they name, and the real scores.
     x_graph256 = seeded(35, graph.m, 256)
     for name, pa, a, label, xg, yg in (
             ("sddmm_mxu", sddmm_graph.arrays, graph,
              "graph LibraSDDMM kf=128", x_graph, x_graph),
+            ("sddmm_mxu", gops_on.arrs_sd, graph,
+             "graph GraphOps SDDMM(A) reordered kf=128", x_graph, x_graph),
             ("sddmm_mxu", sddmm_mix.arrays, a_mix, "mixed LibraSDDMM kf=128",
              x_mix, y_mix),
             ("sddmm_vpu", gops.arrs_sd, graph, "graph GraphOps SDDMM kf=128",
@@ -707,33 +979,47 @@ def main() -> int:
         t = pa.for_backend("cuda")
         host = pa.host
         kf = xg.shape[1]
-        xy = nbytes(xg) + (nbytes(yg) if yg is not xg else 0)
         if name == "sddmm_mxu":
             args = (t["tc_seg_cols"], t["tc_seg_bitmap"], t["tc_seg_window"],
                     xg, yg)
             kern, twin = kernels.sddmm_mxu, ref.sddmm_tc_ref
             pos = host["tc_out_pos"].ravel()
             useful = int(np.count_nonzero(pos >= 0))
+            real = args[1] != 0
+            columns = int(real.sum())
+            xr = (args[2][real.any(1)].long()[:, None] * 8
+                  + torch.arange(8, device=dev)).reshape(-1)
+            xr, yr = xr[xr < xg.shape[0]], args[0][real]
             out = kern(*args)
-            columns = int(torch.count_nonzero(args[1]))
-            nb = columns * 8 + nbytes(args[2], out) + xy
-            log(f"  sddmm_mxu [{label}] bytes: {columns} real columns of "
-                f"{args[0].numel()}, {nb / 1e6:.1f} MB (the padded tables "
-                f"counted whole: {nbytes(*args[:3], out) / 1e6 + xy / 1e6:.1f}"
-                " MB)")
-            del out
+            table_bytes = columns * 8 + nbytes(args[2], out)
+            del out, real
         else:
             args = (*element_tables(t), xg, yg)
             kern, twin = kernels.sddmm_vpu, ref.sddmm_pair_scores
             pos = np.where(host["vpu_mask"], host["vpu_out_pos"], -1).ravel()
             useful = int(host["vpu_mask"].sum())
-            nb = useful * 12 + xy
+            mask = t["vpu_seg_mask" if "vpu_seg_rows" in t else "vpu_mask"]
+            xr, yr = args[0][mask], args[1][mask]
+            table_bytes = useful * 12
+            del mask
+        if yg is xg:
+            xy_rows = rows_read(xr, yr)
+            what = f"{xy_rows} of X = Y's {xg.shape[0]} rows"
+        else:
+            xy_rows = rows_read(xr) + rows_read(yr)
+            what = f"{xy_rows} rows of X and Y"
+        nb = table_bytes + xy_rows * kf * xg.element_size()
+        whole = table_bytes + nbytes(xg) + (nbytes(yg) if yg is not xg else 0)
+        log(f"  {name} [{label}] bytes: {useful} real scores, {what}: "
+            f"{nb / 1e6:.1f} MB (X and Y counted whole: {whole / 1e6:.1f} MB)")
+        del xr, yr
         lib_a = stream_csr(a, pos, torch.ones(a.nnz, device=dev))
         # The yardstick only: the port never calls it.
         library_ms = median_ms(lambda: torch.sparse.sampled_addmm(
             lib_a, xg, yg.t(), beta=0.0))
         ms = median_ms(lambda: kern(*args))
-        if label in ("graph LibraSDDMM kf=128",
+        if label in ("graph GraphOps SDDMM(A) reordered kf=128",
+                     "graph LibraSDDMM kf=128",
                      "graph GraphOps SDDMM kf=128"):
             record(name, label, ms, median_ms(lambda: twin(*args), reps=3),
                    library_ms, nb, 2 * useful * kf)
@@ -741,13 +1027,41 @@ def main() -> int:
             bound_ms, bound_by = bound(nb, 2 * useful * kf,
                                        KERNEL_INFO[name][1])
             log(f"  {name} [{label}]: {ms:.4f} ms, library {library_ms:.4f} "
-                f"ms, bound {bound_ms:.4f} ms by {bound_by} "
-                f"({nb / 1e6:.1f} MB)")
+                f"ms, bound {bound_ms:.4f} ms by {bound_by}")
         if name == "sddmm_mxu":
             hot = args[0] % HOT
             yardstick(name, label, lambda: kern(hot, *args[1:]))
             del hot
     del x_graph256
+
+    # The SDDMM apply on the reordered SDDMM(A) at AGNN's first layer
+    # (kf=128), split: both kernels, then the combine (ref.scatter_scores:
+    # one index_add_ of every slot of both streams' outputs into the
+    # (nnz + 1,) scores, the padding into one swallow slot).
+    log("timing: the SDDMM apply on the reordered SDDMM(A), split into its "
+        "kernels and its combine")
+    t = gops_on.arrs_sd.for_backend("cuda")
+    rows, cols = element_tables(t)
+    el = "vpu_seg" if "vpu_seg_rows" in t else "vpu"
+    tc_args = (t["tc_seg_cols"], t["tc_seg_bitmap"], t["tc_seg_window"],
+               x_graph, x_graph)
+    s_tc = kernels.sddmm_mxu(*tc_args)
+    s_el = torch.where(t[f"{el}_mask"],
+                       kernels.sddmm_vpu(rows, cols, x_graph, x_graph), 0.0)
+    comb = (s_tc, t["tc_seg_out_pos"], s_el, t[f"{el}_out_pos"],
+            t[f"{el}_mask"], graph.nnz)
+    apply_ms = median_ms(lambda: gops_on._sddmm_apply(x_graph, x_graph))
+    k3_ms = median_ms(lambda: kernels.sddmm_mxu(*tc_args))
+    k4_ms = median_ms(lambda: kernels.sddmm_vpu(rows, cols, x_graph,
+                                                x_graph))
+    comb_ms = median_ms(lambda: ref.scatter_scores(*comb))
+    log(f"  SDDMM(A) reordered kf=128: apply {apply_ms:.4f} ms (X gathered "
+        f"into the reordered rows, both kernels, combine); K3 {k3_ms:.4f} "
+        f"ms, K4 {k4_ms:.4f} ms, combine {comb_ms:.4f} ms "
+        f"({comb_ms / apply_ms:.3f} of the apply) over "
+        f"{s_tc.numel() + s_el.numel()} slots, "
+        f"{int((t['tc_seg_out_pos'] < 0).sum())} of them padding")
+    del s_tc, s_el, comb, t, rows, cols
 
     # K5 at gemma2-9b's global layer (the costliest attention call of a
     # scoring request). The library yardstick is one SDPA call; SDPA has
@@ -815,14 +1129,25 @@ def main() -> int:
     log("profile: one steady request per model and one apply per "
         "operator (torch.profiler, device time by kernel)")
     for name, run in (("GCN", lambda: gcn(gops, requests[0], norm)),
-                      ("AGNN", lambda: agnn(gops, requests[0])),
-                      ("LibraSpMM mixed n=256", lambda: spmm_mix(b_mix)),
+                      ("AGNN", lambda: agnn(gops, requests[0]))):
+        profile_request(torch, log, name, run, classify_gnn)
+    for name, run in (("LibraSpMM mixed n=256", lambda: spmm_mix(b_mix)),
                       ("LibraSDDMM mixed kf=128",
                        lambda: sddmm_mix(x_mix, y_mix)),
                       ("LibraSDDMM graph kf=128",
                        lambda: sddmm_graph(x_graph, x_graph))):
         profile_request(torch, log, name, run)
+    log("profile: one steady training step per model, GraphOps reorder on")
+    for name, model, args in (("GCN", gcn, (norm,)), ("AGNN", agnn, ())):
+        model = copy.deepcopy(model)
+        profile_request(
+            torch, log, f"{name} training step (reorder on)",
+            lambda: train_step(model, gops_on, x_train, labels, *args,
+                               lr=0.2),
+            classify_gnn, grad=True)
 
+    if sorted(e["name"] for e in entries) != sorted(KERNELS_LINE):
+        fail(f"the kernels line holds {[e['name'] for e in entries]}")
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": entries}), flush=True)
@@ -900,25 +1225,40 @@ def _instance(entry: str):
     return None
 
 
-def launches_by_shape(counts_by_step, gcn_dims, agnn_dims):
-    """Launches of K1–K4 on the GNN main path by matrix and width, from
-    the per-step counts: a LibraSpMM/LibraSDDMM step applies once at its
-    own width; a GCN request aggregates at each layer's output width, an
-    AGNN request scores and aggregates at each layer's input width.
-    Fails if a step's count differs from its number of applies."""
+def gnn_applies(model, dims, *, train=False, reordered=False):
+    """The sparse applies of one GNN request or training step, by plan leg
+    (A, A^T, SDDMM(A)) and width: a GCN layer aggregates at its output
+    width, an AGNN layer scores and aggregates at its input width. A
+    training step adds the VJPs' applies: GCN an A^T apply a layer (dB;
+    the fixed edge values need no dv); AGNN an SDDMM a layer (dv of the
+    attention) and, past the first layer, whose input needs no gradient,
+    A^T for dB plus A and A^T for the scores' dX and dY."""
+    tag = " reordered" if reordered else ""
+    a, at, sd = (f"graph GraphOps {leg}{tag}"
+                 for leg in ("A", "A^T", "SDDMM(A)"))
+    if model == "GCN":
+        spmm = [f"{a} n={d}" for d in dims[1:]]
+        sddmm = []
+        if train:
+            spmm += [f"{at} n={d}" for d in dims[1:]]
+    else:
+        spmm = [f"{a} n={d}" for d in dims[:-1]]
+        sddmm = [f"{sd} kf={d}" for d in dims[:-1]]
+        if train:
+            sddmm += sddmm
+            for d in dims[1:-1]:
+                spmm += [f"{at} n={d}", f"{a} n={d}", f"{at} n={d}"]
+    return {"spmm": spmm, "sddmm": sddmm}
+
+
+def launches_by_shape(counts_by_step, applies_by_step):
+    """Launches of K1–K4 by matrix, plan leg and width, from the per-step
+    counts and each step's applies ({"spmm": [labels], "sddmm": [...]});
+    every apply launches both of its operator's kernels once. Fails if a
+    step's count differs from its number of applies."""
     widths = {"spmm": {}, "sddmm": {}}
     for step, counts in counts_by_step.items():
-        plan = {"spmm": [], "sddmm": []}
-        op, matrix, width = step.split()[:3]
-        if op in ("LibraSpMM", "LibraSDDMM"):
-            plan[op[5:].lower()] = [f"{matrix} {op} {width}"]
-        elif op == "GCN":
-            plan["spmm"] = [f"graph GraphOps n={d}" for d in gcn_dims[1:]]
-        elif op == "AGNN":
-            plan["spmm"] = [f"graph GraphOps n={d}" for d in agnn_dims[:-1]]
-            plan["sddmm"] = [f"graph GraphOps kf={d}"
-                             for d in agnn_dims[:-1]]
-        for op, names in plan.items():
+        for op, names in applies_by_step[step].items():
             for kern in (f"{op}_mxu", f"{op}_vpu"):
                 if counts[kern] != len(names):
                     fail(f"{step}: {counts[kern]} {kern} launches, expected "
@@ -929,18 +1269,37 @@ def launches_by_shape(counts_by_step, gcn_dims, agnn_dims):
             for s in ("mxu", "vpu")}
 
 
-def profile_request(torch, log, name, run, classify=None):
+def classify_gnn(key: str) -> str:
+    """The group of a kernel of a GNN request or training step."""
+    k = key.lower()
+    for kern, group in (("spmm_mxu", "K1 spmm_mxu"),
+                        ("spmm_vpu", "K2 spmm_vpu"),
+                        ("sddmm_mxu", "K3 sddmm_mxu"),
+                        ("sddmm_vpu", "K4 sddmm_vpu"),
+                        ("indexfunc", "combines (index_add_)"),
+                        ("scatter_gather", "scatter_reduce (softmax max)")):
+        if kern in k:
+            return group
+    if any(w in k for w in ("index_elementwise", "indexselect", "gather")):
+        return "gathers (revaluation, permutes, softmax)"
+    if any(w in k for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+        return "dense products (torch.matmul)"
+    return "rest (elementwise, reductions, copies)"
+
+
+def profile_request(torch, log, name, run, classify=None, grad=False):
     """Run ``run()`` twice under ``torch.profiler``, the first as a
     warm-up step, and print the second's device busy time, span, idle
     shares and top kernels; with ``classify`` (kernel name → group) also
-    the device time by group."""
+    the device time by group. Autograd is off unless ``grad`` (a
+    training step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     # The profiler missed the first kernel launched after it started (the
     # operators' first kernel was absent from their profiles), so a first
     # run is a warm-up step whose events are discarded.
-    with torch.no_grad(), profile(activities=[
+    with torch.set_grad_enabled(grad), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA],
             schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         run()

@@ -35,7 +35,8 @@ class ExecSpec:
       threshold:        SpMM TC/VPU vector threshold (None → default)
       sddmm_threshold:  SDDMM block threshold (None → default)
       bk / ts_tile:     condensed block depth / VPU tile width overrides
-      reorder:          "off" only (row reordering: ROADMAP queue 1 item 8)
+      reorder:          "off" | "on" (row reordering,
+                        :mod:`repro_torch.reorder`; "auto": item 9)
       tune:             "off" | TuneConfig ("model"/"search": item 9)
       tune_n / tune_kf: SpMM / SDDMM dense width the model tuner prices;
                         no effect until that tuner is ported (item 9)
@@ -60,12 +61,14 @@ class ExecSpec:
     def __post_init__(self):
         if self.mode not in ("hybrid", "tcu", "vpu"):
             raise ValueError(f"unknown mode {self.mode!r}")
-        if self.reorder in ("on", "auto"):
+        if self.reorder == "auto":
             raise NotImplementedError(
-                f"reorder={self.reorder!r} is not ported yet "
-                "(ROADMAP queue 1 item 8, reorder/)")
-        if self.reorder != "off":
-            raise ValueError(f"reorder must be 'off', got {self.reorder!r}")
+                "reorder='auto' is not ported yet: its decision is priced "
+                "and cached with the tuner (ROADMAP queue 1 item 9); pass "
+                "'off' or 'on'")
+        if self.reorder not in ("off", "on"):
+            raise ValueError(
+                f"reorder must be 'off' or 'on', got {self.reorder!r}")
         if self.tune in ("model", "search"):
             raise NotImplementedError(
                 f"tune={self.tune!r} is not ported yet (ROADMAP queue 1 "

@@ -27,9 +27,15 @@ from repro_torch.core.formats import (
     WINDOW,
 )
 from repro_torch.core.windows import extract_windows, num_windows
+from repro_torch.reorder import (
+    Reordering,
+    apply_reorder,
+    reorder_gain,
+    reorder_rows,
+)
 from repro_torch.sparse.matrix import SparseCSR
 from repro_torch.tune import resolve_tune
-from repro_torch.tune.model import TuneConfig
+from repro_torch.tune.model import TuneConfig, matrix_features
 
 DEFAULT_SPMM_THRESHOLD = 3    # paper Fig. 11: optimal ≈ 3 for 8×1 vectors
 DEFAULT_SDDMM_THRESHOLD = 24  # paper Fig. 11: optimal ≈ 24 for 8×16 blocks
@@ -453,21 +459,83 @@ def preprocess_sddmm(
     return SDDMMPlan(a.m, a.k, a.nnz, threshold, tc, tc_out_pos, vpu, meta)
 
 
+def _maybe_reorder(a: SparseCSR, *, spec, threshold: int):
+    """Resolve ``spec.reorder`` for one build (``"off"`` or ``"on"``).
+
+    Returns ``(a_eff, reord, report)``: the matrix to preprocess
+    (reordered or original), the :class:`repro_torch.reorder.Reordering`
+    (None when off, or when the matrix is empty or one window tall), and
+    the report ``plan.meta["reorder"]`` keeps: ``mode``, ``enabled`` and,
+    when reordered, :func:`~repro_torch.reorder.reorder_gain`'s projected
+    Tensor Core fractions at ``threshold`` from two
+    :func:`~repro_torch.tune.model.matrix_features` passes.
+    """
+    mode = spec.reorder
+    if mode == "off" or a.nnz == 0 or a.m <= WINDOW:
+        return a, None, {"mode": mode, "enabled": False}
+    reord = reorder_rows(a)
+    a_r = apply_reorder(a, reord)
+    gain = reorder_gain(matrix_features(a), matrix_features(a_r), threshold)
+    return a_r, reord, {"mode": mode, "enabled": True, **gain}
+
+
+def _remap_positions(pos: np.ndarray, nnz_perm: np.ndarray) -> np.ndarray:
+    """Rewrite a plan ``pos`` tensor (−1 padded) from reordered-canonical
+    to original-canonical nnz positions, so revaluation keeps taking
+    original-order ``edge_vals``. The −1 pattern, and with it the real
+    lengths derived from it, is unchanged."""
+    take = nnz_perm.astype(np.int32)
+    return np.where(pos >= 0, take[np.maximum(pos, 0)],
+                    np.int32(-1)).astype(np.int32)
+
+
+def _remap_spmm_plan(plan: SpMMPlan, nnz_perm: np.ndarray) -> SpMMPlan:
+    tc = plan.tc
+    if tc.pos is not None:
+        tc = dataclasses.replace(tc, pos=_remap_positions(tc.pos, nnz_perm))
+    vpu = plan.vpu
+    if vpu.pos is not None:
+        vpu = dataclasses.replace(vpu,
+                                  pos=_remap_positions(vpu.pos, nnz_perm))
+    return dataclasses.replace(plan, tc=tc, vpu=vpu)
+
+
+def _remap_sddmm_plan(plan: SDDMMPlan, nnz_perm: np.ndarray) -> SDDMMPlan:
+    out_pos = _remap_positions(plan.tc_out_pos, nnz_perm)
+    take = nnz_perm.astype(np.int32)
+    vpu = plan.vpu
+    # COOTiles pads with mask=False / out_pos=0 — keep padding at 0.
+    vpu = dataclasses.replace(
+        vpu, out_pos=np.where(vpu.mask, take[vpu.out_pos],
+                              np.int32(0)).astype(np.int32))
+    return dataclasses.replace(plan, tc_out_pos=out_pos, vpu=vpu)
+
+
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """The supported entry point for building one operator's plan.
 
     ``Plan.build(a, op, spec)`` resolves the :class:`repro_torch.api.ExecSpec`
-    (mode → forced threshold, ``tune`` → :class:`TuneConfig`) and runs
-    preprocessing. Row reordering is not ported yet (``spec.reorder``
-    can only be ``"off"``), so ``a`` is always the input matrix.
+    (mode → forced threshold, ``tune`` → :class:`TuneConfig`), applies
+    row reordering when ``spec.reorder == "on"`` (:mod:`repro_torch.reorder`)
+    and runs preprocessing. A reordered plan's position maps (``pos``,
+    ``out_pos``) are rewritten to the *original* matrix's canonical nnz
+    positions, so ``edge_vals`` revaluation takes original-order values
+    and SDDMM outputs land in original order.
 
     Fields:
-      op:    "spmm" | "sddmm"
-      spec:  the :class:`~repro_torch.api.ExecSpec`
-      cfg:   the resolved :class:`~repro_torch.tune.model.TuneConfig`
-      plan:  :class:`SpMMPlan` / :class:`SDDMMPlan`
-      a:     the matrix the plan was built on
+      op:      "spmm" | "sddmm"
+      spec:    the :class:`~repro_torch.api.ExecSpec`
+      cfg:     the resolved :class:`~repro_torch.tune.model.TuneConfig`
+      plan:    :class:`SpMMPlan` / :class:`SDDMMPlan`; ``plan.meta
+               ["reorder"]`` records the decision and density deltas
+      a:       the matrix the plan was built on — the reordered view
+               when reordering was applied, else the input matrix
+      reorder: the :class:`~repro_torch.reorder.Reordering`, or None.
+               SpMM callers unpermute outputs with one
+               ``index_select(0, reorder.row_inv)``; SDDMM callers gather
+               X's rows with ``reorder.row_perm`` (outputs already land
+               in original canonical order).
     """
 
     op: str
@@ -475,6 +543,7 @@ class Plan:
     cfg: TuneConfig
     plan: SpMMPlan | SDDMMPlan
     a: SparseCSR
+    reorder: Reordering | None
 
     @classmethod
     def build(cls, a: SparseCSR, op: str, spec=None, *,
@@ -490,20 +559,30 @@ class Plan:
         if op == "spmm":
             forced = (threshold_for_mode_spmm(mode, spec.threshold)
                       if mode != "hybrid" else spec.threshold)
-            cfg = resolve_tune(spec.tune, threshold=forced, bk=spec.bk,
-                               ts_tile=spec.ts_tile)
-            thr = threshold_for_mode_spmm(mode, cfg.threshold)
-            plan = preprocess_spmm(a, thr, bk=spec.bk, ts_tile=spec.ts_tile,
-                                   balance=balance, cfg=cfg)
+            guess = DEFAULT_SPMM_THRESHOLD if forced is None else forced
         else:
             bk_eff = DEFAULT_BK_SDDMM if spec.bk is None else spec.bk
             forced = (threshold_for_mode_sddmm(mode, bk_eff,
                                                spec.sddmm_threshold)
                       if mode != "hybrid" else spec.sddmm_threshold)
-            cfg = resolve_tune(spec.tune, threshold=forced, bk=spec.bk,
-                               ts_tile=spec.ts_tile)
+            guess = DEFAULT_SDDMM_THRESHOLD if forced is None else forced
+        a_eff, reord, report = _maybe_reorder(a, spec=spec, threshold=guess)
+        cfg = resolve_tune(spec.tune, threshold=forced, bk=spec.bk,
+                           ts_tile=spec.ts_tile)
+        if op == "spmm":
+            thr = threshold_for_mode_spmm(mode, cfg.threshold)
+            plan = preprocess_spmm(a_eff, thr, bk=spec.bk,
+                                   ts_tile=spec.ts_tile, balance=balance,
+                                   cfg=cfg)
+            if reord is not None:
+                plan = _remap_spmm_plan(plan, reord.nnz_perm)
+        else:
             thr = threshold_for_mode_sddmm(mode, bk_eff, cfg.threshold)
-            plan = preprocess_sddmm(a, thr, bk=spec.bk, ts_tile=spec.ts_tile,
-                                    balance=balance, cfg=cfg)
-        plan.meta["reorder"] = {"mode": spec.reorder, "enabled": False}
-        return cls(op=op, spec=spec, cfg=cfg, plan=plan, a=a)
+            plan = preprocess_sddmm(a_eff, thr, bk=spec.bk,
+                                    ts_tile=spec.ts_tile, balance=balance,
+                                    cfg=cfg)
+            if reord is not None:
+                plan = _remap_sddmm_plan(plan, reord.nnz_perm)
+        plan.meta["reorder"] = report
+        return cls(op=op, spec=spec, cfg=cfg, plan=plan, a=a_eff,
+                   reorder=reord)

@@ -4,7 +4,9 @@ Output follows the canonical CSR (row-major, column-sorted) non-zero
 order of the mask matrix, so GNN attention pipelines can chain
 ``SDDMM → softmax-by-row → SpMM`` without reindexing. Knobs live on one
 frozen :class:`repro_torch.api.ExecSpec`; the SDDMM block threshold is
-``ExecSpec.sddmm_threshold``.
+``ExecSpec.sddmm_threshold``. With ``ExecSpec(reorder="on")`` X is
+gathered into the reordered row space; the outputs still land in the
+original matrix's canonical order.
 """
 from __future__ import annotations
 
@@ -34,8 +36,15 @@ class LibraSDDMM:
         built = preprocess.Plan.build(a, "sddmm", spec, balance=balance)
         self.tune_config: TuneConfig = built.cfg
         self.plan: SDDMMPlan = built.plan
+        self.reorder = built.reorder
+        # The output scatter maps point back to original canonical nnz
+        # order, so only the row operand is permuted: x_r = x[row_perm].
+        self._row_perm = (None if built.reorder is None else
+                          torch.from_numpy(built.reorder.row_perm).to(
+                              self.device))
         self.arrays = PlanArrays(self.plan, self.device)
-        # CSR structure for chaining into softmax/SpMM.
+        # CSR structure for chaining into softmax/SpMM: the original
+        # matrix's (outputs land in its canonical order).
         self.indptr = np.asarray(a.indptr)
         self.indices = np.asarray(a.indices)
 
@@ -45,6 +54,13 @@ class LibraSDDMM:
             raise ValueError(f"x needs ≥ {self.m} rows and y ≥ {self.k}, "
                              f"got {x.shape[0]} and {y.shape[0]}")
         backend = self.spec.backend if backend is None else backend
+        if self._row_perm is not None:
+            # Rows of x past m stay in place.
+            perm = self._row_perm
+            if x.shape[0] > self.m:
+                perm = torch.cat([perm, torch.arange(
+                    self.m, x.shape[0], device=perm.device)])
+            x = x.index_select(0, perm)
         arrs = self.arrays.for_backend(backend)
         return sddmm_apply(arrs, x, y, nnz=self.nnz, backend=backend)
 

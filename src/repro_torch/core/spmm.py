@@ -11,7 +11,9 @@ single-resource ablation modes (paper §5.4.1) are exposed through the
 threshold: ``mode="tcu"`` forces every vector to the Tensor Core
 stream, ``mode="vpu"`` everything to the CUDA-core stream, and
 ``mode="hybrid"`` uses the 2D-aware distribution. The chosen config is
-``op.tune_config``.
+``op.tune_config``. With ``ExecSpec(reorder="on")`` the plan is built on
+the row-reordered matrix and the output is unpermuted by one gather;
+the :class:`~repro_torch.reorder.Reordering` is ``op.reorder``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,12 @@ class LibraSpMM:
         built = preprocess.Plan.build(a, "spmm", spec, balance=balance)
         self.tune_config: TuneConfig = built.cfg
         self.plan: SpMMPlan = built.plan
+        self.reorder = built.reorder
+        # One-gather unpermute epilogue: reordered output row
+        # row_inv[j] is original row j.
+        self._row_unperm = (None if built.reorder is None else
+                            torch.from_numpy(built.reorder.row_inv).to(
+                                self.device))
         self.arrays = PlanArrays(self.plan, self.device)
 
     def __call__(self, b: torch.Tensor,
@@ -51,7 +59,10 @@ class LibraSpMM:
         backend = self.spec.backend if backend is None else backend
         # Only the key set this backend's apply reads is uploaded.
         arrs = self.arrays.for_backend(backend)
-        return spmm_apply(arrs, b, m=self.m, nwin=self.nwin, backend=backend)
+        out = spmm_apply(arrs, b, m=self.m, nwin=self.nwin, backend=backend)
+        if self._row_unperm is not None:
+            out = out.index_select(0, self._row_unperm)
+        return out
 
     @property
     def tc_ratio(self) -> float:

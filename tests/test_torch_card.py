@@ -1,6 +1,8 @@
 """Kernels on the card against their plain twins: K5 and the dense path,
-the two CUDA-core streams K2 (``spmm_vpu``) and K4 (``sddmm_vpu``), and
-the two Tensor Core streams K1 (``spmm_mxu``) and K3 (``sddmm_mxu``).
+the two CUDA-core streams K2 (``spmm_vpu``) and K4 (``sddmm_vpu``), the
+two Tensor Core streams K1 (``spmm_mxu``) and K3 (``sddmm_mxu``), and
+GNN training through all four (``GraphOps`` forward and backward, with
+row reordering off and on, against the plain ``backend="torch"`` path).
 
 These tests need an NVIDIA GPU (Hopper, ``sm_90a``) and ``nvcc``; they
 are marked ``cuda`` and skip without a card. On the card:
@@ -18,6 +20,7 @@ small integers are exact in any order), rtol 1e-5 and atol
 compute in TF32 (10 mantissa bits): exact on integer data in [-4, 4]
 (TF32 holds such values exactly), max|Δ| ≤ 2e-2·max|ref| on random data.
 """
+import copy
 from unittest import mock
 
 import numpy as np
@@ -34,8 +37,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels.spmm_mxu import real_lengths as tc_real_lengths
 from repro_torch.kernels.spmm_vpu import real_lengths
-from repro_torch.models import api, layers
-from repro_torch.sparse import mixed_csr, power_law_csr
+from repro_torch.models import api, gnn, layers
+from repro_torch.sparse import coo_to_csr, mixed_csr, power_law_csr
 from repro_torch.tune.model import TuneConfig
 
 REL = 2e-2
@@ -621,3 +624,105 @@ def test_sddmm_operator_tensor_core_path_matches_plain(card, layout):
     got = op(x, y)
     assert kernels.sddmm_mxu.launches == before + 1
     assert torch.equal(got, op(x, y, backend="torch"))
+
+
+def _training_graph(card, reorder, backend="cuda"):
+    """A shuffled power-law graph (rows permuted, so reordering has
+    windows to densify) with non-zero integer edge values, and a config
+    that puts work on both Tensor Core streams."""
+    a = power_law_csr(1000, 1000, 8.0, alpha=1.5, seed=7)
+    rows, cols, _ = a.to_coo()
+    rng = np.random.default_rng(8)
+    vals = rng.integers(1, 5, a.nnz) * rng.choice([-1, 1], a.nnz)
+    a = coo_to_csr(a.m, a.k, rng.permutation(a.m)[rows], cols,
+                   vals.astype(np.float32))
+    return gnn.GraphOps(a, spec=ExecSpec(
+        device="cuda", backend=backend, reorder=reorder,
+        tune=TuneConfig(threshold=2, ts=2, cs=32)))
+
+
+def _plain(g):
+    """The same plans through the plain PyTorch path."""
+    plain = copy.copy(g)
+    plain.backend = "torch"
+    return plain
+
+
+def _graph_vjps(g, inputs, expanded=False):
+    ev, b, dc, x, y, dv = (t.clone() for t in inputs)
+    for t in (ev, b, x, y):
+        t.requires_grad_()
+    out_c, out_s = g.spmm(ev, b), g.sddmm(x, y)
+    if expanded:
+        (out_c.sum() + out_s.sum()).backward()
+    else:
+        out_c.backward(dc)
+        out_s.backward(dv)
+    return [t.detach() for t in (out_c, ev.grad, b.grad, out_s, x.grad,
+                                 y.grad)]
+
+
+def _graph_inputs(g, card, integers, width=40):
+    gen = torch.Generator().manual_seed(9)
+    return [_data(gen, integers, *shape).to(card) for shape in (
+        (g.nnz,), (g.k, width), (g.m, width), (g.m, width), (g.k, width),
+        (g.nnz,))]
+
+
+@pytest.mark.parametrize("integers", [True, False], ids=["int", "rand"])
+@pytest.mark.parametrize("reorder", ["off", "on"])
+def test_graphops_backward_through_kernels_matches_plain(card, reorder,
+                                                         integers):
+    """``spmm``'s and ``sddmm``'s outputs and cotangents through K1–K4
+    (A, Aᵀ and SDDMM(A) plans) against the plain path: exact on integers,
+    TF32's tolerance on random data."""
+    g = _training_graph(card, reorder)
+    for arrs in (g.arrs, g.arrs_t, g.arrs_sd):
+        assert arrs.plan.meta["tc_nnz"] and arrs.plan.meta["vpu_nnz"]
+        assert arrs.plan.meta["reorder"]["enabled"] == (reorder == "on")
+    inputs = _graph_inputs(g, card, integers)
+    kernels.reset_launch_counts()
+    got = _graph_vjps(g, inputs)
+    counts = kernels.launch_counts()
+    # Forward: A and SDDMM(A); backward: Aᵀ and SDDMM(A) for spmm, A and
+    # Aᵀ for sddmm.
+    assert counts == {"spmm_mxu": 4, "spmm_vpu": 4, "sddmm_mxu": 2,
+                      "sddmm_vpu": 2, "flash_attention": 0}
+    for out, want in zip(got, _graph_vjps(_plain(g), inputs)):
+        _agree_tf32(out, want, integers)
+
+
+def test_graphops_expanded_cotangent_reaches_the_kernels(card):
+    """``sum().backward()`` hands in stride-0 cotangents: the backward
+    makes them contiguous for the kernels and gives the dense
+    cotangent's result bit for bit."""
+    g = _training_graph(card, "on")
+    inputs = _graph_inputs(g, card, True)
+    ones = [torch.ones(g.m, 40, device=card), torch.ones(g.nnz, device=card)]
+    dense = _graph_vjps(g, inputs[:2] + ones[:1] + inputs[3:5] + ones[1:])
+    for got, want in zip(_graph_vjps(g, inputs, expanded=True), dense):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("model_name", ["gcn", "agnn"])
+@pytest.mark.parametrize("reorder", ["off", "on"])
+def test_training_step_through_kernels_matches_plain(card, reorder,
+                                                     model_name):
+    """One SGD step of GCN and AGNN ``[40, 64, 8]``: loss, gradients and
+    updated weights through the kernels against the plain path, within
+    TF32's tolerance (random features)."""
+    g = _training_graph(card, reorder)
+    gen = torch.Generator().manual_seed(10)
+    cls = gnn.GCN if model_name == "gcn" else gnn.AGNN
+    model = cls([40, 64, 8], generator=gen).to(card)
+    x = torch.randn(g.m, 40, generator=gen).to(card)
+    labels = torch.randint(0, 8, (g.m,), generator=gen).to(card)
+    args = ((torch.from_numpy(gnn.gcn_norm_edges(g.a)).to(card),)
+            if model_name == "gcn" else ())
+    models = [model, copy.deepcopy(model)]
+    losses = [gnn.train_step(mdl, gg, x, labels, *args, lr=0.2)
+              for mdl, gg in zip(models, (g, _plain(g)))]
+    _agree_tf32(losses[0], losses[1], False)
+    for p, q in zip(*(mdl.parameters() for mdl in models)):
+        _agree_tf32(p.grad, q.grad, False)
+        _agree_tf32(p.detach(), q.detach(), False)

@@ -155,7 +155,7 @@ def test_unported_families_name_their_roadmap_item(arch):
 
 @pytest.mark.parametrize("kw,item", [
     ({"tune": "model"}, "item 9"), ({"tune": "search"}, "item 9"),
-    ({"reorder": "on"}, "item 8"), ({"reorder": "auto"}, "item 8")])
+    ({"reorder": "auto"}, "item 9")])
 def test_unported_knobs_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         ExecSpec(device="cpu", **kw)
@@ -168,6 +168,13 @@ def test_spec_takes_only_off_or_a_tune_config():
         ExecSpec(tune="fast", device="cpu")
     with pytest.raises(TypeError):
         ExecSpec(interpret=True)   # the TPU knob has no counterpart
+
+
+def test_spec_takes_reorder_off_or_on():
+    assert ExecSpec(device="cpu").reorder == "off"
+    assert ExecSpec(reorder="on", device="cpu").reorder == "on"
+    with pytest.raises(ValueError):
+        ExecSpec(reorder="yes", device="cpu")
 
 
 def _run_smoke(cwd: pathlib.Path) -> subprocess.CompletedProcess:
