@@ -1,8 +1,9 @@
 """`ExecSpec`: the one execution-knob surface for every operator.
 
-Plan shape (``mode``, thresholds, ``bk``, ``ts_tile``, ``tune``) keeps
-the reference package's meaning, so the same spec builds the same plan
-in both packages. Execution differs:
+Plan shape (``mode``, thresholds, ``bk``, ``ts_tile``, ``reorder``,
+``tune``) keeps the reference package's meaning and defaults, so the
+same spec builds the same plan in both packages; tuning prices the plan
+for the H100 (:mod:`repro_torch.tune`). Execution differs:
 
 * ``backend="cuda"`` (default) runs the hand-written Hopper kernels over
   the §4.3 segment launch tables (the reference's ``"pallas"``);
@@ -13,17 +14,22 @@ in both packages. Execution differs:
   :class:`RuntimeError` instead of running on the CPU.
 
 On a CPU ``device`` the kernel wrappers run their plain twins, which is
-how the CPU tests exercise the ``"cuda"`` backend's dispatch.
+how the CPU tests exercise the ``"cuda"`` backend's dispatch. The port
+never had the reference's legacy per-operator kwargs, so it has no
+``resolve_spec`` shim: every operator takes ``spec=`` alone.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
 from repro_torch.tune.model import TuneConfig
 
 BACKENDS = ("cuda", "torch")
+_REORDER_MODES = ("auto", "on", "off")
+_TUNE_MODES = ("model", "search", "off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,14 +38,22 @@ class ExecSpec:
 
     Plan shape:
       mode:             "hybrid" | "tcu" | "vpu" (paper §5.4.1 ablations)
-      threshold:        SpMM TC/VPU vector threshold (None → default)
-      sddmm_threshold:  SDDMM block threshold (None → default)
+      threshold:        SpMM TC/VPU vector threshold (None → tuner/default)
+      sddmm_threshold:  SDDMM block threshold (None → tuner/default)
       bk / ts_tile:     condensed block depth / VPU tile width overrides
-      reorder:          "off" | "on" (row reordering,
-                        :mod:`repro_torch.reorder`; "auto": item 9)
-      tune:             "off" | TuneConfig ("model"/"search": item 9)
-      tune_n / tune_kf: SpMM / SDDMM dense width the model tuner prices;
-                        no effect until that tuner is ported (item 9)
+      reorder:          "auto" | "on" | "off" — row reordering
+                        (:mod:`repro_torch.reorder`); "auto" prices the
+                        permutation from the matrix features and caches
+                        the decision in the PlanCache (or a process memo)
+
+    Tuning:
+      tune:             "model" | "search" | "off" | TuneConfig
+      tune_backend:     backend the empirical search times ("cuda" times
+                        the kernels on the card, "torch" the plain path)
+      tune_n / tune_kf: dense width the tuner prices (SpMM B columns /
+                        SDDMM feature dim)
+      tune_cache:       PlanCache instance or cache-dir path (None → the
+                        default root, :mod:`repro_torch.tune.cache`)
 
     Execution:
       backend:          "cuda" (kernels) | "torch" (plain path)
@@ -52,33 +66,31 @@ class ExecSpec:
     bk: int | None = None
     ts_tile: int | None = None
     reorder: str = "off"
-    tune: str | TuneConfig = "off"
+    tune: str | TuneConfig = "model"
+    tune_backend: str = "cuda"
     tune_n: int = 128
     tune_kf: int = 128
+    tune_cache: Any = None
     backend: str = "cuda"
     device: str = "cuda"
 
     def __post_init__(self):
         if self.mode not in ("hybrid", "tcu", "vpu"):
             raise ValueError(f"unknown mode {self.mode!r}")
-        if self.reorder == "auto":
-            raise NotImplementedError(
-                "reorder='auto' is not ported yet: its decision is priced "
-                "and cached with the tuner (ROADMAP queue 1 item 9); pass "
-                "'off' or 'on'")
-        if self.reorder not in ("off", "on"):
+        if self.reorder not in _REORDER_MODES:
             raise ValueError(
-                f"reorder must be 'off' or 'on', got {self.reorder!r}")
-        if self.tune in ("model", "search"):
-            raise NotImplementedError(
-                f"tune={self.tune!r} is not ported yet (ROADMAP queue 1 "
-                "item 9, Hopper tuner); pass 'off' or a TuneConfig")
-        if not (self.tune == "off" or isinstance(self.tune, TuneConfig)):
+                f"reorder must be one of {_REORDER_MODES}, got "
+                f"{self.reorder!r}")
+        if not (isinstance(self.tune, TuneConfig)
+                or self.tune in _TUNE_MODES):
             raise ValueError(
-                f"tune must be 'off' or a TuneConfig, got {self.tune!r}")
-        if self.backend not in BACKENDS:
-            raise ValueError(
-                f"backend must be one of {BACKENDS}, got {self.backend!r}")
+                f"tune must be one of {_TUNE_MODES} or a TuneConfig, got "
+                f"{self.tune!r}")
+        for name in ("backend", "tune_backend"):
+            if getattr(self, name) not in BACKENDS:
+                raise ValueError(
+                    f"{name} must be one of {BACKENDS}, got "
+                    f"{getattr(self, name)!r}")
 
     def replace(self, **kw) -> "ExecSpec":
         return dataclasses.replace(self, **kw)

@@ -30,11 +30,13 @@ from repro_torch.core.windows import extract_windows, num_windows
 from repro_torch.reorder import (
     Reordering,
     apply_reorder,
+    decide_reorder,
     reorder_gain,
     reorder_rows,
 )
 from repro_torch.sparse.matrix import SparseCSR
-from repro_torch.tune import resolve_tune
+from repro_torch.tune import PlanCache, tune_sddmm, tune_spmm
+from repro_torch.tune.cache import reorder_key
 from repro_torch.tune.model import TuneConfig, matrix_features
 
 DEFAULT_SPMM_THRESHOLD = 3    # paper Fig. 11: optimal ≈ 3 for 8×1 vectors
@@ -459,24 +461,73 @@ def preprocess_sddmm(
     return SDDMMPlan(a.m, a.k, a.nnz, threshold, tc, tc_out_pos, vpu, meta)
 
 
-def _maybe_reorder(a: SparseCSR, *, spec, threshold: int):
-    """Resolve ``spec.reorder`` for one build (``"off"`` or ``"on"``).
+#: Process-local reorder decisions for runs without a PlanCache,
+#: keyed like the cache entries (pattern signature + op + threshold).
+_REORDER_MEMO: dict[str, dict] = {}
 
-    Returns ``(a_eff, reord, report)``: the matrix to preprocess
-    (reordered or original), the :class:`repro_torch.reorder.Reordering`
-    (None when off, or when the matrix is empty or one window tall), and
-    the report ``plan.meta["reorder"]`` keeps: ``mode``, ``enabled`` and,
-    when reordered, :func:`~repro_torch.reorder.reorder_gain`'s projected
-    Tensor Core fractions at ``threshold`` from two
-    :func:`~repro_torch.tune.model.matrix_features` passes.
+
+def _reorder_store(cache):
+    if cache is None:
+        return None
+    return cache if isinstance(cache, PlanCache) else PlanCache(cache)
+
+
+def _get_reorder_decision(cache, key: str) -> dict | None:
+    pc = _reorder_store(cache)
+    return _REORDER_MEMO.get(key) if pc is None else pc.get_doc(key)
+
+
+def _put_reorder_decision(cache, key: str, doc: dict) -> None:
+    pc = _reorder_store(cache)
+    if pc is None:
+        _REORDER_MEMO[key] = doc
+    else:
+        pc.put_doc(key, doc)
+
+
+def _maybe_reorder(a: SparseCSR, *, op: str, spec, threshold: int, feat):
+    """Resolve ``spec.reorder`` for one build.
+
+    Returns ``(a_eff, reord, report, feat_eff)``: the matrix to
+    preprocess (reordered or original), the
+    :class:`repro_torch.reorder.Reordering` (None when off, declined, or
+    the matrix is empty or one window tall), the report
+    ``plan.meta["reorder"]`` keeps, and the matrix features describing
+    ``a_eff`` (``feat`` unchanged when never computed), so the tuner
+    prices the reordered matrix without a second pass.
+
+    ``"auto"`` prices the permutation from the same
+    :func:`~repro_torch.tune.model.matrix_features` pass the tuner
+    consumes — projected Tensor Core nnz fraction at ``threshold``
+    (:func:`~repro_torch.reorder.reorder_gain`) against
+    :data:`~repro_torch.reorder.MIN_TC_GAIN` — and keeps the decision
+    under :func:`~repro_torch.tune.cache.reorder_key` in
+    ``spec.tune_cache`` (or the process memo without one). A decline
+    cached before skips the sketch pass.
     """
     mode = spec.reorder
     if mode == "off" or a.nnz == 0 or a.m <= WINDOW:
-        return a, None, {"mode": mode, "enabled": False}
+        return a, None, {"mode": mode, "enabled": False}, feat
+    key = reorder_key(a, op=op, threshold=threshold)
+    if mode == "auto":
+        cached = _get_reorder_decision(spec.tune_cache, key)
+        if cached is not None and not cached.get("enabled"):
+            # Declined before for this pattern: skip the sketch pass.
+            return a, None, {"mode": mode, **cached}, feat
     reord = reorder_rows(a)
     a_r = apply_reorder(a, reord)
-    gain = reorder_gain(matrix_features(a), matrix_features(a_r), threshold)
-    return a_r, reord, {"mode": mode, "enabled": True, **gain}
+    if feat is None:
+        feat = matrix_features(a)
+    feat_r = matrix_features(a_r)
+    gain = reorder_gain(feat, feat_r, threshold)
+    enabled = True if mode == "on" else decide_reorder(gain)
+    report = {"mode": mode, "enabled": bool(enabled), **gain}
+    if mode == "auto":
+        _put_reorder_decision(spec.tune_cache, key,
+                              {"enabled": bool(enabled), **gain})
+    if not enabled:
+        return a, None, report, feat
+    return a_r, reord, report, feat_r
 
 
 def _remap_positions(pos: np.ndarray, nnz_perm: np.ndarray) -> np.ndarray:
@@ -515,18 +566,19 @@ def _remap_sddmm_plan(plan: SDDMMPlan, nnz_perm: np.ndarray) -> SDDMMPlan:
 class Plan:
     """The supported entry point for building one operator's plan.
 
-    ``Plan.build(a, op, spec)`` resolves the :class:`repro_torch.api.ExecSpec`
-    (mode → forced threshold, ``tune`` → :class:`TuneConfig`), applies
-    row reordering when ``spec.reorder == "on"`` (:mod:`repro_torch.reorder`)
-    and runs preprocessing. A reordered plan's position maps (``pos``,
-    ``out_pos``) are rewritten to the *original* matrix's canonical nnz
-    positions, so ``edge_vals`` revaluation takes original-order values
-    and SDDMM outputs land in original order.
+    ``Plan.build(a, op, spec)`` wraps the whole pipeline: resolve the
+    :class:`repro_torch.api.ExecSpec` (mode → forced threshold), price
+    and apply row reordering (:mod:`repro_torch.reorder`), tune
+    (:mod:`repro_torch.tune`: ``tune`` → :class:`TuneConfig`) and
+    preprocess. A reordered plan's position maps (``pos``, ``out_pos``)
+    are rewritten to the *original* matrix's canonical nnz positions, so
+    ``edge_vals`` revaluation takes original-order values and SDDMM
+    outputs land in original order.
 
     Fields:
       op:      "spmm" | "sddmm"
       spec:    the :class:`~repro_torch.api.ExecSpec`
-      cfg:     the resolved :class:`~repro_torch.tune.model.TuneConfig`
+      cfg:     the tuned :class:`~repro_torch.tune.model.TuneConfig`
       plan:    :class:`SpMMPlan` / :class:`SDDMMPlan`; ``plan.meta
                ["reorder"]`` records the decision and density deltas
       a:       the matrix the plan was built on — the reordered view
@@ -547,9 +599,15 @@ class Plan:
 
     @classmethod
     def build(cls, a: SparseCSR, op: str, spec=None, *,
-              balance: BalanceParams | None = None) -> "Plan":
-        """Build the plan for ``op`` on ``a`` under ``spec``
-        (``balance``: explicit §4.3 caps, overriding ``cfg.ts/cs``)."""
+              balance: BalanceParams | None = None, timer=None,
+              feat=None) -> "Plan":
+        """Build the plan for ``op`` on ``a`` under ``spec``.
+
+        ``balance`` (explicit §4.3 caps, overriding ``cfg.ts/cs``),
+        ``timer`` (search timing hook) and ``feat`` (a precomputed
+        ``matrix_features(a)``) are expert escape hatches forwarded to
+        the pipeline stages.
+        """
         from repro_torch.api import ExecSpec
 
         spec = ExecSpec() if spec is None else spec
@@ -566,10 +624,14 @@ class Plan:
                                                spec.sddmm_threshold)
                       if mode != "hybrid" else spec.sddmm_threshold)
             guess = DEFAULT_SDDMM_THRESHOLD if forced is None else forced
-        a_eff, reord, report = _maybe_reorder(a, spec=spec, threshold=guess)
-        cfg = resolve_tune(spec.tune, threshold=forced, bk=spec.bk,
-                           ts_tile=spec.ts_tile)
+        a_eff, reord, report, feat_eff = _maybe_reorder(
+            a, op=op, spec=spec, threshold=guess, feat=feat)
+        tune_kw = dict(mode=mode, threshold=forced, tune=spec.tune,
+                       backend=spec.tune_backend, cache=spec.tune_cache,
+                       timer=timer, bk=spec.bk, ts_tile=spec.ts_tile,
+                       feat=feat_eff, device=spec.device)
         if op == "spmm":
+            cfg = tune_spmm(a_eff, n=spec.tune_n, **tune_kw)
             thr = threshold_for_mode_spmm(mode, cfg.threshold)
             plan = preprocess_spmm(a_eff, thr, bk=spec.bk,
                                    ts_tile=spec.ts_tile, balance=balance,
@@ -577,6 +639,7 @@ class Plan:
             if reord is not None:
                 plan = _remap_spmm_plan(plan, reord.nnz_perm)
         else:
+            cfg = tune_sddmm(a_eff, kf=spec.tune_kf, **tune_kw)
             thr = threshold_for_mode_sddmm(mode, bk_eff, cfg.threshold)
             plan = preprocess_sddmm(a_eff, thr, bk=spec.bk,
                                     ts_tile=spec.ts_tile, balance=balance,

@@ -4,9 +4,12 @@ Output follows the canonical CSR (row-major, column-sorted) non-zero
 order of the mask matrix, so GNN attention pipelines can chain
 ``SDDMM → softmax-by-row → SpMM`` without reindexing. Knobs live on one
 frozen :class:`repro_torch.api.ExecSpec`; the SDDMM block threshold is
-``ExecSpec.sddmm_threshold``. With ``ExecSpec(reorder="on")`` X is
-gathered into the reordered row space; the outputs still land in the
-original matrix's canonical order.
+``ExecSpec.sddmm_threshold``, and ``ExecSpec.tune`` chooses it (with the
+§4.3 caps) as for :mod:`repro_torch.core.spmm`, priced at the feature
+width ``tune_kf`` against K3's shared-memory footprint. When the plan is
+reordered (``reorder="on"``, or ``"auto"`` when it pays) X is gathered
+into the reordered row space; the outputs still land in the original
+matrix's canonical order.
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 Usage::
 
-    op = LibraSpMM(a_csr)                     # preprocess once (§4.5)
+    op = LibraSpMM(a_csr)                     # preprocess + autotune once
     c = op(b)                                 # reuse every apply
     op = LibraSpMM(a, spec=ExecSpec(mode="tcu", device="cpu"))
 
@@ -10,10 +10,33 @@ Every knob lives on one frozen :class:`repro_torch.api.ExecSpec`. The
 single-resource ablation modes (paper §5.4.1) are exposed through the
 threshold: ``mode="tcu"`` forces every vector to the Tensor Core
 stream, ``mode="vpu"`` everything to the CUDA-core stream, and
-``mode="hybrid"`` uses the 2D-aware distribution. The chosen config is
-``op.tune_config``. With ``ExecSpec(reorder="on")`` the plan is built on
-the row-reordered matrix and the output is unpermuted by one gather;
-the :class:`~repro_torch.reorder.Reordering` is ``op.reorder``.
+``mode="hybrid"`` uses the 2D-aware distribution.
+
+Autotuning (``ExecSpec.tune``, paper §4.2's 2D-aware choices made per
+matrix instead of hardcoded):
+
+* ``tune="model"`` (default) — the analytical model in
+  :mod:`repro_torch.tune` picks the Tensor Core / CUDA-core threshold
+  from the matrix's vector histogram at the width ``tune_n``, the §4.3
+  Ts/Cs segment caps and the residual tile width, priced with the H100's
+  rates and checked against K1's shared-memory footprint. Cheap (one
+  feature pass, no timing).
+* ``tune="search"`` — times a small candidate grid through this apply
+  path on ``tune_backend`` (``"cuda"``: the kernels on the card;
+  ``"torch"``: the plain path) and keeps the argmin; memoized in the
+  persistent :class:`~repro_torch.tune.cache.PlanCache`
+  (``tune_cache=`` overrides the cache dir / instance), so constructing
+  the same operator again never re-times. The hardcoded default config
+  is always a candidate, so search can't lose to it.
+* ``tune="off"`` — the hardcoded defaults.
+* ``tune=TuneConfig(...)`` — exactly that config (expert escape hatch).
+
+An explicit ``threshold`` (or a forcing ``mode``) always wins over the
+tuner's threshold; the tuner then only sizes the rest. The chosen
+config is ``op.tune_config``. ``ExecSpec.reorder`` ("auto"/"on"/"off")
+runs the row reordering pass (:mod:`repro_torch.reorder`) before
+planning; a reordered output is unpermuted by one gather and the
+:class:`~repro_torch.reorder.Reordering` is ``op.reorder``.
 """
 from __future__ import annotations
 

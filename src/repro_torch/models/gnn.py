@@ -26,6 +26,7 @@ from repro_torch.core.windows import num_windows
 from repro_torch.kernels import ref
 from repro_torch.kernels.ops import sddmm_apply, spmm_apply
 from repro_torch.sparse.matrix import SparseCSR, coo_to_csr
+from repro_torch.tune.model import matrix_features
 
 
 def transpose_csr(a: SparseCSR) -> tuple[SparseCSR, np.ndarray]:
@@ -41,12 +42,18 @@ class GraphOps:
     """Preprocessed Libra plans for one graph: A, Aᵀ, and SDDMM(A).
 
     All three legs are built through :meth:`Plan.build` under one
-    :class:`~repro_torch.api.ExecSpec`; the default spec is
-    ``tune="off"`` on ``device="cuda"``. ``spec.backend`` selects the
-    apply path of every op, forward and backward.
+    :class:`~repro_torch.api.ExecSpec`. As in the reference, the
+    spec-less default stays ``ExecSpec(tune="off")`` (cheap
+    construction), on ``device="cuda"``; ``tune="model"`` picks per-leg
+    thresholds and segment caps analytically (A and Aᵀ each get their
+    own config — their sparsity patterns differ), with one
+    ``matrix_features`` pass of A shared by the A-SpMM and SDDMM legs.
+    ``spec.backend`` selects the apply path of every op, forward and
+    backward.
 
-    ``spec.reorder="on"`` densifies each leg independently (A, Aᵀ and
-    the SDDMM mask each get their own row permutation). Every leg stays
+    ``spec.reorder`` ("on", or "auto" where it pays) densifies each leg
+    independently (A, Aᵀ and the SDDMM mask each get their own row
+    permutation, priced on their own pattern). Every leg stays
     original order in, original order out: its plan's nnz maps point at
     its matrix's original canonical order, and the row permutes ride
     inside the differentiable applies, so edge values, the Aᵀ edge
@@ -54,7 +61,7 @@ class GraphOps:
     """
 
     def __init__(self, a: SparseCSR, *, spec: ExecSpec | None = None):
-        spec = ExecSpec() if spec is None else spec
+        spec = ExecSpec(tune="off") if spec is None else spec
         self.spec = spec
         self.device = spec.torch_device()
         self.a = a
@@ -64,9 +71,11 @@ class GraphOps:
         self.nwin = num_windows(a.m)
         at, self.perm = transpose_csr(a)
         self.nwin_t = num_windows(at.m)
-        built = preprocess.Plan.build(a, "spmm", spec)
+        # One feature pass of A, shared by the SpMM and SDDMM tuners.
+        feat_a = matrix_features(a) if spec.tune == "model" else None
+        built = preprocess.Plan.build(a, "spmm", spec, feat=feat_a)
         built_t = preprocess.Plan.build(at, "spmm", spec)
-        built_sd = preprocess.Plan.build(a, "sddmm", spec)
+        built_sd = preprocess.Plan.build(a, "sddmm", spec, feat=feat_a)
         self.cfg, self.cfg_t = built.cfg, built_t.cfg
         self.cfg_sd = built_sd.cfg
         self.arrs = PlanArrays(built.plan, self.device)

@@ -2,7 +2,8 @@
 the two CUDA-core streams K2 (``spmm_vpu``) and K4 (``sddmm_vpu``), the
 two Tensor Core streams K1 (``spmm_mxu``) and K3 (``sddmm_mxu``), and
 GNN training through all four (``GraphOps`` forward and backward, with
-row reordering off and on, against the plain ``backend="torch"`` path).
+row reordering off and on, against the plain ``backend="torch"`` path),
+and the tuner's search timing its candidates through them.
 
 These tests need an NVIDIA GPU (Hopper, ``sm_90a``) and ``nvcc``; they
 are marked ``cuda`` and skip without a card. On the card:
@@ -299,7 +300,7 @@ def test_spmm_operator_reads_plan_lengths(card):
     a = power_law_csr(3000, 2500, 9.0, seed=5)
     rng = np.random.default_rng(5)
     a.data[:] = rng.integers(1, 5, a.nnz) * rng.choice([-1, 1], a.nnz)
-    op = LibraSpMM(a, spec=ExecSpec(device="cuda"))
+    op = LibraSpMM(a, spec=ExecSpec(tune="off", device="cuda"))
     b = torch.from_numpy(rng.integers(-4, 5, (a.k, 40)).astype(
         np.float32)).to(card)
     lens = op.arrays.for_backend("cuda")["vpu_len"]
@@ -726,3 +727,55 @@ def test_training_step_through_kernels_matches_plain(card, reorder,
     for p, q in zip(*(mdl.parameters() for mdl in models)):
         _agree_tf32(p.grad, q.grad, False)
         _agree_tf32(p.detach(), q.detach(), False)
+
+
+# ------------------------------------------------------------ the tuner ---
+@pytest.mark.parametrize("op_name", ["spmm", "sddmm"])
+def test_search_on_the_card_runs_every_candidate(card, op_name, tmp_path):
+    """``tune="search"`` with ``tune_backend="cuda"``: every candidate runs
+    through both kernels of its operator on the card (one warm-up and
+    three timed applies each), the pick's output equals the plain path
+    exactly on integer data, and a second construction against the same
+    cache launches nothing."""
+    from repro_torch.tune import sddmm_candidates, spmm_candidates
+
+    a = power_law_csr(3000, 2500, 9.0, seed=5)
+    rng = np.random.default_rng(6)
+    a.data[:] = rng.integers(1, 5, a.nnz) * rng.choice([-1, 1], a.nnz)
+    spec = ExecSpec(tune="search", tune_backend="cuda", tune_n=40,
+                    tune_kf=40, tune_cache=str(tmp_path), device="cuda")
+    if op_name == "spmm":
+        cls, kerns = LibraSpMM, ("spmm_mxu", "spmm_vpu")
+        ncand = len(spmm_candidates(a, n=40, mode="hybrid", threshold=None,
+                                    backend="cuda"))
+        args = (torch.from_numpy(rng.integers(-4, 5, (a.k, 40)).astype(
+            np.float32)).to(card),)
+    else:
+        cls, kerns = LibraSDDMM, ("sddmm_mxu", "sddmm_vpu")
+        ncand = len(sddmm_candidates(a, kf=40, mode="hybrid",
+                                     threshold=None, backend="cuda"))
+        args = tuple(torch.from_numpy(rng.integers(-4, 5, (rows, 40)).astype(
+            np.float32)).to(card) for rows in (a.m, a.k))
+    kernels.reset_launch_counts()
+    op = cls(a, spec=spec)
+    counts = kernels.launch_counts()
+    assert ncand >= 4
+    assert [counts[k] for k in kerns] == [4 * ncand] * 2
+    assert op.tune_config.source == "search"
+    assert torch.equal(op(*args), op(*args, backend="torch"))
+    kernels.reset_launch_counts()
+    again = cls(a, spec=spec)
+    assert again.tune_config.source == "cache"
+    assert again.tune_config.replace(source="x") == \
+        op.tune_config.replace(source="x")
+    assert not any(kernels.launch_counts().values())
+
+
+def test_median_timer_waits_for_the_card(card):
+    """A rep that only queues about 25 ms of device sleep reads as that
+    long: the timer synchronizes the card around each rep."""
+    from repro_torch.tune import median_timer
+
+    seconds = median_timer(reps=3, warmup=1)(
+        lambda: torch.cuda._sleep(50_000_000))
+    assert seconds > 5e-3

@@ -9,7 +9,7 @@
   ``launch.serve.generate``), and ``chip_smoke.py`` exits non-zero and
   prints no result.
 * What the port does not cover yet raises ``NotImplementedError`` naming
-  its ROADMAP item (knobs, and the model families other than dense).
+  its ROADMAP item (the model families other than dense).
 """
 import ast
 import json
@@ -153,19 +153,18 @@ def test_unported_families_name_their_roadmap_item(arch):
             call()
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"tune": "model"}, "item 9"), ({"tune": "search"}, "item 9"),
-    ({"reorder": "auto"}, "item 9")])
-def test_unported_knobs_name_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ExecSpec(device="cpu", **kw)
-
-
 def test_spec_takes_only_off_or_a_tune_config():
-    assert ExecSpec(device="cpu").tune == "off"
+    """The reference's default (``tune="model"``), ``"search"`` timed on
+    the kernel backend by default, ``"off"`` and literal configs."""
+    assert ExecSpec(device="cpu").tune == "model"
+    assert ExecSpec(device="cpu").tune_backend == "cuda"
+    assert ExecSpec(tune="search", device="cpu").tune == "search"
+    assert ExecSpec(tune="off", device="cpu").tune == "off"
     assert ExecSpec(tune=TuneConfig(ts=0), device="cpu").tune.ts == 0
     with pytest.raises(ValueError):
         ExecSpec(tune="fast", device="cpu")
+    with pytest.raises(ValueError, match="tune_backend"):
+        ExecSpec(tune_backend="xla", device="cpu")
     with pytest.raises(TypeError):
         ExecSpec(interpret=True)   # the TPU knob has no counterpart
 
@@ -173,6 +172,7 @@ def test_spec_takes_only_off_or_a_tune_config():
 def test_spec_takes_reorder_off_or_on():
     assert ExecSpec(device="cpu").reorder == "off"
     assert ExecSpec(reorder="on", device="cpu").reorder == "on"
+    assert ExecSpec(reorder="auto", device="cpu").reorder == "auto"
     with pytest.raises(ValueError):
         ExecSpec(reorder="yes", device="cpu")
 

@@ -1,7 +1,8 @@
 """The port's plans equal the reference's, array for array.
 
 Both packages build a plan from the same matrix and the same explicit
-``TuneConfig`` (the port has no model tuner yet); ``_host_arrays`` must
+``TuneConfig`` (``tests/test_torch_tune.py`` holds the tuned plans);
+``_host_arrays`` must
 agree key for key, dtype for dtype and value for value, with the §4.3
 segment tables on and with ``ts=0, cs=0``.
 """
@@ -65,8 +66,9 @@ def test_tune_off_and_explicit_knobs_match_reference():
     a = CORPUS["powerlaw_1"]
     ref = jpre.Plan.build(a, "spmm", JSpec(tune="off", threshold=2, bk=16,
                                            ts_tile=8))
-    port = tpre.Plan.build(a, "spmm", ExecSpec(threshold=2, bk=16,
-                                               ts_tile=8, device="cpu"))
+    port = tpre.Plan.build(a, "spmm", ExecSpec(tune="off", threshold=2,
+                                               bk=16, ts_tile=8,
+                                               device="cpu"))
     assert dataclasses.asdict(port.cfg) == dataclasses.asdict(ref.cfg)
     _assert_host_equal(ref.plan, port.plan)
 

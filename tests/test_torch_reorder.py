@@ -162,8 +162,9 @@ def test_reorder_densifies_the_shuffled_matrix():
     """The reference's own check (its tests/test_reorder.py): the Tensor
     Core share grows on the shuffled power-law matrix."""
     a = _port(shuffled_power_law(256, 224, 12.0, 1.4, 11))
-    off = tpre.Plan.build(a, "spmm", ExecSpec(device="cpu"))
-    on = tpre.Plan.build(a, "spmm", ExecSpec(reorder="on", device="cpu"))
+    off = tpre.Plan.build(a, "spmm", ExecSpec(tune="off", device="cpu"))
+    on = tpre.Plan.build(a, "spmm", ExecSpec(tune="off", reorder="on",
+                                             device="cpu"))
     rep = on.plan.meta["reorder"]
     assert rep["enabled"] and rep["gain"] > 0
     assert on.plan.meta["tc_ratio"] > off.plan.meta["tc_ratio"]
@@ -248,7 +249,8 @@ def test_reordered_sddmm_keeps_extra_rows_of_x_in_place():
     x = torch.from_numpy(rng.integers(-4, 5, (a.m + 5, 8)).astype(
         np.float32))
     y = torch.from_numpy(rng.integers(-4, 5, (a.k, 8)).astype(np.float32))
-    off = LibraSDDMM(_port(a), spec=ExecSpec(device="cpu"))
-    on = LibraSDDMM(_port(a), spec=ExecSpec(reorder="on", device="cpu"))
+    off = LibraSDDMM(_port(a), spec=ExecSpec(tune="off", device="cpu"))
+    on = LibraSDDMM(_port(a), spec=ExecSpec(tune="off", reorder="on",
+                                            device="cpu"))
     assert on.reorder is not None
     assert torch.equal(on(x, y), off(x, y))

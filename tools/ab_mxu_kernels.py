@@ -230,7 +230,7 @@ def main() -> int:
     t0 = time.perf_counter()
     a_mix = mixed_csr(16384, 16384, seed=3)
     graph = power_law_csr(169343, 169343, 13.7, seed=1)
-    spec = ExecSpec(device="cuda")
+    spec = ExecSpec(tune="off", device="cuda")
     spmm_mix = LibraSpMM(a_mix, spec=spec.replace(tune=TuneConfig(
         threshold=6, bk=32, ts_tile=32, ts=4, cs=128)))
     sddmm_mix = LibraSDDMM(a_mix, spec=spec.replace(tune=TuneConfig(

@@ -211,7 +211,7 @@ def main() -> int:
 
     graph = power_law_csr(169343, 169343, 13.7, seed=1)
     t0 = time.perf_counter()
-    gops = GraphOps(graph, spec=ExecSpec(device="cuda"))
+    gops = GraphOps(graph, spec=ExecSpec(tune="off", device="cuda"))
     print(f"GraphOps {time.perf_counter() - t0:.1f} s", flush=True)
     norm = torch.from_numpy(gcn_norm_edges(graph)).to(dev)
     t = ref.revalue_spmm_arrays(gops.arrs.for_backend("cuda", revalue=True),
