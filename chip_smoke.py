@@ -70,15 +70,42 @@ Phases:
    beside phases 3 and 5, and the mixed matrix's ``reorder="auto"``
    decline, taken from the cache the second time without the sketch pass.
 
+7. The serving path (``GNNService`` → ``SparseEngine`` →
+   ``GraphRegistry`` → ``BatchedSpMM``/``BatchedSDDMM`` → K1–K4), on
+   phase 3's graph and weights: (a) GCN and AGNN registered at the
+   registry's default ``tune="model"`` (width buckets up to 256) and the
+   mixed matrix with integer values as a raw SpMM/SDDMM tenant, warmed;
+   (b) three flushes of 8 GCN and 8 AGNN scoring requests (every third
+   with 1,000 node ids): flush ms, ms a request, requests/s beside phase
+   3's direct latency, every score against the plain path, one
+   profiled flush of each model's eight, then one deterministic flush of
+   twelve of them (all GCN, four AGNN) against the registered operators
+   called directly, layer by layer, bit for bit; (c) raw SpMM requests
+   (widths 24-128, with and without edge values) and SDDMM pairs on the
+   tenant against direct calls, bit for bit; (d) one packed apply of p =
+   2, 4, 8 panels of width 64 against p single applies, on the graph and
+   the mixed matrix, with ``pack_limit``; (e) a seeded fault storm over
+   the tenant's fast/single/unsegmented sites, twice, and a plan that
+   latches fast and single so the unsegmented rung (K1–K4 over the
+   compact tables) serves everything; no request may reach the plain
+   path, where the card's ladder does not go; (f) a flush sampled into a
+   ``PerfLedger`` and its calibration report (the H100 model's measured
+   over predicted); (g) ``/metrics``, ``/health``, ``/memory`` (equal to
+   the uploaded tensors' bytes) and ``/stats`` from ``serve_http``.
+   (a)-(d) must serve every request on the fast path.
+
 Phases 2 and 3 are the GNN inference path, phase 5's steps the GNN
-training path, phase 6's tuned operators the tuned path, and phase 4's (a)
-and (c) the dense main path: every kernel's launch counter is set to 0
-just before each path and read just after it; within phase 6, the counts
+training path, phase 6's tuned operators the tuned path, phase 7's served
+flushes the serving path, and phase 4's (a) and (c) the dense main path:
+every kernel's launch counter is set to 0 just before each path and read
+just after it; within phase 6, the counts
 of each part are read as it ends, and those of the Fig. 11 sweep and of
 phase 2's operators, applied only to compare with, are logged apart and
-left out of the path's. Each of K1–K4 must have launched on the GNN paths
-and the tuned path, K1 and K3 on the reordered A and SDDMM(A) (whose
-tables must hold real vectors and columns), and K5 exactly 42 times (once
+left out of the path's (phase 7 likewise leaves out its direct calls,
+plain references and timings). Each of K1–K4 must have launched on the
+GNN paths, the tuned path and the serving path, K1 and K3 on the
+reordered A and SDDMM(A) (whose tables must hold real vectors and
+columns), and K5 exactly 42 times (once
 per layer) per scoring request on the dense path; K1–K4's launches are
 also split by matrix, plan leg and width from the per-step counts. GNN
 outputs are checked against the port's plain ``backend="torch"`` path on
@@ -805,15 +832,6 @@ def main(argv=None) -> int:
                     model(gops, x_train, *args),
                     tol_kind(gops_on.arrs.plan, gops_on.arrs_sd.plan))
 
-    # ------------------------------------------------ phase 6: tuned path
-    tuned_counts = tuned_phase(
-        torch, np, log, fail, compare, tol_kind, spec0=ExecSpec(),
-        a_mix=a_mix, graph=graph, norm=norm, spmm_mix=spmm_mix,
-        sddmm_mix=sddmm_mix, b_mix=b_mix, x_mix=x_mix, y_mix=y_mix, gcn=gcn,
-        agnn=agnn, requests=requests, x_train=x_train, labels=labels,
-        latency=latency, trained=trained)
-
-    # ------------------------------------------------ timing and bounds
     def median_ms(fn, reps=20):
         """Median device time of ``fn`` over ``reps`` runs, each between two
         CUDA events. The runs are queued behind a device-side sleep of
@@ -848,6 +866,21 @@ def main(argv=None) -> int:
                 "path)")
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
+    # ------------------------------------------------ phase 6: tuned path
+    tuned_counts = tuned_phase(
+        torch, np, log, fail, compare, tol_kind, spec0=ExecSpec(),
+        a_mix=a_mix, graph=graph, norm=norm, spmm_mix=spmm_mix,
+        sddmm_mix=sddmm_mix, b_mix=b_mix, x_mix=x_mix, y_mix=y_mix, gcn=gcn,
+        agnn=agnn, requests=requests, x_train=x_train, labels=labels,
+        latency=latency, trained=trained)
+
+    # ------------------------------------------------ phase 7: serving path
+    serving_counts = serving_phase(
+        torch, np, log, fail, compare, dev=dev, graph=graph, a_mix=a_mix,
+        norm=norm, gcn=gcn, agnn=agnn, gops_plain=gops_plain,
+        latency=latency, median_ms=median_ms)
+
+    # ------------------------------------------------ timing and bounds
     def rows_read(*ids):
         """Distinct rows that the index tensors ``ids`` name together: the
         rows of a gathered operand a kernel must read at least once."""
@@ -879,9 +912,13 @@ def main(argv=None) -> int:
     entries = []
 
     # The kernels line counts the launches of the GNN paths: inference
-    # (phases 2-3), training (phase 5) and the tuned path (phase 6).
+    # (phases 2-3), training (phase 5), the tuned path (phase 6) and the
+    # serving path (phase 7).
     gnn_counts = {k: main_counts[k] + train_counts[k] + tuned_counts[k]
-                  for k in main_counts}
+                  + serving_counts[k] for k in main_counts}
+    log(f"kernels line launches by path: inference {main_counts}, "
+        f"training {train_counts}, tuned {tuned_counts}, serving "
+        f"{serving_counts}")
 
     def record(name, label, ms, plain_ms, library_ms, nb, ops):
         """Log one kernel's times and bound; at the kernel's shape in
@@ -1901,6 +1938,475 @@ def tuned_phase(torch, np, log, fail, compare, tol_kind, *, spec0, a_mix,
         fail(f"kernels never launched on the tuned path: {missing}")
     log(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
     return path
+
+
+def serving_phase(torch, np, log, fail, compare, *, dev, graph, a_mix, norm,
+                  gcn, agnn, gops_plain, latency, median_ms):
+    """Phase 7: the serving path (``GNNService`` → ``SparseEngine`` →
+    ``GraphRegistry`` → ``BatchedSpMM``/``BatchedSDDMM`` → K1–K4) at
+    full width on phase 3's graph and weights.
+
+    Returns the launch counts of the serving path: the served flushes of
+    (b) scoring, (c) raw requests, (e) the fault storms and (f) the
+    sampled flush. Every count is set to 0 at the phase's start and each
+    part's counts are taken as it ends; the direct calls, plain-path
+    references and (d)'s timings, made only to compare with, are logged
+    apart and left out."""
+    import tempfile
+    import urllib.request
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import spmm_apply
+    from repro_torch.obs import calibrate
+    from repro_torch.obs.ledger import PerfLedger
+    from repro_torch.serve import (
+        FaultPlan,
+        FaultRule,
+        GNNService,
+        GraphRegistry,
+        ResiliencePolicy,
+        ServeError,
+        SparseEngine,
+        as_csr,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    counts_at, last = {}, kernels.launch_counts()
+    path = {k: 0 for k in last}
+
+    def mark(label, on_path=True):
+        """Take the launches since the last mark as part ``label``'s; they
+        count towards the serving path's when ``on_path``."""
+        nonlocal last
+        torch.cuda.synchronize()
+        now = kernels.launch_counts()
+        counts_at[label] = {k: now[k] - last[k] for k in now
+                            if k != "flash_attention"}
+        if on_path:
+            for k in now:
+                path[k] += now[k] - last[k]
+        last = now
+        log(f"phase 7: {label} done at {time.perf_counter() - t_phase:.1f} "
+            f"s; launches {counts_at[label]}"
+            + ("" if on_path else " (not on the path)"))
+
+    def clean(eng, part):
+        """(a)-(d) serve every request on the fast path: no failure and no
+        degraded answer."""
+        h = eng.health()
+        if h["failures"] or h["degraded_served"] or h["errors_returned"]:
+            fail(f"phase 7 {part}: serve_failures_total {h['failures']}, "
+                 f"serve_degraded_served_total {h['degraded_served']}, "
+                 f"errors {h['errors_returned']}")
+
+    def ints(gen, *shape):
+        return torch.randint(-4, 5, shape, generator=gen,
+                             device=dev).float()
+
+    # (a) Registration at the registry's default tune="model"; widths of
+    # 256 need a 256-wide bucket.
+    reg = GraphRegistry(width_buckets=(32, 64, 128, 256), device=str(dev))
+    eng = SparseEngine(reg)
+    svc = GNNService(eng)
+    for name, call in (("GCN", lambda: svc.register_gcn("gcn", graph, gcn)),
+                       ("AGNN", lambda: svc.register_agnn("agnn", graph,
+                                                          agnn))):
+        t = time.perf_counter()
+        call()
+        log(f"phase 7 (a): {name} registered in "
+            f"{time.perf_counter() - t:.1f} s (host)")
+    # The raw-operator tenant: the mixed matrix with non-zero integer
+    # values in [-4, 4], so served and direct results compare bit for bit.
+    rng = np.random.default_rng(3)
+    mixed = as_csr(a_mix, (rng.integers(1, 5, a_mix.nnz) * rng.choice(
+        [-1, 1], a_mix.nnz)).astype(np.float32))
+    t = time.perf_counter()
+    reg.register(mixed, name="mixed", ops=("spmm", "sddmm"))
+    log(f"phase 7 (a): mixed tenant registered in "
+        f"{time.perf_counter() - t:.1f} s (host)")
+    entries = {n: reg.resolve(n) for n in ("gcn::graph", "agnn::graph",
+                                           "mixed")}
+    for n, entry in entries.items():
+        for kind, op in sorted(entry.ops.items()):
+            cfg = op.op.tune_config
+            log(f"  {n} {kind}: {cfg}; Tensor Core share "
+                f"{op.op.tc_ratio:.4f}")
+    t = time.perf_counter()
+    warmed = {op: reg.warm("mixed", op) for op in ("spmm", "sddmm")}
+    mark("(a) warm-up of the mixed tenant", on_path=False)
+    log(f"phase 7 (a): warm {warmed} applies prepared in "
+        f"{time.perf_counter() - t:.1f} s; exec caches: spmm "
+        f"{len(entries['mixed'].op('spmm').op._apply_cache)}, sddmm "
+        f"{len(entries['mixed'].op('sddmm')._cache)}; registry "
+        f"{reg.stats()}")
+
+    # (b) Scoring: three rounds of 8 GCN and 8 AGNN requests, one flush a
+    # round. The same 16 seeded feature sets every round; every third
+    # request asks for 1,000 seeded node ids.
+    gen = torch.Generator(dev).manual_seed(700)
+    feats = [torch.randn(graph.m, 128, generator=gen, device=dev)
+             for _ in range(8)]
+    ids = torch.randperm(graph.m, generator=gen, device=dev)[:1000]
+    subs = [(model, i, ids if i % 3 == 2 else None)
+            for model in ("gcn", "agnn") for i in range(8)]
+    rounds = []
+    with torch.no_grad():
+        for r in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rids = [svc.submit(m, feats[i], node_ids=nid)
+                    for m, i, nid in subs]
+            out = svc.flush()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            rounds.append((ms, [out[rid] for rid in rids]))
+            log(f"phase 7 (b): round {r}: flush {ms:.2f} ms for "
+                f"{len(subs)} requests, {ms / len(subs):.2f} ms a request, "
+                f"{len(subs) / ms * 1e3:.1f} requests/s")
+        mark("(b) scoring, three rounds")
+        clean(eng, "(b)")
+        log(f"phase 7 (b): phase 3's direct request latency ms: GCN "
+            + ", ".join(f"{v:.2f}" for v in latency["GCN"]) + "; AGNN "
+            + ", ".join(f"{v:.2f}" for v in latency["AGNN"]))
+        log("phase 7 (b): every score against the plain backend='torch' "
+            "path (the same weights)")
+        for k, (model, i, nid) in enumerate(subs):
+            want = (gcn(gops_plain, feats[i], norm) if model == "gcn"
+                    else agnn(gops_plain, feats[i]))
+            if nid is not None:
+                want = want[nid]
+            for r, (_, outs) in enumerate(rounds):
+                got = outs[k]
+                if isinstance(got, ServeError):
+                    fail(f"phase 7 (b): {model} request {k} round {r}: "
+                         f"{got}")
+                compare(f"{model} request {i} round {r}"
+                        + (" (node ids)" if nid is not None else ""),
+                        got, want, "tf32")
+        mark("(b) plain-path references", on_path=False)
+
+        # Where a served request's time goes: one flush of each model's
+        # eight requests under torch.profiler (after a warm-up flush).
+        def flush_of(model):
+            def run():
+                for m, i, nid in subs:
+                    if m == model:
+                        svc.submit(m, feats[i], node_ids=nid)
+                svc.flush()
+            return run
+
+        for model in ("gcn", "agnn"):
+            profile_request(torch, log,
+                            f"served {model.upper()} flush of 8 requests",
+                            flush_of(model), classify_gnn)
+        mark("(b) profiled flushes, two of each model")
+        clean(eng, "(b)")
+
+        # One more flush under deterministic algorithms (index_add_ adds
+        # in any order on the card), against the registered operators
+        # called directly, layer by layer, as the engine calls them:
+        # panels zero-padded to their bucket width. The eight GCN and four
+        # of the AGNN scorings of the rounds above, two with node ids and
+        # two without: the deterministic index_add_ of the SDDMM combine
+        # adds all of K3's padded slots into one swallow slot, one after
+        # another, about 6 s an AGNN scoring on each side.
+        # warn_only: cuBLAS, which runs the dense h @ W of both sides,
+        # refuses deterministic mode without CUBLAS_WORKSPACE_CONFIG; on
+        # one stream it gives the same bits for the same call.
+        det = [subs[k] for k in (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 13)]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            t = time.perf_counter()
+            rids = [svc.submit(m, feats[i], node_ids=nid)
+                    for m, i, nid in det]
+            out = svc.flush()
+            torch.cuda.synchronize()
+            log(f"phase 7 (b): deterministic flush of {len(det)} requests "
+                f"{(time.perf_counter() - t) * 1e3:.2f} ms")
+            mark("(b) scoring under deterministic algorithms")
+            direct = {"gcn": direct_gcn, "agnn": direct_agnn}
+            for rid, (model, i, nid) in zip(rids, det):
+                want = direct[model](reg, svc, feats[i])
+                if nid is not None:
+                    want = want[nid]
+                if not torch.equal(out[rid], want):
+                    fail(f"phase 7 (b): {model} request {i} served differs "
+                         "from the direct layer-by-layer calls")
+            mark("(b) direct layer-by-layer calls", on_path=False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        clean(eng, "(b)")
+        log(f"phase 7 (b): {len(det)} served scores equal the direct calls "
+            "bit for bit (deterministic algorithms)")
+
+    # (c) Raw requests on the mixed tenant: SpMM panels of several widths,
+    # with and without edge values, and SDDMM pairs, against direct calls
+    # of the registered operators on the same (padded) panels.
+    gen = torch.Generator(dev).manual_seed(701)
+    m_entry = entries["mixed"]
+    op_m, sd_m = m_entry.op("spmm").op, m_entry.op("sddmm").op
+    raw = []
+    for w in (24, 32, 64, 100, 128):
+        raw.append(("spmm", w, dict(b=ints(gen, mixed.k, w))))
+        raw.append(("spmm", w, dict(b=ints(gen, mixed.k, w),
+                                    edge_vals=ints(gen, mixed.nnz))))
+    for w in (32, 64, 128):
+        raw.append(("sddmm", w, dict(x=ints(gen, mixed.m, w),
+                                     y=ints(gen, mixed.k, w))))
+    eng_c = SparseEngine(reg)
+    torch.use_deterministic_algorithms(True)
+    try:
+        rids = [eng_c.submit("mixed", op, **kw) for op, _, kw in raw]
+        out = eng_c.flush()
+        mark("(c) raw requests")
+        for rid, (op, w, kw) in zip(rids, raw):
+            bw = reg.width_bucket(w)
+            pad = (lambda t: torch.nn.functional.pad(t, (0, bw - w)))
+            if op == "sddmm":
+                want = sd_m(pad(kw["x"]), pad(kw["y"]))
+            elif "edge_vals" in kw:
+                arrs = ref.revalue_spmm_arrays(op_m.arrays.for_backend(
+                    "cuda", revalue=True), kw["edge_vals"])
+                want = spmm_apply(arrs, pad(kw["b"]), m=op_m.m,
+                                  nwin=op_m.nwin)[:, :w]
+            else:
+                want = op_m(pad(kw["b"]))[:, :w]
+            if not torch.equal(out[rid], want):
+                err = (out[rid] - want).abs().max().item()
+                fail(f"phase 7 (c): {op} width {w}"
+                     + (" edge_vals" if "edge_vals" in kw else "")
+                     + f": served differs from the direct call (max|err| "
+                     f"{err})")
+        mark("(c) direct calls", on_path=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    clean(eng_c, "(c)")
+    st = eng_c.stats()
+    log(f"phase 7 (c): {len(raw)} raw requests equal the direct calls bit "
+        f"for bit; padding waste {st['padding_waste']:.4f}, occupancy "
+        f"{st['bucket_occupancy']:.4f}, exec-cache hits "
+        f"{st['exec_cache_hits']}, misses {st['exec_cache_misses']}, "
+        f"applies {st['panels_executed']}")
+
+    # (d) One packed apply of p panels against p single applies (w = 64),
+    # on the graph and the mixed matrix: what PACK_BUDGET_BYTES should
+    # price on the card.
+    from repro_torch.serve import registry as registry_mod
+
+    gen = torch.Generator(dev).manual_seed(702)
+    for label, n, entry in (("graph (GCN)", "gcn::graph",
+                             entries["gcn::graph"]),
+                            ("mixed", "mixed", m_entry)):
+        op = entry.op("spmm").op
+        log(f"phase 7 (d): {label}: pack_limit at w=64 is "
+            f"{reg.pack_limit(entry, 64)} (PACK_BUDGET_BYTES "
+            f"{registry_mod.PACK_BUDGET_BYTES}, {entry.spmm_vpu_elems} "
+            "CUDA-core elements)")
+        for p in (2, 4, 8):
+            wide = torch.randn(op.k, 64 * p, generator=gen, device=dev)
+            singles = [wide[:, 64 * j:64 * (j + 1)].contiguous()
+                       for j in range(p)]
+            packed_ms = median_ms(lambda: op(wide))
+            single_ms = median_ms(lambda: [op(b) for b in singles])
+            log(f"  {label} p={p}: packed {packed_ms:.4f} ms, {p} singles "
+                f"{single_ms:.4f} ms (ratio {packed_ms / single_ms:.3f})")
+        del wide, singles
+    mark("(d) packed against single applies", on_path=False)
+    clean(eng, "(d)")
+
+    # (e) A seeded fault storm over the mixed tenant's sites; every rid
+    # gets its result or a typed ServeError, and each result equals the
+    # unfaulted one bit for bit. The same seed twice gives the same
+    # histograms. Then a plan that latches the fast and single rungs
+    # serves every request on the unsegmented rung: K1-K4 over the
+    # compact tables.
+    gen = torch.Generator(dev).manual_seed(703)
+    storm_subs = [("mixed", "spmm", dict(b=ints(gen, mixed.k, w)))
+                  for w in (32, 64, 64, 128)]
+    storm_subs += [("mixed", "spmm", dict(b=ints(gen, mixed.k, 32),
+                                          edge_vals=ints(gen, mixed.nnz)))]
+    storm_subs += [("mixed", "sddmm", dict(x=ints(gen, mixed.m, w),
+                                           y=ints(gen, mixed.k, w)))
+                   for w in (32, 128)]
+    sites = [("mixed", op, s) for op in ("spmm", "sddmm")
+             for s in ("fast", "single", "unsegmented")]
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = SparseEngine(reg).serve(storm_subs)
+        want = [want[k] for k in sorted(want)]
+        mark("(e) unfaulted answers", on_path=False)
+
+        def storm(plan, label):
+            e = SparseEngine(reg, faults=plan, sleep=lambda s: None,
+                             resilience=ResiliencePolicy(
+                                 validate=True, attempts_per_rung=2))
+            got = e.serve(storm_subs)
+            got = [got[k] for k in sorted(got)]
+            mark(f"(e) {label}")
+            enc = []
+            for j, (g, w) in enumerate(zip(got, want)):
+                if isinstance(g, ServeError):
+                    enc.append(("error", type(g).__name__, g.reason))
+                elif not torch.equal(g, w):
+                    fail(f"phase 7 (e) {label}: request {j} differs from "
+                         "its unfaulted answer")
+                else:
+                    enc.append("ok")
+            h = e.health()
+            hist = {k: h[k] for k in ("failures", "degraded_served",
+                                      "retry_hist", "retries",
+                                      "errors_returned", "faults_injected")}
+            log(f"phase 7 (e) {label}: fired {plan.log}; results {enc}; "
+                f"{hist}")
+            return enc, hist, list(plan.log)
+
+        kinds = ("raise", "resource", "nan")
+        runs = [storm(FaultPlan.storm(2026, sites, n_faults=8, max_k=3,
+                                      kinds=kinds, times=(1, 2, -1)),
+                      f"storm run {i}") for i in range(2)]
+        if runs[0] != runs[1]:
+            fail("phase 7 (e): the same seed gave different histograms")
+        if not runs[0][2]:
+            fail("phase 7 (e): the storm fired no fault")
+        before = kernels.launch_counts()
+        _, hist, _ = storm(FaultPlan([
+            FaultRule(kth=1, graph="mixed", strategy=s, times=-1)
+            for s in ("fast", "single")]), "fast and single latched")
+        after = kernels.launch_counts()
+        unseg = {k: after[k] - before[k] for k in after
+                 if k != "flash_attention"}
+        log(f"phase 7 (e): unsegmented rung launches (compact tables): "
+            f"{unseg}")
+        for _, h_, _ in runs:
+            if "torch" in h_["degraded_served"]:
+                fail("phase 7 (e): a request was served on the plain path")
+        if hist["degraded_served"] != {"unsegmented": len(storm_subs)}:
+            fail(f"phase 7 (e): expected every request on the unsegmented "
+                 f"rung, got {hist['degraded_served']}")
+        if not all(unseg.values()):
+            fail(f"phase 7 (e): a kernel never launched on the unsegmented "
+                 f"rung: {unseg}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # (f) One flush with every packed SpMM apply sampled into a perf ledger
+    # under a temporary directory; the H100 model's measured/predicted.
+    with tempfile.TemporaryDirectory() as tmp:
+        led = PerfLedger(tmp)
+        eng_f = SparseEngine(reg, ledger=led, sample_every=1)
+        gen = torch.Generator(dev).manual_seed(704)
+        for _ in range(4):
+            eng_f.submit("gcn::graph", "spmm",
+                         b=torch.randn(graph.k, 256, generator=gen,
+                                       device=dev))
+            for w in (64, 128):
+                eng_f.submit("mixed", "spmm",
+                             b=torch.randn(mixed.k, w, generator=gen,
+                                           device=dev))
+        eng_f.flush()
+        mark("(f) sampled flush")
+        clean(eng_f, "(f)")
+        samples = led.samples()
+        for s_ in samples:
+            log(f"  sample {s_['sig'][:10]} w={s_['width']}: wall "
+                f"{s_['wall_s'] * 1e3:.4f} ms, predicted "
+                f"{s_['predicted_s'] * 1e3:.4f} ms, ratio "
+                f"{s_['wall_s'] / s_['predicted_s']:.2f}, analytic "
+                f"{s_['hlo_flops'] / 1e9:.3f} GFLOP "
+                f"{s_['hlo_bytes'] / 1e6:.1f} MB")
+        rep = calibrate.calibration_report(samples)
+        log(f"phase 7 (f): {len(samples)} samples; calibration "
+            + "; ".join(f"{k}: n={v['n']} geomean measured/predicted "
+                        f"{v['geomean_ratio']:.3f}"
+                        for k, v in rep["regimes"].items()))
+
+    # (g) The scrape endpoint.
+    srv = eng.serve_http(port=0)
+    try:
+        def get(path):
+            with urllib.request.urlopen(srv.url + path, timeout=30) as r:
+                return r.read().decode()
+
+        body = get("/metrics")
+        series = [ln for ln in body.splitlines()
+                  if ln and not ln.startswith("#")]
+        health = json.loads(get("/health"))
+        memory = json.loads(get("/memory"))
+        stats = json.loads(get("/stats"))
+    finally:
+        srv.stop()
+    uploaded = sum(v.numel() * v.element_size()
+                   for e in entries.values() for op in e.ops.values()
+                   for _, v in op.op.arrays.resident_items())
+    log(f"phase 7 (g): /metrics {len(series)} series; /health breakers "
+        f"{sorted(health['breakers'])}; /stats served {stats['served']}; "
+        f"/memory resident {memory['resident_bytes']} B "
+        f"({memory['by_view']}), uploaded tensors {uploaded} B")
+    if memory["resident_bytes"] != uploaded:
+        fail(f"phase 7 (g): /memory {memory['resident_bytes']} B != the "
+             f"uploaded tensors' {uploaded} B")
+
+    missing = [k for k, v in path.items() if k != "flash_attention" and v <= 0]
+    log(f"phase 7 (serving path) launches: {path}")
+    if missing:
+        fail(f"kernels never launched on the serving path: {missing}")
+    log(f"phase 7: wall time {time.perf_counter() - t_phase:.1f} s")
+    return path
+
+
+def direct_gcn(reg, svc, x):
+    """A GCN scoring through the registered operator called directly,
+    layer by layer, each panel zero-padded to its width bucket as the
+    engine pads it."""
+    import torch
+
+    model = svc._models["gcn"]
+    op = reg.resolve(model.graph).op("spmm").op
+    h = x
+    for i, layer in enumerate(model.params):
+        b = h @ layer["w"]
+        w = b.shape[1]
+        h = op(torch.nn.functional.pad(b, (0, reg.width_bucket(w) - w)))[
+            :, :w]
+        if i < len(model.params) - 1:
+            h = torch.relu(h)
+    return h
+
+
+def direct_agnn(reg, svc, x):
+    """An AGNN scoring through the registered operators called directly,
+    layer by layer: the SDDMM on the normalized features, the edge
+    softmax, and the revalued SpMM, panels padded to their buckets."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import spmm_apply
+    from repro_torch.models.gnn import edge_softmax
+
+    model = svc._models["agnn"]
+    entry = reg.resolve(model.graph)
+    sp, sd = entry.op("spmm").op, entry.op("sddmm").op
+
+    def pad(t):
+        return torch.nn.functional.pad(
+            t, (0, reg.width_bucket(t.shape[1]) - t.shape[1]))
+
+    h = x
+    for i, layer in enumerate(model.params):
+        hn = h / torch.clamp(torch.linalg.vector_norm(
+            h, dim=-1, keepdim=True), min=1e-9)
+        att = edge_softmax(model, sd(pad(hn), pad(hn)) * layer["beta"])
+        arrs = ref.revalue_spmm_arrays(
+            sp.arrays.for_backend("cuda", revalue=True), att)
+        w = h.shape[1]
+        h = spmm_apply(arrs, pad(h), m=sp.m, nwin=sp.nwin)[:, :w]
+        h = h @ layer["w"]
+        if i < len(model.params) - 1:
+            h = torch.relu(h)
+    return h
 
 
 if __name__ == "__main__":

@@ -34,6 +34,27 @@ from repro_torch.core.balance import segment_take
 
 WINDOW = 8  # paper: 8×1 non-zero column vectors (swap-and-transpose granularity)
 
+#: The three device views a plan's arrays fall into (see
+#: :func:`view_of_key` / :class:`PlanArrays`): the compact
+#: per-block/per-tile tensors, the §4.3 segment launch tables, and the
+#: revaluation position maps.
+PLAN_VIEWS = ("compact", "segment", "revalue")
+
+# SpMM revaluation maps: canonical-nnz position tensors read only by
+# ref.revalue_spmm_arrays. (SDDMM's *_out_pos keys are structural
+# scatter maps every apply needs — they stay in compact/segment.)
+_REVALUE_KEYS = frozenset(
+    {"tc_pos", "vpu_pos", "tc_seg_pos", "vpu_seg_pos"})
+
+
+def view_of_key(key: str) -> str:
+    """Classify one device-array key into a :data:`PLAN_VIEWS` view."""
+    if key in _REVALUE_KEYS:
+        return "revalue"
+    if "_seg_" in key:
+        return "segment"
+    return "compact"
+
 
 @dataclasses.dataclass(frozen=True)
 class TCBlocks:
@@ -352,18 +373,30 @@ def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class PlanArrays(Mapping):
-    """Lazy device views of one plan (paper §4.1 ③: upload once, reuse).
+    """Lazy, byte-accounted device views of one plan (paper §4.1 ③:
+    upload once, reuse).
 
     The plan stays host-side; each array uploads to ``device`` on first
     use. :meth:`for_backend` returns the exact key set one backend's
     apply reads: ``"torch"`` → compact tables only, ``"cuda"`` → segment
-    tables for segmented streams and compact tables otherwise;
-    ``revalue=True`` swaps each value tensor for its position map, which
+    tables for segmented streams and compact tables otherwise
+    (``segmented=False`` asks for the compact tables on the kernel path,
+    the serving ladder's ``unsegmented`` rung); ``revalue=True`` swaps
+    each value tensor for its position map, which
     :func:`repro_torch.kernels.ref.revalue_spmm_arrays` turns back into
     values from a runtime edge-value vector. An SpMM plan's ``"cuda"``
     dict also carries ``"tc_len"`` (:meth:`tc_len`) and ``"vpu_len"``
-    (:meth:`vpu_len`), which are derived on the host and are no plan
-    keys.
+    (:meth:`vpu_len`) of the tables it holds, which are derived on the
+    host and are no plan keys.
+
+    Every upload is recorded (key, view, ``nbytes``, dtype), the derived
+    lengths too: under ``tc_seg_len``/``vpu_seg_len`` (view
+    ``"segment"``) or ``tc_len``/``vpu_len`` (``"compact"``), the view
+    of the table they describe. An *accountant* callback
+    (:meth:`set_accountant`, usually a
+    :class:`repro_torch.obs.memstat.MemLedger` binder) receives each
+    record, with earlier uploads replayed on attach, so the ledger sums
+    exactly the ``nbytes`` of the tensors on the device.
     """
 
     def __init__(self, plan, device: torch.device | str):
@@ -371,15 +404,24 @@ class PlanArrays(Mapping):
         self.device = torch.device(device)
         self.kind = "spmm" if isinstance(plan, SpMMPlan) else "sddmm"
         self._host = _host_arrays(plan)
+        self._views = {k: view_of_key(k) for k in self._host}
         self._dev: dict[str, torch.Tensor] = {}
+        self._derived: dict[str, torch.Tensor] = {}
+        self._uploads: dict[str, tuple[str, int, str]] = {}
         self._bcache: dict[tuple, dict] = {}
-        self._tc_len: torch.Tensor | None = None
-        self._vpu_len: torch.Tensor | None = None
+        self._accountant = None
+
+    def _record(self, key: str, view: str, arr: torch.Tensor) -> None:
+        rec = (view, arr.numel() * arr.element_size(), str(arr.dtype))
+        self._uploads[key] = rec
+        if self._accountant is not None:
+            self._accountant(view, key, rec[1], rec[2])
 
     def __getitem__(self, key: str) -> torch.Tensor:
         arr = self._dev.get(key)
         if arr is None:
             arr = self._dev[key] = _to_tensor(self._host[key], self.device)
+            self._record(key, self._views[key], arr)
         return arr
 
     def __iter__(self):
@@ -396,12 +438,19 @@ class PlanArrays(Mapping):
         """The host-side NumPy arrays (reference dtypes)."""
         return self._host
 
-    def backend_keys(self, backend: str, *,
-                     revalue: bool = False) -> tuple[str, ...]:
+    # ------------------------------------------------- backend views ---
+    @property
+    def segmented(self) -> bool:
+        """True when the plan carries §4.3 segment launch tables."""
+        return any(self._views[k] == "segment" for k in self._host)
+
+    def backend_keys(self, backend: str, *, revalue: bool = False,
+                     segmented: bool = True) -> tuple[str, ...]:
         """The exact key set ``backend``'s apply reads for this plan."""
         ks = self._host
+        compact = backend == "torch" or not segmented
         if self.kind == "spmm":
-            if backend == "torch":
+            if compact:
                 keys = list(_SPMM_TC + _SPMM_VPU)
             else:
                 keys = list(_SPMM_TC_SEG if "tc_seg_vals" in ks
@@ -412,45 +461,132 @@ class PlanArrays(Mapping):
                 keys = [_REVALUE_OF[k] if _REVALUE_OF.get(k) in ks else k
                         for k in keys]
             return tuple(keys)
-        if backend == "torch":
+        if compact:
             return _SDDMM_TC + _SDDMM_VPU
         keys = list(_SDDMM_TC_SEG if "tc_seg_cols" in ks else _SDDMM_TC)
         keys += list(_SDDMM_VPU_SEG if "vpu_seg_rows" in ks
                      else _SDDMM_VPU)
         return tuple(keys)
 
-    def for_backend(self, backend: str, *,
-                    revalue: bool = False) -> dict[str, torch.Tensor]:
+    def _carries_lengths(self, backend: str) -> bool:
+        """True when ``backend``'s dict carries derived lengths (SpMM on
+        the kernel path)."""
+        return self.kind == "spmm" and backend == "cuda"
+
+    def _length_source(self, stream: str, segmented: bool) -> tuple:
+        """The resident key of one stream's derived lengths
+        (``tc_seg_len``, ``vpu_len``, ...) and the position map they
+        derive from: the segment table's when the plan has one and
+        ``segmented``, else the compact table's."""
+        seg = "_seg" if segmented and f"{stream}_seg_vals" in self._host \
+            else ""
+        return f"{stream}{seg}_len", f"{stream}{seg}_pos"
+
+    def for_backend(self, backend: str, *, revalue: bool = False,
+                    segmented: bool = True) -> dict[str, torch.Tensor]:
         """Upload on first use and return the minimal device dict for
-        one backend; memoized per (backend, revalue)."""
-        ck = (backend, revalue)
+        one backend; memoized per (backend, revalue, segmented)."""
+        ck = (backend, revalue, segmented)
         cached = self._bcache.get(ck)
         if cached is None:
-            cached = self._bcache[ck] = {
-                k: self[k]
-                for k in self.backend_keys(backend, revalue=revalue)}
-            if self.kind == "spmm" and backend == "cuda":
-                cached["tc_len"] = self.tc_len()
-                cached["vpu_len"] = self.vpu_len()
+            cached = {k: self[k] for k in self.backend_keys(
+                backend, revalue=revalue, segmented=segmented)}
+            if self._carries_lengths(backend):
+                cached["tc_len"] = self.tc_len(segmented=segmented)
+                cached["vpu_len"] = self.vpu_len(segmented=segmented)
+            self._bcache[ck] = cached
         return cached
 
-    def tc_len(self) -> torch.Tensor:
-        """(nb,) i32 real-vector count of each segment (else block) of the
-        Tensor Core SpMM table the kernel path reads, derived once from
-        its position map and kept on the device."""
-        if self._tc_len is None:
-            seg = "_seg" if "tc_seg_vals" in self._host else ""
-            self._tc_len = _to_tensor(
-                real_vector_lengths(self._host[f"tc{seg}_pos"]), self.device)
-        return self._tc_len
+    def _length(self, stream: str, segmented: bool) -> torch.Tensor:
+        key, table = self._length_source(stream, segmented)
+        arr = self._derived.get(key)
+        if arr is None:
+            lengths = (real_vector_lengths if stream == "tc"
+                       else real_prefix_lengths)(self._host[table])
+            arr = self._derived[key] = _to_tensor(lengths, self.device)
+            self._record(key, view_of_key(key), arr)
+        return arr
 
-    def vpu_len(self) -> torch.Tensor:
+    def tc_len(self, *, segmented: bool = True) -> torch.Tensor:
+        """(nb,) i32 real-vector count of each segment (else block) of the
+        Tensor Core SpMM table the kernel path reads (the compact blocks
+        when ``segmented=False``), derived once from its position map and
+        kept on the device."""
+        return self._length("tc", segmented)
+
+    def vpu_len(self, *, segmented: bool = True) -> torch.Tensor:
         """(ntiles,) i32 real length of each row of the CUDA-core SpMM
-        table the kernel path reads (Cs segments, else tiles), derived
-        once from its position map and kept on the device."""
-        if self._vpu_len is None:
-            seg = "_seg" if "vpu_seg_vals" in self._host else ""
-            self._vpu_len = _to_tensor(
-                real_prefix_lengths(self._host[f"vpu{seg}_pos"]),
-                self.device)
-        return self._vpu_len
+        table the kernel path reads (Cs segments, else tiles; the tiles
+        when ``segmented=False``), derived once from its position map and
+        kept on the device."""
+        return self._length("vpu", segmented)
+
+    def materialize_all(self) -> dict[str, torch.Tensor]:
+        """Upload every host key and return the full device dict."""
+        return {k: self[k] for k in self._host}
+
+    # ---------------------------------------------------- accounting ---
+    def set_accountant(self, accountant) -> None:
+        """Attach a ``(view, key, nbytes, dtype) -> None`` upload
+        recorder; uploads that already happened (e.g. during a tune
+        search) are replayed into it immediately."""
+        self._accountant = accountant
+        if accountant is not None:
+            for key, (view, nbytes, dtype) in self._uploads.items():
+                accountant(view, key, nbytes, dtype)
+
+    def resident_items(self) -> list[tuple[str, torch.Tensor]]:
+        """The device tensors currently uploaded, derived lengths
+        included (the ledger's ground truth)."""
+        return sorted({**self._dev, **self._derived}.items())
+
+    def resident_nbytes(self, view: str | None = None) -> int:
+        """Exact bytes resident on the device (sum of the uploaded
+        tensors' ``nbytes``), optionally for one view."""
+        return sum(nb for v, nb, _ in self._uploads.values()
+                   if view is None or v == view)
+
+    def view_nbytes(self) -> dict[str, int]:
+        """Resident bytes per view (zero-filled over all views)."""
+        out = {v: 0 for v in PLAN_VIEWS}
+        for v, nb, _ in self._uploads.values():
+            out[v] += nb
+        return out
+
+    def projected_nbytes(self, backend: str | None = None, *,
+                         revalue: bool = False,
+                         segmented: bool = True) -> int:
+        """Bytes this plan *would* hold resident once served: the
+        backend key set's host ``nbytes`` (device dtypes are as wide as
+        the host's) plus its derived lengths (int32, one per row of the
+        table), or all host keys when ``backend`` is None. No upload
+        happens."""
+        if backend is None:
+            return sum(int(h.nbytes) for h in self._host.values())
+        keys = self.backend_keys(backend, revalue=revalue,
+                                 segmented=segmented)
+        lengths = 0
+        if self._carries_lengths(backend):
+            lengths = sum(
+                4 * self._host[self._length_source(s, segmented)[1]].shape[0]
+                for s in ("tc", "vpu"))
+        return sum(int(self._host[k].nbytes) for k in keys) + lengths
+
+    def memory(self) -> dict:
+        """Per-view resident/lazy breakdown of the host keys."""
+        views: dict[str, dict] = {
+            v: {"keys": 0, "resident_keys": 0, "bytes": 0,
+                "resident_bytes": 0} for v in PLAN_VIEWS}
+        for k, host in self._host.items():
+            st = views[self._views[k]]
+            st["keys"] += 1
+            st["bytes"] += int(host.nbytes)
+            rec = self._uploads.get(k)
+            if rec is not None:
+                st["resident_keys"] += 1
+                st["resident_bytes"] += rec[1]
+        return {
+            "views": {v: st for v, st in views.items() if st["keys"]},
+            "resident_bytes": self.resident_nbytes(),
+            "total_bytes": sum(int(h.nbytes) for h in self._host.values()),
+        }

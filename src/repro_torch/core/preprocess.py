@@ -36,7 +36,7 @@ from repro_torch.reorder import (
 )
 from repro_torch.sparse.matrix import SparseCSR
 from repro_torch.tune import PlanCache, tune_sddmm, tune_spmm
-from repro_torch.tune.cache import reorder_key
+from repro_torch.tune.cache import reorder_key, tune_key
 from repro_torch.tune.model import TuneConfig, matrix_features
 
 DEFAULT_SPMM_THRESHOLD = 3    # paper Fig. 11: optimal ≈ 3 for 8×1 vectors
@@ -62,6 +62,35 @@ def threshold_for_mode_sddmm(mode: str, bk: int,
     if mode == "vpu":
         return 8 * bk + 1  # no block can reach it → element path only
     return DEFAULT_SDDMM_THRESHOLD if threshold is None else threshold
+
+
+def forced_threshold(op: str, spec) -> int | None:
+    """The threshold ``spec`` hands the tuner for ``op``: the one its
+    single-resource mode pins, else the explicit one (None: the tuner
+    picks it)."""
+    if op == "spmm":
+        if spec.mode == "hybrid":
+            return spec.threshold
+        return threshold_for_mode_spmm(spec.mode, spec.threshold)
+    if spec.mode == "hybrid":
+        return spec.sddmm_threshold
+    bk = DEFAULT_BK_SDDMM if spec.bk is None else spec.bk
+    return threshold_for_mode_sddmm(spec.mode, bk, spec.sddmm_threshold)
+
+
+def search_tune_key(a: SparseCSR, op: str, spec) -> str | None:
+    """The :class:`~repro_torch.tune.cache.PlanCache` key a
+    ``tune="search"`` build of ``op`` on ``a`` (the matrix the plan is
+    built on) resolves through under ``spec``; None for any other
+    ``tune``."""
+    if not isinstance(spec.tune, str) or spec.tune != "search":
+        return None
+    return tune_key(a, op=op,
+                    width=spec.tune_n if op == "spmm" else spec.tune_kf,
+                    dtype="float32", backend=spec.tune_backend,
+                    mode=spec.mode, tune="search",
+                    threshold=forced_threshold(op, spec), bk=spec.bk,
+                    ts_tile=spec.ts_tile)
 
 
 def _resolve(explicit, cfg_value, default):
@@ -614,15 +643,11 @@ class Plan:
         if op not in ("spmm", "sddmm"):
             raise ValueError(f"op must be 'spmm' or 'sddmm', got {op!r}")
         mode = spec.mode
+        forced = forced_threshold(op, spec)
         if op == "spmm":
-            forced = (threshold_for_mode_spmm(mode, spec.threshold)
-                      if mode != "hybrid" else spec.threshold)
             guess = DEFAULT_SPMM_THRESHOLD if forced is None else forced
         else:
             bk_eff = DEFAULT_BK_SDDMM if spec.bk is None else spec.bk
-            forced = (threshold_for_mode_sddmm(mode, bk_eff,
-                                               spec.sddmm_threshold)
-                      if mode != "hybrid" else spec.sddmm_threshold)
             guess = DEFAULT_SDDMM_THRESHOLD if forced is None else forced
         a_eff, reord, report, feat_eff = _maybe_reorder(
             a, op=op, spec=spec, threshold=guess, feat=feat)

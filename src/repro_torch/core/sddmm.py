@@ -20,7 +20,8 @@ from repro_torch.api import ExecSpec
 from repro_torch.core import preprocess
 from repro_torch.core.balance import BalanceParams
 from repro_torch.core.formats import PlanArrays, SDDMMPlan
-from repro_torch.kernels.ops import sddmm_apply
+from repro_torch.kernels.ops import apply_at, sddmm_apply
+from repro_torch.obs.ledger import apply_sampler, dtype_name
 from repro_torch.sparse.matrix import SparseCSR
 from repro_torch.tune.model import TuneConfig
 
@@ -50,6 +51,12 @@ class LibraSDDMM:
         # matrix's (outputs land in its canonical order).
         self.indptr = np.asarray(a.indptr)
         self.indices = np.asarray(a.indices)
+        # The apply keys (kf, dtype, backend, rows of x and y) used so
+        # far: see kernels.ops.apply_at.
+        self._apply_cache: set = set()
+        # The matrix the plan was built on, read only while a perf
+        # ledger is recording (see LibraSpMM).
+        self._a = built.a
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor,
                  backend: str | None = None) -> torch.Tensor:
@@ -64,8 +71,14 @@ class LibraSDDMM:
                 perm = torch.cat([perm, torch.arange(
                     self.m, x.shape[0], device=perm.device)])
             x = x.index_select(0, perm)
-        arrs = self.arrays.for_backend(backend)
-        return sddmm_apply(arrs, x, y, nnz=self.nnz, backend=backend)
+
+        return apply_at(
+            self._apply_cache,
+            (x.shape[1], str(x.dtype), backend, x.shape[0], y.shape[0]),
+            self.device, sddmm_apply, self.arrays.for_backend(backend), x,
+            y, nnz=self.nnz, backend=backend,
+            sample=apply_sampler(self, "sddmm", width=x.shape[1],
+                                 dtype=dtype_name(x.dtype), backend=backend))
 
     @property
     def tc_ratio(self) -> float:

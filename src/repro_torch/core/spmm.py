@@ -47,7 +47,8 @@ from repro_torch.core import preprocess
 from repro_torch.core.balance import BalanceParams
 from repro_torch.core.formats import PlanArrays, SpMMPlan
 from repro_torch.core.windows import num_windows
-from repro_torch.kernels.ops import spmm_apply
+from repro_torch.kernels.ops import apply_at, spmm_apply
+from repro_torch.obs.ledger import apply_sampler, dtype_name
 from repro_torch.sparse.matrix import SparseCSR
 from repro_torch.tune.model import TuneConfig
 
@@ -73,6 +74,13 @@ class LibraSpMM:
                             torch.from_numpy(built.reorder.row_inv).to(
                                 self.device))
         self.arrays = PlanArrays(self.plan, self.device)
+        # The apply keys (n, dtype, backend) used so far: see
+        # kernels.ops.apply_at.
+        self._apply_cache: set = set()
+        # The matrix the plan was built on (the reordered view when
+        # reordering applied: search entries are cached under its
+        # signature), read only while a perf ledger is recording.
+        self._a = built.a
 
     def __call__(self, b: torch.Tensor,
                  backend: str | None = None) -> torch.Tensor:
@@ -80,9 +88,13 @@ class LibraSpMM:
             raise ValueError(f"b has {b.shape[0]} rows, A has {self.k} "
                              "columns")
         backend = self.spec.backend if backend is None else backend
-        # Only the key set this backend's apply reads is uploaded.
-        arrs = self.arrays.for_backend(backend)
-        out = spmm_apply(arrs, b, m=self.m, nwin=self.nwin, backend=backend)
+
+        out = apply_at(
+            self._apply_cache, (b.shape[1], str(b.dtype), backend),
+            self.device, spmm_apply, self.arrays.for_backend(backend), b,
+            m=self.m, nwin=self.nwin, backend=backend,
+            sample=apply_sampler(self, "spmm", width=b.shape[1],
+                                 dtype=dtype_name(b.dtype), backend=backend))
         if self._row_unperm is not None:
             out = out.index_select(0, self._row_unperm)
         return out

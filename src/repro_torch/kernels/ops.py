@@ -15,12 +15,19 @@ The combine stays outside the kernels, as in the reference package: one
 ``nnz`` swallows padding). Non-atomic segments own their rows, so their
 add is a store in effect; atomic ones (decomposed windows/rows, windows
 shared by both streams) accumulate.
+
+The ``*_apply_stack`` forms apply one plan to a stack of panels, the
+serving shape; :func:`apply_at` runs an operator's apply and counts its
+keys.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
 from repro_torch.core.formats import WINDOW
+from repro_torch.core.threshold import synchronize
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import ApplyError
 from repro_torch.kernels.sddmm_mxu import sddmm_mxu
@@ -28,15 +35,22 @@ from repro_torch.kernels.sddmm_vpu import sddmm_vpu
 from repro_torch.kernels.spmm_mxu import spmm_mxu
 from repro_torch.kernels.spmm_vpu import spmm_vpu
 
-__all__ = ["ApplyError", "classify_apply_error", "sddmm_apply", "spmm_apply"]
+__all__ = ["ApplyError", "apply_at", "classify_apply_error",
+           "sddmm_apply", "sddmm_apply_stack", "spmm_apply",
+           "spmm_apply_stack"]
 
 
 def classify_apply_error(exc: BaseException) -> str:
     """Map an apply-path exception to a short failure class:
-    ``compile`` | ``resource`` | ``nonfinite`` | ``runtime``."""
+    ``compile`` | ``resource`` | ``injected`` | ``nonfinite`` |
+    ``runtime``. Duck-typed (name/message heuristics for the
+    out-of-memory family) so callers never import backend guts."""
     if isinstance(exc, ApplyError):
         return exc.stage if exc.stage != "execute" else \
             classify_apply_error(exc.cause)
+    kind = getattr(exc, "kind", None)       # serve.faults.InjectedFault
+    if kind in ("raise", "resource"):
+        return "resource" if kind == "resource" else "injected"
     name = type(exc).__name__.lower()
     msg = str(exc).lower()
     if "resource" in name or "resource_exhausted" in msg \
@@ -45,6 +59,65 @@ def classify_apply_error(exc: BaseException) -> str:
     if "nonfinite" in name or "non-finite" in msg:
         return "nonfinite"
     return "runtime"
+
+
+def kernels_ready(backend: str, device: torch.device) -> None:
+    """Build (or load) the kernel library when ``backend`` launches the
+    kernels on a card, so that a build failure surfaces where an apply
+    key is first used."""
+    if backend == "cuda" and device.type == "cuda":
+        from repro_torch.kernels import _build
+
+        _build.library()
+
+
+def apply_at(seen: set, key, device: torch.device, fn, *args,
+             backend: str, sample=None, **kw):
+    """One operator apply, ``fn(*args, backend=backend, **kw)``, at
+    ``key``.
+
+    The counterpart of the reference's AOT executable cache. The kernels
+    take any shape, so nothing is compiled per key: ``seen`` only holds
+    the keys applied so far (the serving tier counts hits and misses by
+    its size). The first apply at a key loads the kernel library on the
+    card under a ``kernels.compile`` span; a failure there raises
+    :class:`ApplyError` (stage ``"compile"``) and leaves the key unseen,
+    so the next call tries again.
+
+    ``sample`` (a ``(wall_s) -> None`` callable, usually from
+    :func:`repro_torch.obs.ledger.apply_sampler`) opts this apply into
+    perf-ledger recording: it is timed from a synchronised card to
+    ``torch.cuda.synchronize()`` after it (asynchronous launches would
+    time the enqueue, not the kernels), and the wall seconds handed to
+    ``sample``. With the process tracer enabled the apply is a
+    ``kernels.execute`` span.
+    """
+    from repro_torch.obs.trace import get_tracer
+
+    tr = get_tracer()
+    if key not in seen:
+        try:
+            with tr.span("kernels.compile", key=str(key)):
+                kernels_ready(backend, device)
+        except Exception as exc:
+            raise ApplyError("compile", key, exc) from exc
+        seen.add(key)
+    if not tr.enabled and sample is None:
+        return fn(*args, backend=backend, **kw)
+    sp = tr.span("kernels.execute", key=str(key)).open() \
+        if tr.enabled else None
+    try:
+        if sample is None:
+            return fn(*args, backend=backend, **kw)
+        synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, backend=backend, **kw)
+        synchronize()
+        sample(time.perf_counter() - t0)
+        return out
+    finally:
+        if sp is not None:
+            sp.close()
 
 
 def spmm_apply(arrs, b: torch.Tensor, *, m: int, nwin: int,
@@ -116,3 +189,39 @@ def sddmm_apply(arrs, x: torch.Tensor, y: torch.Tensor, *, nnz: int,
         el_pos = arrs["vpu_out_pos"]
     s_el = torch.where(el_mask, s_el, 0.0)
     return ref.scatter_scores(s_tc, tc_pos, s_el, el_pos, el_mask, nnz)
+
+
+def spmm_apply_stack(arrs, b_stack: torch.Tensor, *, m: int, nwin: int,
+                     backend: str = "cuda",
+                     edge_vals: torch.Tensor | None = None) -> torch.Tensor:
+    """Panel-stack hybrid SpMM: one plan over a ``(batch, k, n)`` stack.
+
+    The serving-shape primitive: a graph's plan is the amortized asset,
+    requests arrive as feature panels. Each panel runs the single apply
+    (on the card, the same kernels panel by panel), so every panel's
+    result is bit for bit the single apply's. ``edge_vals`` — optional
+    ``(batch, nnz)`` canonical per-panel values — revalues the plan per
+    panel (``arrs`` then holds the position maps, ``for_backend(...,
+    revalue=True)``): the attention-serving path, pattern shared and
+    values per request.
+    """
+    outs = []
+    for i in range(b_stack.shape[0]):
+        a_i = (arrs if edge_vals is None
+               else ref.revalue_spmm_arrays(arrs, edge_vals[i]))
+        outs.append(spmm_apply(a_i, b_stack[i], m=m, nwin=nwin,
+                               backend=backend))
+    if not outs:
+        return b_stack.new_zeros((0, m, b_stack.shape[2]))
+    return torch.stack(outs)
+
+
+def sddmm_apply_stack(arrs, x_stack: torch.Tensor, y_stack: torch.Tensor,
+                      *, nnz: int, backend: str = "cuda") -> torch.Tensor:
+    """Panel-stack hybrid SDDMM: ``(batch, m, kf) × (batch, k, kf) →
+    (batch, nnz)``, panel by panel (see :func:`spmm_apply_stack`)."""
+    outs = [sddmm_apply(arrs, x, y, nnz=nnz, backend=backend)
+            for x, y in zip(x_stack, y_stack)]
+    if not outs:
+        return x_stack.new_zeros((0, nnz))
+    return torch.stack(outs)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.threshold import synchronize
+from repro_torch.obs.ledger import get_ledger, record_apply
 from repro_torch.obs.trace import get_tracer
 from repro_torch.sparse.matrix import SparseCSR
 from repro_torch.tune.model import (
@@ -188,6 +189,10 @@ def search_spmm(a: SparseCSR, *, n: int = 128, backend: str = "cuda",
             timings[i] = timer(lambda: op(b))
             sp.event("candidate", index=i, threshold=cand.threshold,
                      seconds=timings[i])
+            if get_ledger() is not None:
+                record_apply(op, "spmm", width=n, dtype="float32",
+                             backend=backend, wall_s=timings[i],
+                             source="search")
             if timings[i] < timings[best_i]:
                 best_i = i
         sp.set(best=best_i, best_seconds=timings[best_i])
@@ -225,6 +230,10 @@ def search_sddmm(a: SparseCSR, *, kf: int = 128, backend: str = "cuda",
             timings[i] = timer(lambda: op(x, y))
             sp.event("candidate", index=i, threshold=cand.threshold,
                      seconds=timings[i])
+            if get_ledger() is not None:
+                record_apply(op, "sddmm", width=kf, dtype="float32",
+                             backend=backend, wall_s=timings[i],
+                             source="search")
             if timings[i] < timings[best_i]:
                 best_i = i
         sp.set(best=best_i, best_seconds=timings[best_i])

@@ -779,3 +779,151 @@ def test_median_timer_waits_for_the_card(card):
     seconds = median_timer(reps=3, warmup=1)(
         lambda: torch.cuda._sleep(50_000_000))
     assert seconds > 5e-3
+
+
+# --------------------------------------------------------- serving tier ---
+def _serving_ops(card, seed=3):
+    """A mixed matrix with non-zero integer values, with SpMM and SDDMM
+    plans that put work on all four kernels."""
+    from repro_torch.serve import as_csr
+
+    a = mixed_csr(1024, 1024, seed=seed)
+    rng = np.random.default_rng(seed)
+    a = as_csr(a, (rng.integers(1, 5, a.nnz)
+                   * rng.choice([-1, 1], a.nnz)).astype(np.float32))
+    spmm = LibraSpMM(a, spec=ExecSpec(device="cuda", tune=TuneConfig(
+        threshold=6, bk=32, ts_tile=32, ts=4, cs=128)))
+    sddmm = LibraSDDMM(a, spec=ExecSpec(device="cuda", tune=TuneConfig(
+        threshold=1, bk=16, ts_tile=32, ts=8, cs=128)))
+    assert spmm.plan.meta["tc_nnz"] and spmm.plan.meta["vpu_nnz"]
+    assert sddmm.plan.meta["tc_nnz"]
+    return a, rng, spmm, sddmm
+
+
+def _ints_on(rng, card, *shape):
+    return torch.from_numpy(rng.integers(-4, 5, shape).astype(
+        np.float32)).to(card)
+
+
+@pytest.mark.parametrize("revalued", [False, True],
+                         ids=["plan_values", "edge_vals"])
+def test_stack_applies_match_looped_single_applies(card, revalued):
+    """``spmm_apply_stack``/``sddmm_apply_stack`` run K1–K4 panel by
+    panel: each panel equals its single apply bit for bit."""
+    from repro_torch.kernels import ops
+
+    a, rng, spmm, sddmm = _serving_ops(card)
+    b = _ints_on(rng, card, 3, a.k, 64)
+    ev = _ints_on(rng, card, 3, a.nnz) if revalued else None
+    arrs = spmm.arrays.for_backend("cuda", revalue=revalued)
+    kernels.reset_launch_counts()
+    got = ops.spmm_apply_stack(arrs, b, m=spmm.m, nwin=spmm.nwin,
+                               edge_vals=ev)
+    assert kernels.spmm_mxu.launches == kernels.spmm_vpu.launches == 3
+    for i in range(3):
+        t = arrs if ev is None else ref.revalue_spmm_arrays(arrs, ev[i])
+        assert torch.equal(got[i], ops.spmm_apply(t, b[i], m=spmm.m,
+                                                  nwin=spmm.nwin))
+    x = _ints_on(rng, card, 2, a.m, 64)
+    y = _ints_on(rng, card, 2, a.k, 64)
+    sd = sddmm.arrays.for_backend("cuda")
+    got = ops.sddmm_apply_stack(sd, x, y, nnz=sddmm.nnz)
+    for i in range(2):
+        assert torch.equal(got[i], ops.sddmm_apply(sd, x[i], y[i],
+                                                   nnz=sddmm.nnz))
+    assert kernels.sddmm_mxu.launches >= 4 and kernels.sddmm_vpu.launches
+
+
+@pytest.mark.parametrize("budget", [None, 1024 * 32 * 4],
+                         ids=["whole", "32col"])
+def test_packed_spmm_matches_direct_panels(card, budget):
+    """Four 64-wide panels packed into one 256-wide apply of K1 and K2
+    equal the direct 64-wide applies bit for bit. The packed width spans
+    two of K2's column slices (128 float4 columns each), and with a
+    patched L2 budget eight 32-column ones against two for a panel."""
+    from repro_torch.kernels.spmm_vpu import slice_cols
+    from repro_torch.serve import GraphRegistry, SparseEngine, registry
+
+    a, rng, _, _ = _serving_ops(card)
+    reg = GraphRegistry(width_buckets=(64,), panel_buckets=(1, 2, 4),
+                        tune=TuneConfig(threshold=6, bk=32, ts_tile=32,
+                                        ts=4, cs=128))
+    reg.register(a, name="g", ops=("spmm",))
+    entry = reg.resolve("g")
+    with mock.patch.object(registry, "PACK_BUDGET_BYTES", 1 << 40):
+        assert reg.pack_limit(entry, 64) == 4
+    op = entry.op("spmm").op
+    bs = [_ints_on(rng, card, a.k, 64) for _ in range(4)]
+    eng = SparseEngine(reg)
+    patch = (mock.patch.object(_build, "L2_SLICE_BYTES", budget)
+             if budget else mock.patch.object(_build, "L2_SLICE_BYTES",
+                                              _build.L2_SLICE_BYTES))
+    with patch, mock.patch.object(registry, "PACK_BUDGET_BYTES", 1 << 40):
+        assert slice_cols(a.k, 256, True) < 256
+        rids = [eng.submit("g", "spmm", b=b) for b in bs]
+        out = eng.flush()
+        assert eng.stats()["panels_executed"] == 1
+        for rid, b in zip(rids, bs):
+            assert torch.equal(out[rid], op(b))
+    assert not eng.health()["failures"]
+
+
+@pytest.mark.parametrize("kind", ["spmm", "sddmm"])
+def test_unsegmented_path_matches_segmented(card, kind):
+    """The serving ladder's ``unsegmented`` rung: K1–K4 over the compact
+    tables (with their own real lengths) give the segmented apply's
+    result bit for bit."""
+    from repro_torch.kernels import ops
+
+    a, rng, spmm, sddmm = _serving_ops(card, seed=4)
+    kernels.reset_launch_counts()
+    if kind == "spmm":
+        b = _ints_on(rng, card, a.k, 128)
+        flat = spmm.arrays.for_backend("cuda", segmented=False)
+        assert "tc_vals" in flat and "tc_seg_vals" not in flat
+        got = ops.spmm_apply(flat, b, m=spmm.m, nwin=spmm.nwin)
+        want = spmm(b)
+        names = ("spmm_mxu", "spmm_vpu")
+    else:
+        x = _ints_on(rng, card, a.m, 128)
+        y = _ints_on(rng, card, a.k, 128)
+        flat = sddmm.arrays.for_backend("cuda", segmented=False)
+        assert "tc_cols" in flat and "tc_seg_cols" not in flat
+        got = ops.sddmm_apply(flat, x, y, nnz=sddmm.nnz)
+        want = sddmm(x, y)
+        names = ("sddmm_mxu", "sddmm_vpu")
+    counts = kernels.launch_counts()
+    assert all(counts[n] >= 2 for n in names), counts
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["spmm", "sddmm"])
+def test_card_ladder_ends_above_the_plain_path(card, kind):
+    """On the card the ladder stops at ``unsegmented``: with the kernel
+    rungs all failing, the request comes back as a typed
+    ``ExecutionFailed`` and the plain path never answers it."""
+    from repro_torch.serve import (
+        ExecutionFailed,
+        FaultPlan,
+        FaultRule,
+        GraphRegistry,
+        SparseEngine,
+    )
+
+    a, rng, _, _ = _serving_ops(card)
+    reg = GraphRegistry(width_buckets=(64,), tune=TuneConfig(
+        threshold=6, bk=32, ts_tile=32, ts=4, cs=128))
+    reg.register(a, name="g", ops=(kind,))
+    plan = FaultPlan([FaultRule(kth=1, graph="g", strategy=s, times=-1)
+                      for s in ("fast", "single", "unsegmented")])
+    eng = SparseEngine(reg, faults=plan, sleep=lambda s: None)
+    if kind == "spmm":
+        rid = eng.submit("g", "spmm", b=_ints_on(rng, card, a.k, 64))
+    else:
+        rid = eng.submit("g", "sddmm", x=_ints_on(rng, card, a.m, 64),
+                         y=_ints_on(rng, card, a.k, 64))
+    got = eng.flush()[rid]
+    assert isinstance(got, ExecutionFailed) and got.reason == "injected"
+    h = eng.health()
+    assert not h["degraded_served"]
+    assert "torch" not in eng._applies.series()

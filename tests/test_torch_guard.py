@@ -5,11 +5,14 @@
   every module of the port loads no ``jax`` and builds no kernel.
 * Entry points default to the card: without one they raise instead of
   running on the CPU (the operators, the GNN and transformer converters,
-  the transformer constructor, ``api.init_params``/``init_cache`` and
-  ``launch.serve.generate``), and ``chip_smoke.py`` exits non-zero and
-  prints no result.
-* What the port does not cover yet raises ``NotImplementedError`` naming
-  its ROADMAP item (the model families other than dense).
+  the transformer constructor, ``api.init_params``/``init_cache``,
+  ``launch.serve.generate``, and the serving tier: ``GraphRegistry``,
+  ``SparseEngine``, ``BatchedSpMM``/``BatchedSDDMM``, ``GNNService``),
+  and ``chip_smoke.py`` exits non-zero and prints no result.
+* What the port does not cover yet raises ``NotImplementedError`` (or,
+  over HTTP, answers 501) naming its ROADMAP item (the model families
+  other than dense: item 13; the sharded serving entries: item 12; the
+  plan explainer behind ``/explain``: item 10).
 """
 import ast
 import json
@@ -76,14 +79,65 @@ def test_import_loads_no_jax_and_builds_nothing():
     assert report == {"jax": [], "built": 0}
 
 
-@pytest.mark.parametrize("entry", ["spmm", "sddmm", "graph"])
+@pytest.mark.parametrize("entry", ["spmm", "sddmm", "graph",
+                                   "batched_spmm", "batched_sddmm"])
 def test_default_spec_raises_without_a_card(entry, monkeypatch):
+    from repro_torch.dist.sparse import BatchedSDDMM, BatchedSpMM
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     a = mixed_csr(24, 24, seed=1)
     assert ExecSpec().device == "cuda" and ExecSpec().backend == "cuda"
-    cls = {"spmm": LibraSpMM, "sddmm": LibraSDDMM, "graph": GraphOps}[entry]
+    cls = {"spmm": LibraSpMM, "sddmm": LibraSDDMM, "graph": GraphOps,
+           "batched_spmm": BatchedSpMM,
+           "batched_sddmm": BatchedSDDMM}[entry]
     with pytest.raises(RuntimeError, match="is_available"):
         cls(a)
+
+
+@pytest.mark.parametrize("entry", ["GraphRegistry", "SparseEngine",
+                                   "GNNService"])
+def test_serving_entry_points_raise_without_a_card(entry, monkeypatch):
+    from repro_torch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "GraphRegistry": lambda: serve.GraphRegistry(),
+        "SparseEngine": lambda: serve.SparseEngine(serve.GraphRegistry()),
+        "GNNService": lambda: serve.GNNService(
+            serve.SparseEngine(serve.GraphRegistry())),
+    }
+    with pytest.raises(RuntimeError, match="is_available"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["mesh", "ShardedSpMM", "ShardedSDDMM",
+                                   "gcn_mesh", "explain"])
+def test_unported_serving_pieces_name_their_roadmap_item(entry):
+    import urllib.error
+    import urllib.request
+
+    from repro_torch import serve
+    from repro_torch.dist import sparse
+
+    a = mixed_csr(24, 24, seed=1)
+    reg = serve.GraphRegistry(device="cpu")
+    if entry == "explain":
+        reg.register(a, name="g", ops=("spmm",))
+        with serve.SparseEngine(reg).serve_http() as srv:
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                urllib.request.urlopen(f"{srv.url}/explain/g", timeout=10)
+            assert ei.value.code == 501
+            assert "item 10" in ei.value.read().decode()
+        return
+    calls = {
+        "mesh": lambda: reg.register(a, name="g", mesh=object()),
+        "ShardedSpMM": lambda: sparse.ShardedSpMM(a, object()),
+        "ShardedSDDMM": lambda: sparse.ShardedSDDMM(a, object()),
+        "gcn_mesh": lambda: serve.GNNService(serve.SparseEngine(
+            reg)).register_gcn("m", a, object(), mesh=object()),
+    }
+    with pytest.raises(NotImplementedError, match="item 12"):
+        calls[entry]()
 
 
 def _dense_tree(cfg):
