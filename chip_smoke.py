@@ -94,16 +94,45 @@ Phases:
    the uploaded tensors' bytes) and ``/stats`` from ``serve_http``.
    (a)-(d) must serve every request on the fast path.
 
+8. The sharded path and the explainer (``dist/``, ``obs/explain.py``),
+   eight window shards on ``cuda:0`` one after another
+   (``ShardMesh.round_robin(8)`` on one card): (a) ``DistGraphOps`` on
+   phase 3's graph at its default ``tune="model"``, the host seconds of
+   its A, A^T and SDDMM(A) partitions, each partition's
+   ``explain_partition`` (nnz and segment balance, halo rows and waste)
+   and each shard's Tensor Core share; (b) sharded applies bit for bit
+   against the single-device operators on integer data (deterministic
+   algorithms): the mixed matrix registered with ``mesh=`` beside phase
+   7's batched tenant (``ShardedSpMM`` n=256 in both layouts, with
+   ``edge_vals`` and on one shard; ``ShardedSDDMM`` kf=128), the graph's
+   A with edge values and SDDMM(A); sharded against single apply times,
+   the halo gathers and the reassembly timed alone, and one profiled
+   sharded apply of each kind by kernel group; (c) GCN and AGNN
+   ``[128, 256, 256, 40]`` through ``DistGraphOps``: three requests each
+   against ``GraphOps(tune="model")`` and three SGD steps each (falling
+   losses, first-step gradients against ``backend="torch"``), launches by
+   shard, leg and width; (d) ``GNNService.register_gcn(mesh=)``: a flush
+   of 8 GCN requests beside phase 7's batched one (ms, requests/s), the
+   scores bit for bit against the ``ShardedSpMM`` called layer by layer
+   and within TF32's tolerance of the batched scores, raw requests on the
+   sharded mixed tenant bit for bit against direct calls and the batched
+   tenant, ``/memory`` against the shards' uploads; (e) ``explain_spmm``/
+   ``explain_sddmm(measure=True)`` of phase 2's operators as tables, and
+   ``/explain/<graph>`` over ``serve_http`` against ``explain_entry``
+   (a sharded graph answers 400).
+
 Phases 2 and 3 are the GNN inference path, phase 5's steps the GNN
 training path, phase 6's tuned operators the tuned path, phase 7's served
-flushes the serving path, and phase 4's (a) and (c) the dense main path:
+flushes the serving path, phase 8's sharded applies, requests, steps and
+flushes the sharded path, and phase 4's (a) and (c) the dense main path:
 every kernel's launch counter is set to 0 just before each path and read
 just after it; within phase 6, the counts
 of each part are read as it ends, and those of the Fig. 11 sweep and of
 phase 2's operators, applied only to compare with, are logged apart and
-left out of the path's (phase 7 likewise leaves out its direct calls,
-plain references and timings). Each of K1–K4 must have launched on the
-GNN paths, the tuned path and the serving path, K1 and K3 on the
+left out of the path's (phases 7 and 8 likewise leave out their direct
+calls, plain references and timings). Each of K1–K4 must have launched
+on the GNN paths, the tuned path, the serving path and the sharded path,
+K1 and K3 on the
 reordered A and SDDMM(A) (whose tables must hold real vectors and
 columns), and K5 exactly 42 times (once
 per layer) per scoring request on the dense path; K1–K4's launches are
@@ -875,10 +904,18 @@ def main(argv=None) -> int:
         latency=latency, trained=trained)
 
     # ------------------------------------------------ phase 7: serving path
-    serving_counts = serving_phase(
+    serving_counts, served = serving_phase(
         torch, np, log, fail, compare, dev=dev, graph=graph, a_mix=a_mix,
         norm=norm, gcn=gcn, agnn=agnn, gops_plain=gops_plain,
         latency=latency, median_ms=median_ms)
+
+    # ------------------------------------------------ phase 8: sharded path
+    sharded_counts = sharded_phase(
+        torch, np, log, fail, compare, dev=dev, graph=graph, norm=norm,
+        gcn=gcn, agnn=agnn, requests=requests, x_train=x_train,
+        labels=labels, spmm_mix=spmm_mix, sddmm_mix=sddmm_mix,
+        served=served, median_ms=median_ms)
+    del served
 
     # ------------------------------------------------ timing and bounds
     def rows_read(*ids):
@@ -912,13 +949,14 @@ def main(argv=None) -> int:
     entries = []
 
     # The kernels line counts the launches of the GNN paths: inference
-    # (phases 2-3), training (phase 5), the tuned path (phase 6) and the
-    # serving path (phase 7).
+    # (phases 2-3), training (phase 5), the tuned path (phase 6), the
+    # serving path (phase 7) and the sharded path (phase 8).
     gnn_counts = {k: main_counts[k] + train_counts[k] + tuned_counts[k]
-                  + serving_counts[k] for k in main_counts}
+                  + serving_counts[k] + sharded_counts[k]
+                  for k in main_counts}
     log(f"kernels line launches by path: inference {main_counts}, "
         f"training {train_counts}, tuned {tuned_counts}, serving "
-        f"{serving_counts}")
+        f"{serving_counts}, sharded {sharded_counts}")
 
     def record(name, label, ms, plain_ms, library_ms, nb, ops):
         """Log one kernel's times and bound; at the kernel's shape in
@@ -1948,7 +1986,9 @@ def serving_phase(torch, np, log, fail, compare, *, dev, graph, a_mix, norm,
 
     Returns the launch counts of the serving path: the served flushes of
     (b) scoring, (c) raw requests, (e) the fault storms and (f) the
-    sampled flush. Every count is set to 0 at the phase's start and each
+    sampled flush; and the registry, service, engine, the eight scoring
+    feature sets and the mixed tenant's matrix, which phase 8 serves
+    beside. Every count is set to 0 at the phase's start and each
     part's counts are taken as it ends; the direct calls, plain-path
     references and (d)'s timings, made only to compare with, are logged
     apart and left out."""
@@ -2354,17 +2394,521 @@ def serving_phase(torch, np, log, fail, compare, *, dev, graph, a_mix, norm,
     if missing:
         fail(f"kernels never launched on the serving path: {missing}")
     log(f"phase 7: wall time {time.perf_counter() - t_phase:.1f} s")
+    return path, dict(reg=reg, svc=svc, eng=eng, feats=feats, mixed=mixed)
+
+
+def classify_sharded(key: str) -> str:
+    """The group of a kernel of a sharded apply."""
+    k = key.lower()
+    for kern, group in (("spmm_mxu", "K1 spmm_mxu"),
+                        ("spmm_vpu", "K2 spmm_vpu"),
+                        ("sddmm_mxu", "K3 sddmm_mxu"),
+                        ("sddmm_vpu", "K4 sddmm_vpu"),
+                        ("indexfunc", "combines (index_add_)"),
+                        ("catarray", "concatenation of the shards' outputs")):
+        if kern in k:
+            return group
+    # index_select by an int32 index is a halo gather (the halo maps are
+    # int32); by an int64 one, x_take or the reassembly gather.
+    if "gather_kernel" in k or "indexselect" in k:
+        return ("halo gathers" if ", int>" in k
+                else "reassembly and x_take gathers")
+    if "index_elementwise" in k:
+        return "revaluation gathers (edge values)"
+    return "rest (elementwise, fills, copies)"
+
+
+def shard_tc_share(part) -> list[float]:
+    """Each shard's Tensor Core share of its non-zeros, from the stacked
+    position maps (real entries are ``>= 0``)."""
+    key = "tc_pos" if "tc_pos" in part.stacked else "tc_out_pos"
+    return [float((part.stacked[key][s.index] >= 0).sum()) / max(s.nnz, 1)
+            for s in part.shards]
+
+
+def sharded_phase(torch, np, log, fail, compare, *, dev, graph, norm, gcn,
+                  agnn, requests, x_train, labels, spmm_mix, sddmm_mix,
+                  served, median_ms):
+    """Phase 8: window-sharded Libra (``dist/``) and the plan explainer on
+    one card, eight shards on ``cuda:0`` one after another.
+
+    (a) ``DistGraphOps`` on phase 3's graph at its default
+    ``tune="model"``: host seconds of the A, A^T and SDDMM(A) partitions,
+    each one's ``explain_partition`` and each shard's Tensor Core share.
+    (b) Sharded applies against the single-device operators, bit for bit
+    on integer data under deterministic algorithms: the mixed matrix's
+    ``ShardedSpMM`` (n=256; both layouts, with ``edge_vals``, and one
+    shard) and ``ShardedSDDMM`` (kf=128), built by registering it with
+    ``mesh=`` beside phase 7's batched tenant, and the graph's A (with
+    ``edge_vals``) and SDDMM(A) partitions against
+    ``GraphOps(tune="model")``; sharded against single apply times, and
+    one profiled sharded apply of each kind split into K1–K4, the halo
+    gathers, the combines and the reassembly. (c) GCN and AGNN ``[128, 256, 256, 40]``
+    through ``DistGraphOps``: three requests each against
+    ``GraphOps(tune="model")``, three SGD steps each (losses must fall,
+    first-step gradients against the plain path), launches split by
+    shard, leg and width. (d) ``GNNService.register_gcn(mesh=)``: a flush
+    of 8 GCN requests beside phase 7's batched one, the scores bit for bit
+    against the sharded operator called layer by layer (deterministic)
+    and within TF32's tolerance of the batched scores; raw requests on
+    the sharded mixed tenant bit for bit against direct calls and the
+    batched tenant, every one on the fast path. (e) ``explain_spmm``/
+    ``explain_sddmm(measure=True)`` of phase 2's operators, and
+    ``/explain/<graph>`` over ``serve_http`` (a sharded graph: 400).
+
+    Returns the sharded path's launches: (b)'s sharded applies, (c)'s
+    requests and steps, (d)'s served flushes. The single-device
+    references, the plain path, timings and profiles are left out."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    from unittest import mock
+
+    from repro_torch import kernels
+    from repro_torch.api import ExecSpec
+    from repro_torch.dist import (
+        DistGraphOps,
+        ShardedSDDMM,
+        ShardedSpMM,
+        ShardMesh,
+    )
+    from repro_torch.dist import gnn as dist_gnn
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import spmm_apply
+    from repro_torch.models.gnn import GraphOps, train_step
+    from repro_torch.obs.explain import (
+        explain_entry,
+        explain_partition,
+        explain_sddmm,
+        explain_spmm,
+        render_table,
+    )
+    from repro_torch.obs.serve_http import _jsonable
+    from repro_torch.serve import ServeError, SparseEngine
+
+    n_shards = 8
+    reg, svc, eng, feats, mixed = (served[k] for k in (
+        "reg", "svc", "eng", "feats", "mixed"))
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    counts_at, last = {}, kernels.launch_counts()
+    path = {k: 0 for k in last}
+
+    def mark(label, on_path=True):
+        """Take the launches since the last mark as part ``label``'s; they
+        count towards the sharded path's when ``on_path``."""
+        nonlocal last
+        torch.cuda.synchronize()
+        now = kernels.launch_counts()
+        counts_at[label] = {k: now[k] - last[k] for k in now
+                            if k != "flash_attention"}
+        if on_path:
+            for k in now:
+                path[k] += now[k] - last[k]
+        last = now
+        log(f"phase 8: {label} done at {time.perf_counter() - t_phase:.1f} "
+            f"s; launches {counts_at[label]}"
+            + ("" if on_path else " (not on the path)"))
+
+    def clean(e, part):
+        h = e.health()
+        if h["failures"] or h["degraded_served"] or h["errors_returned"]:
+            fail(f"phase 8 {part}: serve_failures_total {h['failures']}, "
+                 f"serve_degraded_served_total {h['degraded_served']}, "
+                 f"errors {h['errors_returned']}")
+
+    gen = torch.Generator(dev).manual_seed(800)
+
+    def ints(*shape):
+        return torch.randint(-4, 5, shape, generator=gen, device=dev).float()
+
+    def pad(t, w):
+        return torch.nn.functional.pad(t, (0, w - t.shape[1]))
+
+    def show_partition(label, part, host_s=None):
+        rep = explain_partition(part)
+        share = shard_tc_share(part)
+        took = "" if host_s is None else f" {host_s:.1f} s (host);"
+        log(f"phase 8 (a): {label}:{took} shard nnz "
+            f"{rep['shard_nnz']}; nnz max/mean "
+            f"{rep['nnz_balance']['max_over_mean']:.4f}, segment max/mean "
+            f"{rep['segment_balance']['max_over_mean']:.4f} (segments "
+            f"{rep['shard_segments']}); halo rows {rep['halo_rows']}, halo "
+            f"waste {rep['halo_waste_frac']:.4f}; shard thresholds "
+            f"{[s.cfg.threshold for s in part.shards]}; Tensor Core share "
+            "by shard " + ", ".join(f"{x:.4f}" for x in share)
+            + f"; wmax {part.wmax}, stacked "
+            f"{sum(v.nbytes for v in part.stacked.values()) / 2**20:.1f} "
+            "MiB (host)")
+
+    # (a) The graph's partitions, timed one by one as DistGraphOps builds
+    # them (A, A^T, SDDMM(A)).
+    mesh = ShardMesh.round_robin(n_shards)
+    log(f"phase 8 (a): {mesh} ({torch.cuda.device_count()} card(s))")
+    host_s = []
+
+    def timed(fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            host_s.append(time.perf_counter() - t)
+            return out
+        return run
+
+    with mock.patch.object(dist_gnn, "partition_spmm",
+                           timed(dist_gnn.partition_spmm)), \
+            mock.patch.object(dist_gnn, "partition_sddmm",
+                              timed(dist_gnn.partition_sddmm)):
+        gd = DistGraphOps(graph, mesh)
+    for leg, part, s_ in zip(("A", "A^T", "SDDMM(A)"),
+                             (gd.part, gd.part_t, gd.part_sd), host_s):
+        show_partition(f"DistGraphOps {leg}", part, s_)
+
+    # (b) The mixed matrix with integer values, registered with mesh= beside
+    # phase 7's batched tenant of the same matrix: the entry's
+    # ShardedSpMM/ShardedSDDMM against the batched tenant's operators.
+    t = time.perf_counter()
+    reg.register(mixed, name="mixed8", ops=("spmm", "sddmm"), mesh=mesh)
+    mixed_s = time.perf_counter() - t
+    m8 = reg.resolve("mixed8")
+    sh_sp, sh_sd = m8.op("spmm"), m8.op("sddmm")
+    op_m, sd_m = (reg.resolve("mixed").op(k).op for k in ("spmm", "sddmm"))
+    log(f"phase 8 (b): mixed tenant registered with mesh= in {mixed_s:.1f} "
+        "s (host: its SpMM and SDDMM partitions)")
+    show_partition("mixed tenant SpMM", sh_sp.part)
+    show_partition("mixed tenant SDDMM", sh_sd.part)
+    row_sp = ShardedSpMM(sh_sp.part, mesh,
+                         spec=ExecSpec(b_layout="rowshard"))
+    row_sd = ShardedSDDMM(sh_sd.part, mesh,
+                          spec=ExecSpec(b_layout="rowshard"))
+    t = time.perf_counter()
+    one = ShardedSpMM(mixed, ShardMesh.round_robin(1))
+    log(f"phase 8 (b): one-shard mixed SpMM partition "
+        f"{time.perf_counter() - t:.1f} s (host)")
+    # The graph's single-device reference at the same tune="model".
+    t = time.perf_counter()
+    gops = GraphOps(graph, spec=ExecSpec(tune="model", device=str(dev)))
+    log(f"phase 8 (b): GraphOps(tune='model') plans "
+        f"{time.perf_counter() - t:.1f} s (host), the single-device "
+        "reference of (b) and (c)")
+    b, ev = ints(mixed.k, 256), ints(mixed.nnz)
+    x, y = ints(mixed.m, 128), ints(mixed.k, 128)
+    gb, gev, gx = ints(graph.k, 256), ints(graph.nnz), ints(graph.m, 128)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got = {"mixed SpMM n=256": sh_sp(b),
+               "mixed SpMM n=256 rowshard": row_sp(b),
+               "mixed SpMM n=256 edge_vals": sh_sp(b, edge_vals=ev),
+               "mixed SpMM n=256, one shard": one(b),
+               "mixed SDDMM kf=128": sh_sd(x, y),
+               "mixed SDDMM kf=128 rowshard": row_sd(x, y),
+               "graph A n=256 edge_vals": gd._spmm(gd.part, gb,
+                                                   edge_vals=gev),
+               "graph SDDMM(A) kf=128": gd._sddmm(gx, gx)}
+        mark("(b) sharded applies")
+        arrs = ref.revalue_spmm_arrays(
+            op_m.arrays.for_backend("cuda", revalue=True), ev)
+        want = {"mixed SpMM n=256": op_m(b),
+                "mixed SpMM n=256 edge_vals": spmm_apply(
+                    arrs, b, m=op_m.m, nwin=op_m.nwin),
+                "mixed SDDMM kf=128": sd_m(x, y),
+                "graph A n=256 edge_vals": gops._a_apply(gev, gb),
+                "graph SDDMM(A) kf=128": gops._sddmm_apply(gx, gx)}
+        want["mixed SpMM n=256 rowshard"] = want["mixed SpMM n=256"]
+        want["mixed SpMM n=256, one shard"] = want["mixed SpMM n=256"]
+        want["mixed SDDMM kf=128 rowshard"] = want["mixed SDDMM kf=128"]
+        mark("(b) single-device applies", on_path=False)
+        for label, out in got.items():
+            if not torch.equal(out, want[label]):
+                err = (out - want[label]).abs().max().item()
+                fail(f"phase 8 (b): sharded {label} differs from the "
+                     f"single-device apply (max|err| {err})")
+        del arrs, want
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"phase 8 (b): {len(got)} sharded applies equal the single-device "
+        "ones bit for bit (integer data, deterministic algorithms)")
+    del got
+    log("phase 8 (b): sharded against single-device apply ms (CUDA events, "
+        "median of 20)")
+    for label, sh, single in (
+            ("mixed SpMM n=256", lambda: sh_sp(b), lambda: op_m(b)),
+            ("mixed SDDMM kf=128", lambda: sh_sd(x, y), lambda: sd_m(x, y)),
+            ("graph A n=256 edge_vals",
+             lambda: gd._spmm(gd.part, gb, edge_vals=gev),
+             lambda: gops._a_apply(gev, gb)),
+            ("graph SDDMM(A) kf=128", lambda: gd._sddmm(gx, gx),
+             lambda: gops._sddmm_apply(gx, gx))):
+        sh_ms, one_ms = median_ms(sh), median_ms(single)
+        log(f"  {label}: sharded ({n_shards} shards) {sh_ms:.4f} ms, single "
+            f"device {one_ms:.4f} ms (ratio {sh_ms / one_ms:.3f})")
+    # Its pieces, each timed alone: the halo gathers, and the reassembly
+    # (the shards' outputs concatenated, then one gather).
+    for label, part, arrays, operand in (
+            ("mixed SpMM n=256", sh_sp.part, sh_sp.arrays, b),
+            ("graph SDDMM(A) kf=128", gd.part_sd,
+             [gd.part_sd.arrays(p, mesh.device(p)) for p in range(n_shards)],
+             gx)):
+        halos = [a_["halo"] for a_ in arrays]
+        halo_ms = median_ms(lambda: [operand.index_select(0, h)
+                                     for h in halos])
+        if part.kind == "spmm":
+            outs = [torch.zeros(part.rows_pad, operand.shape[1], device=dev)
+                    for _ in range(n_shards)]
+            gather = part.index("out_gather", dev)
+        else:
+            outs = [torch.zeros(part.nnz_pad, device=dev)
+                    for _ in range(n_shards)]
+            gather = part.index("nnz_gather", dev)
+        re_ms = median_ms(lambda: torch.cat(outs).index_select(0, gather))
+        log(f"  {label}: the {n_shards} halo gathers {halo_ms:.4f} ms "
+            f"({sum(h.numel() for h in halos)} rows), reassembly "
+            f"{re_ms:.4f} ms")
+        del outs, halos
+    for label, run in (("sharded SpMM mixed n=256", lambda: sh_sp(b)),
+                       ("sharded SpMM graph A n=256 edge_vals",
+                        lambda: gd._spmm(gd.part, gb, edge_vals=gev)),
+                       ("sharded SDDMM(A) graph kf=128",
+                        lambda: gd._sddmm(gx, gx))):
+        profile_request(torch, log, label, run, classify_sharded)
+    mark("(b) timings and profiles", on_path=False)
+    del one, row_sp, row_sd
+
+    # (c) GCN and AGNN through DistGraphOps from phase 3's weights.
+    counts_by_step, applies, ms_by = {}, {}, {"GCN": [], "AGNN": []}
+    outs = {}
+    with torch.no_grad():
+        for name, model, args in (("GCN", gcn, (norm,)), ("AGNN", agnn, ())):
+            for i, xr in enumerate(requests):
+                before = kernels.launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                outs[(name, i)] = model(gd, xr, *args)
+                torch.cuda.synchronize()
+                ms_by[name].append((time.perf_counter() - t) * 1e3)
+                after = kernels.launch_counts()
+                counts_by_step[f"{name} request {i}"] = {
+                    k: after[k] - before[k] for k in after}
+                applies[f"{name} request {i}"] = gnn_applies(name,
+                                                             model.dims)
+        mark("(c) DistGraphOps requests")
+        for (name, i), out in outs.items():
+            model = gcn if name == "GCN" else agnn
+            args = (norm,) if name == "GCN" else ()
+            if tuple(out.shape) != (graph.m, 40):
+                fail(f"phase 8 (c): {name} logits shape {tuple(out.shape)}")
+            compare(f"DistGraphOps {name} request {i} logits against "
+                    "GraphOps(tune='model')", out,
+                    model(gops, requests[i], *args), "tf32")
+        mark("(c) GraphOps(tune='model') references", on_path=False)
+    del outs, gops
+    for name, ms in ms_by.items():
+        log(f"phase 8 (c): DistGraphOps {name} [128, 256, 256, 40] request "
+            "ms: " + ", ".join(f"{v:.2f}" for v in ms))
+    trained = {}
+    for name, model0, args in (("GCN", gcn, (norm,)), ("AGNN", agnn, ())):
+        model = copy.deepcopy(model0)
+        losses, ms = [], []
+        for i in range(3):
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = train_step(model, gd, x_train, labels, *args, lr=0.2)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            after = kernels.launch_counts()
+            counts_by_step[f"{name} step {i}"] = {k: after[k] - before[k]
+                                                  for k in after}
+            applies[f"{name} step {i}"] = gnn_applies(name, model.dims,
+                                                      train=True)
+            losses.append(loss.item())
+            if i == 0:
+                grads0 = [p.grad.clone() for p in model.parameters()]
+        trained[name] = (losses, ms, grads0)
+        log(f"phase 8 (c): DistGraphOps {name} training step ms "
+            + ", ".join(f"{v:.2f}" for v in ms) + "; losses "
+            + ", ".join(f"{v:.6f}" for v in losses))
+        if not losses[-1] < losses[0]:
+            fail(f"phase 8 (c): the {name} loss did not fall: {losses}")
+    mark("(c) DistGraphOps training steps")
+    per_shard = {}
+    for step_label, c in counts_by_step.items():
+        if any(v % n_shards for v in c.values()):
+            fail(f"phase 8 (c): {step_label}: launches {c} are not "
+                 f"{n_shards} a sharded apply")
+        per_shard[step_label] = {k: v // n_shards for k, v in c.items()}
+    by_shape = launches_by_shape(per_shard, applies)
+    log(f"phase 8 (c) launches by leg and width, each shard (x{n_shards} "
+        "shards): " + str(by_shape).replace("GraphOps", "DistGraphOps"))
+    plain = copy.copy(gd)
+    plain.backend = "torch"
+    for name, model0, args in (("GCN", gcn, (norm,)), ("AGNN", agnn, ())):
+        model = copy.deepcopy(model0)
+        train_step(model, plain, x_train, labels, *args, lr=0.2)
+        names = [n for n, _ in model.named_parameters()]
+        for pname, got_g, p in zip(names, trained[name][2],
+                                   model.parameters()):
+            compare(f"DistGraphOps {name} first-step gradient {pname} "
+                    "against backend='torch'", got_g, p.grad, "tf32")
+    mark("(c) plain-path gradients", on_path=False)
+    del plain, trained
+
+    # (d) The GCN served on a mesh beside phase 7's batched GCN: one
+    # warm-up and one timed flush of the eight feature sets each.
+    t = time.perf_counter()
+    svc.register_gcn("gcn8", graph, gcn, mesh=mesh)
+    log(f"phase 8 (d): sharded GCN registered in "
+        f"{time.perf_counter() - t:.1f} s (host)")
+    show_partition("served GCN A (normalized)",
+                   reg.resolve("gcn8::graph").op("spmm").part)
+    flush_ms, scores = {}, {}
+    with torch.no_grad():
+        for model in ("gcn8", "gcn", "gcn8", "gcn"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rids = [svc.submit(model, f) for f in feats]
+            out = svc.flush()
+            torch.cuda.synchronize()
+            flush_ms[model] = (time.perf_counter() - t) * 1e3
+            scores[model] = [out[r] for r in rids]
+            if model == "gcn8":
+                mark("(d) sharded GCN flush")
+            else:
+                mark("(d) phase 7's batched GCN flush", on_path=False)
+        clean(eng, "(d)")
+        for model, label in (("gcn8", "sharded"), ("gcn", "batched")):
+            ms = flush_ms[model]
+            log(f"phase 8 (d): {label} GCN flush of {len(feats)} requests "
+                f"{ms:.2f} ms, {ms / len(feats):.2f} ms a request, "
+                f"{len(feats) / ms * 1e3:.1f} requests/s")
+        for i, (got_s, want_b) in enumerate(zip(scores["gcn8"],
+                                                scores["gcn"])):
+            if isinstance(got_s, ServeError):
+                fail(f"phase 8 (d): sharded GCN request {i}: {got_s}")
+            compare(f"sharded GCN request {i} against the batched one",
+                    got_s, want_b, "tf32")
+        del scores
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            rids = [svc.submit("gcn8", f) for f in feats]
+            out = svc.flush()
+            mark("(d) sharded GCN flush, deterministic algorithms")
+            for i, rid in enumerate(rids):
+                if not torch.equal(out[rid], direct_gcn(reg, svc, feats[i],
+                                                        name="gcn8")):
+                    fail(f"phase 8 (d): sharded GCN request {i} differs "
+                         "from the ShardedSpMM called layer by layer")
+            mark("(d) direct layer-by-layer calls", on_path=False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        log(f"phase 8 (d): {len(feats)} sharded GCN scores equal the "
+            "ShardedSpMM called layer by layer bit for bit")
+    # Raw requests on the sharded mixed tenant and on the batched one in
+    # one flush, against direct calls of the sharded operators.
+    raw = []
+    for w in (32, 64, 128):
+        raw.append(("spmm", w, dict(b=ints(mixed.k, w))))
+        raw.append(("spmm", w, dict(b=ints(mixed.k, w),
+                                    edge_vals=ints(mixed.nnz))))
+    for w in (32, 128):
+        raw.append(("sddmm", w, dict(x=ints(mixed.m, w),
+                                     y=ints(mixed.k, w))))
+    eng_d = SparseEngine(reg)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        rids = [(eng_d.submit("mixed8", op, **kw),
+                 eng_d.submit("mixed", op, **kw)) for op, _, kw in raw]
+        out = eng_d.flush()
+        mark("(d) raw requests, sharded and batched tenants")
+        for (rs, rb), (op, w, kw) in zip(rids, raw):
+            bw = reg.width_bucket(w)
+            if op == "sddmm":
+                want = sh_sd(pad(kw["x"], bw), pad(kw["y"], bw))
+            else:
+                want = sh_sp(pad(kw["b"], bw),
+                             edge_vals=kw.get("edge_vals"))[:, :w]
+            if not (torch.equal(out[rs], want)
+                    and torch.equal(out[rs], out[rb])):
+                fail(f"phase 8 (d): raw {op} width {w}"
+                     + (" edge_vals" if "edge_vals" in kw else "")
+                     + ": the sharded tenant differs from the direct call "
+                     "or the batched tenant")
+        mark("(d) direct sharded calls", on_path=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    clean(eng_d, "(d)")
+    st = eng_d.stats()
+    log(f"phase 8 (d): {len(raw)} raw requests on the sharded tenant equal "
+        f"the direct calls and the batched tenant bit for bit; pack_limit "
+        f"at w=64 sharded {reg.pack_limit(m8, 64)} (CUDA-core elements a "
+        f"shard {m8.spmm_vpu_elems}), batched "
+        f"{reg.pack_limit(reg.resolve('mixed'), 64)}; applies "
+        f"{st['panels_executed']}, exec-cache hits {st['exec_cache_hits']}, "
+        f"misses {st['exec_cache_misses']}")
+    mem = reg.memory_report()
+    sharded_bytes = sum(arr.resident_nbytes() for n in ("mixed8",
+                                                        "gcn8::graph")
+                        for op in reg.resolve(n).ops.values()
+                        for arr in op.arrays)
+    graphs = {g["graph"]: g["bytes"] for g in mem["graphs"]}
+    booked = sum(graphs.get(reg.resolve(n).key, 0)
+                 for n in ("mixed8", "gcn8::graph"))
+    log(f"phase 8 (d): /memory of the sharded entries {booked} B, their "
+        f"shards' uploaded tensors {sharded_bytes} B")
+    if booked != sharded_bytes:
+        fail("phase 8 (d): /memory disagrees with the shards' uploads")
+
+    # (e) The explainer: phase 2's operators measured, and /explain.
+    for label, op, fn, w in (("LibraSpMM mixed", spmm_mix, explain_spmm, 256),
+                             ("LibraSDDMM mixed", sddmm_mix, explain_sddmm,
+                              128)):
+        rep = fn(op, measure=True, width=w, reps=5)
+        log(render_table(rep, title=f"phase 8 (e): explain {label}"))
+    srv = eng.serve_http(port=0)
+    try:
+        name = "gcn::graph"
+        with urllib.request.urlopen(
+                f"{srv.url}/explain/{urllib.parse.quote(name)}",
+                timeout=60) as r:
+            served_doc = json.loads(r.read().decode())
+        local = json.loads(json.dumps(explain_entry(reg, name),
+                                      default=_jsonable))
+        if served_doc != local:
+            fail("phase 8 (e): /explain differs from explain_entry")
+        try:
+            urllib.request.urlopen(f"{srv.url}/explain/"
+                                   f"{urllib.parse.quote('gcn8::graph')}",
+                                   timeout=60)
+            fail("phase 8 (e): /explain of a sharded graph answered")
+        except urllib.error.HTTPError as exc:
+            if exc.code != 400:
+                fail(f"phase 8 (e): /explain of a sharded graph: {exc.code}")
+    finally:
+        srv.stop()
+    log(f"phase 8 (e): /explain/{name} equals explain_entry "
+        f"(tc_fraction {served_doc['tc_fraction']:.4f}, occupancy "
+        f"{served_doc['occupancy']['blocks_per_sm']} blocks an SM); the "
+        "sharded graph answers 400")
+    mark("(e) explainer", on_path=False)
+
+    missing = [k for k, v in path.items() if k != "flash_attention" and v <= 0]
+    log(f"phase 8 (sharded path) launches: {path}")
+    if missing:
+        fail(f"kernels never launched on the sharded path: {missing}")
+    log(f"phase 8: wall time {time.perf_counter() - t_phase:.1f} s")
     return path
 
 
-def direct_gcn(reg, svc, x):
-    """A GCN scoring through the registered operator called directly,
-    layer by layer, each panel zero-padded to its width bucket as the
-    engine pads it."""
+def direct_gcn(reg, svc, x, name="gcn"):
+    """A GCN scoring through the registered operator called directly
+    (the ``ShardedSpMM`` itself for a sharded entry), layer by layer, each
+    panel zero-padded to its width bucket as the engine pads it."""
     import torch
 
-    model = svc._models["gcn"]
-    op = reg.resolve(model.graph).op("spmm").op
+    model = svc._models[name]
+    entry = reg.resolve(model.graph)
+    op = entry.op("spmm") if entry.sharded else entry.op("spmm").op
     h = x
     for i, layer in enumerate(model.params):
         b = h @ layer["w"]

@@ -28,6 +28,7 @@ import torch
 from repro_torch.tune.model import TuneConfig
 
 BACKENDS = ("cuda", "torch")
+B_LAYOUTS = ("replicated", "rowshard")
 _REORDER_MODES = ("auto", "on", "off")
 _TUNE_MODES = ("model", "search", "off")
 
@@ -58,6 +59,8 @@ class ExecSpec:
     Execution:
       backend:          "cuda" (kernels) | "torch" (plain path)
       device:           where plan tables and outputs live
+      b_layout:         dense-operand layout for sharded ops
+                        ("replicated" | "rowshard")
     """
 
     mode: str = "hybrid"
@@ -73,6 +76,7 @@ class ExecSpec:
     tune_cache: Any = None
     backend: str = "cuda"
     device: str = "cuda"
+    b_layout: str = "replicated"
 
     def __post_init__(self):
         if self.mode not in ("hybrid", "tcu", "vpu"):
@@ -91,6 +95,10 @@ class ExecSpec:
                 raise ValueError(
                     f"{name} must be one of {BACKENDS}, got "
                     f"{getattr(self, name)!r}")
+        if self.b_layout not in B_LAYOUTS:
+            raise ValueError(
+                f"b_layout must be one of {B_LAYOUTS}, got "
+                f"{self.b_layout!r}")
 
     def replace(self, **kw) -> "ExecSpec":
         return dataclasses.replace(self, **kw)

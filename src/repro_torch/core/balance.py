@@ -111,3 +111,18 @@ def propagate_atomicity(tc_windows: np.ndarray, tc_atomic: np.ndarray,
     vpu_atomic = np.asarray(
         [a or (w in hot) for w, a in zip(vpu_windows, vpu_atomic)], dtype=bool)
     return tc_atomic, vpu_atomic
+
+
+def balance_report(seg_sizes: np.ndarray, n_shards: int) -> dict:
+    """Imbalance metric: max/mean work per shard under round-robin segment
+    assignment — what the dry-run sharding uses to validate balance."""
+    if seg_sizes.size == 0:
+        return {"max_over_mean": 1.0, "shards": n_shards}
+    per = np.zeros(n_shards, np.int64)
+    order = np.argsort(-seg_sizes)  # LPT-ish greedy
+    for s in seg_sizes[order]:
+        per[np.argmin(per)] += int(s)
+    return {
+        "max_over_mean": float(per.max() / max(per.mean(), 1e-9)),
+        "shards": n_shards,
+    }

@@ -102,6 +102,10 @@ class TCBlocks:
     def n_active(self) -> int:
         return int(self.active_win.shape[0])
 
+    @property
+    def padded_zeros(self) -> int:
+        return int(self.vals.size - self.nnz)
+
 
 @dataclasses.dataclass(frozen=True)
 class VPUTiles:
@@ -399,17 +403,29 @@ class PlanArrays(Mapping):
     exactly the ``nbytes`` of the tensors on the device.
     """
 
-    def __init__(self, plan, device: torch.device | str):
+    def __init__(self, plan, device: torch.device | str, *,
+                 host: dict[str, np.ndarray] | None = None,
+                 kind: str | None = None):
         self.plan = plan
         self.device = torch.device(device)
-        self.kind = "spmm" if isinstance(plan, SpMMPlan) else "sddmm"
-        self._host = _host_arrays(plan)
+        if plan is not None:
+            kind = "spmm" if isinstance(plan, SpMMPlan) else "sddmm"
+            host = _host_arrays(plan)
+        self.kind = kind
+        self._host = host
         self._views = {k: view_of_key(k) for k in self._host}
         self._dev: dict[str, torch.Tensor] = {}
         self._derived: dict[str, torch.Tensor] = {}
         self._uploads: dict[str, tuple[str, int, str]] = {}
         self._bcache: dict[tuple, dict] = {}
         self._accountant = None
+
+    @classmethod
+    def from_host(cls, host: dict[str, np.ndarray], kind: str,
+                  device: torch.device | str) -> "PlanArrays":
+        """Lazy views of host tables that no single plan owns (one shard's
+        slice of a partition's stacked tables, keyed like a plan's)."""
+        return cls(None, device, host=host, kind=kind)
 
     def _record(self, key: str, view: str, arr: torch.Tensor) -> None:
         rec = (view, arr.numel() * arr.element_size(), str(arr.dtype))

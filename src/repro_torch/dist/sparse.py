@@ -1,36 +1,190 @@
-"""Batched hybrid sparse execution: one plan over a stack of panels.
+"""Sharded + batched hybrid sparse execution.
 
-:class:`BatchedSpMM` / :class:`BatchedSDDMM` apply one Libra plan to a
-``(batch, k, n)`` stack of dense panels (the serving shape: one graph,
-many feature panels in flight) through
-:func:`~repro_torch.kernels.ops.spmm_apply_stack` /
-:func:`~repro_torch.kernels.ops.sddmm_apply_stack`, counting the apply
-keys (batch shape, dtype, backend) they have used. On the card a stack
-runs K1–K4 panel by panel, so each panel's result is bit for bit the
-single apply's. Reordered plans keep the single operators' contract: SpMM
-outputs come back in original row order (one ``index_select`` of the
-reordered rows), SDDMM gathers X's rows into the reordered row space.
+The two scale axes the single-device operators lack:
 
-The window-sharded operators (the reference's ``ShardedSpMM`` /
-``ShardedSDDMM`` over ``shard_map``) are ROADMAP item 12; their classes
-here raise ``NotImplementedError`` naming it.
+* :func:`spmm_sharded` / :func:`sddmm_sharded` — run one Libra plan
+  split into contiguous-window shards (:mod:`repro_torch.dist.partition`)
+  over a :class:`ShardMesh`, the counterpart of the reference package's
+  one-axis ``Mesh``. Each shard runs the *existing* single-device hybrid
+  apply (:func:`~repro_torch.kernels.ops.spmm_apply`: K1–K4 on
+  ``backend="cuda"``) on its device, one shard after another; because
+  the output is row-partitioned by construction (a window never
+  straddles shards), there is **no cross-shard combine** — one gather
+  reassembles the result.
+* :class:`BatchedSpMM` / :class:`BatchedSDDMM` — apply one plan to a
+  ``(batch, k, n)`` stack of dense panels (the serving shape: one graph,
+  many feature panels in flight) through
+  :func:`~repro_torch.kernels.ops.spmm_apply_stack` /
+  :func:`~repro_torch.kernels.ops.sddmm_apply_stack`. On the card a
+  stack runs K1–K4 panel by panel, so each panel's result is bit for
+  bit the single apply's. Reordered plans keep the single operators'
+  contract: SpMM outputs come back in original row order, SDDMM gathers
+  X's rows into the reordered row space.
+
+Every operator counts the apply keys (operand shape, dtype, backend) it
+has used (:func:`~repro_torch.kernels.ops.apply_at`).
+
+Halo model
+----------
+Each shard's plan columns are remapped onto its *halo* — the
+sorted-unique set of dense-operand rows the shard touches (precomputed
+host-side by the partitioner). At execution time each shard
+materializes only ``B[halo]`` (one ``index_select``), never all of B.
+The dense operand arrives two ways (``b_layout=`` / ``y_layout=``):
+
+* ``"replicated"`` (default) — every shard's device holds B and gathers
+  its halo rows locally;
+* ``"rowshard"`` — B's rows are split over the shards' devices and each
+  shard gathers them back whole before its halo gather (the reference's
+  all-gather; on one card, a concatenation).
+
+``edge_vals=`` (SpMM) revalues every shard's tables from one canonical
+nnz value vector (the training path — pattern fixed, values per step):
+the stacked position maps are global, so each shard reads the global
+vector, after one ``edge_perm`` gather on a reordered partition.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.api import ExecSpec
+from repro_torch.api import B_LAYOUTS, ExecSpec, checked_device
 from repro_torch.core.balance import BalanceParams
 from repro_torch.core.sddmm import LibraSDDMM
 from repro_torch.core.spmm import LibraSpMM
+from repro_torch.dist.partition import (
+    SDDMMPartition,
+    SpMMPartition,
+    partition_sddmm,
+    partition_spmm,
+)
+from repro_torch.kernels import ref
 from repro_torch.kernels.ops import (
     apply_at,
+    sddmm_apply,
     sddmm_apply_stack,
+    spmm_apply,
     spmm_apply_stack,
 )
 
-_SHARDED = ("window-sharded execution is not ported yet (ROADMAP item 12: "
-            "dist/partition.py, then dist/sparse.py on torch.distributed)")
+SHARD_AXIS = "shards"
+
+
+class ShardMesh:
+    """A one-axis mesh of shards: shard ``p`` runs on ``devices[p]``.
+
+    The counterpart of the reference package's ``jax.sharding.Mesh``
+    over one named axis: ``mesh.shape[axis]`` is the shard count. Every
+    device is checked (a CUDA device needs a card). Several shards may
+    share one device; they then run one after another.
+    """
+
+    def __init__(self, devices, axis: str = SHARD_AXIS):
+        self.devices = tuple(checked_device(d, "ShardMesh") for d in devices)
+        if not self.devices:
+            raise ValueError("ShardMesh needs at least one device")
+        self.axis = axis
+        self.shape = {axis: len(self.devices)}
+
+    @classmethod
+    def round_robin(cls, n_shards: int, axis: str = SHARD_AXIS
+                    ) -> "ShardMesh":
+        """``n_shards`` shards over the cards: shard ``p`` on card ``p %
+        torch.cuda.device_count()`` (all on ``cuda:0`` with one card)."""
+        n_cards = max(torch.cuda.device_count(), 1)
+        return cls([f"cuda:{p % n_cards}" for p in range(n_shards)], axis)
+
+    def device(self, p: int) -> torch.device:
+        return self.devices[p]
+
+    def __repr__(self) -> str:
+        return f"ShardMesh({[str(d) for d in self.devices]}, {self.axis!r})"
+
+
+def _check_mesh(part, mesh: ShardMesh, axis: str, layout: str) -> None:
+    if layout not in B_LAYOUTS:
+        raise ValueError(f"layout must be one of {B_LAYOUTS}, got {layout!r}")
+    if int(mesh.shape[axis]) != part.n_shards:
+        raise ValueError(f"mesh {mesh.shape} for a partition of "
+                         f"{part.n_shards} shards")
+
+
+def _row_blocks(t: torch.Tensor, mesh: ShardMesh) -> list[torch.Tensor]:
+    """``t``'s rows padded to a multiple of the shard count and split into
+    one block a shard, each on its shard's device (``"rowshard"``)."""
+    n = len(mesh.devices)
+    per = -(-t.shape[0] // n)
+    t = torch.nn.functional.pad(t, (0, 0, 0, per * n - t.shape[0]))
+    return [blk.to(mesh.device(p)) for p, blk in enumerate(t.split(per))]
+
+
+def _operand(t: torch.Tensor, blocks, dev: torch.device) -> torch.Tensor:
+    """The whole dense operand on ``dev``: ``t`` itself (replicated), or
+    the row blocks gathered back (rowshard)."""
+    if blocks is None:
+        return t.to(dev)
+    return torch.cat([blk.to(dev) for blk in blocks])
+
+
+def spmm_sharded(part: SpMMPartition, b: torch.Tensor, *, mesh: ShardMesh,
+                 axis: str = SHARD_AXIS, backend: str = "cuda",
+                 edge_vals: torch.Tensor | None = None,
+                 b_layout: str = "replicated") -> torch.Tensor:
+    """C = A @ B over a mesh; each shard applies its plan on its device.
+
+    ``edge_vals`` (canonical global nnz order) revalues every shard's
+    tables — the differentiable-values path. Output rows are partitioned
+    by shard, so the result needs no reduction: one gather
+    (``part.out_gather``) reassembles C on ``b``'s device.
+    """
+    _check_mesh(part, mesh, axis, b_layout)
+    if edge_vals is not None and part.edge_perm is not None:
+        # Reordered partition: shard positions index the reordered
+        # canonical nnz order — gather the caller's original-order
+        # values into it once, before the shard loop.
+        edge_vals = edge_vals.index_select(
+            0, part.index("edge_perm", edge_vals.device))
+    blocks = _row_blocks(b, mesh) if b_layout == "rowshard" else None
+    outs = []
+    for p in range(part.n_shards):
+        dev = mesh.device(p)
+        arrays = part.arrays(p, dev)
+        local = arrays.for_backend(backend, revalue=edge_vals is not None)
+        if edge_vals is not None:
+            local = ref.revalue_spmm_arrays(local, edge_vals.to(dev))
+        b_halo = _operand(b, blocks, dev).index_select(0, arrays["halo"])
+        outs.append(spmm_apply(local, b_halo, m=part.rows_pad,
+                               nwin=part.wmax, backend=backend).to(b.device))
+    return torch.cat(outs).index_select(0, part.index("out_gather", b.device))
+
+
+def sddmm_sharded(part: SDDMMPartition, x: torch.Tensor, y: torch.Tensor, *,
+                  mesh: ShardMesh, axis: str = SHARD_AXIS,
+                  backend: str = "cuda",
+                  y_layout: str = "replicated") -> torch.Tensor:
+    """values = sample(X·Yᵀ, sparsity(A)) over a mesh, canonical global
+    nnz order.
+
+    X is laid out in padded per-shard panels (``part.x_take``, one
+    gather before the shard loop); Y follows ``y_layout`` like B in
+    :func:`spmm_sharded`. Each shard scores into its local nnz slice;
+    ``part.nnz_gather`` reassembles the canonical vector on ``x``'s
+    device — again no cross-shard combine.
+    """
+    _check_mesh(part, mesh, axis, y_layout)
+    panels = x.index_select(0, part.index("x_take", x.device)).split(
+        part.rows_pad)
+    blocks = _row_blocks(y, mesh) if y_layout == "rowshard" else None
+    outs = []
+    for p in range(part.n_shards):
+        dev = mesh.device(p)
+        arrays = part.arrays(p, dev)
+        y_halo = _operand(y, blocks, dev).index_select(0, arrays["halo"])
+        outs.append(sddmm_apply(arrays.for_backend(backend),
+                                panels[p].to(dev), y_halo,
+                                nnz=part.nnz_pad,
+                                backend=backend).to(x.device))
+    return torch.cat(outs).index_select(0, part.index("nnz_gather",
+                                                      x.device))
 
 
 class BatchedSpMM:
@@ -95,14 +249,79 @@ class BatchedSDDMM:
 
 
 class ShardedSpMM:
-    """Window-sharded SpMM over a device mesh: not ported yet."""
+    """Engine-callable sharded apply: partition and mesh bound once.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"ShardedSpMM: {_SHARDED}")
+    The serving-shape counterpart of :class:`BatchedSpMM` for graphs too
+    large (or too imbalanced) for one device: the partition is the
+    amortized asset; requests arrive as ``(k, n)`` panels. Accepts a
+    :class:`~repro_torch.dist.partition.SpMMPartition` or a raw
+    :class:`~repro_torch.sparse.matrix.SparseCSR` (partitioned here
+    under ``spec``); ``edge_vals`` revalues the tables per call
+    (canonical nnz order). ``_cache`` holds the apply keys (operand
+    shape, dtype, revalued) used so far; ``arrays`` each shard's lazy
+    device tables.
+    """
+
+    def __init__(self, a, mesh: ShardMesh, *, axis: str = SHARD_AXIS,
+                 spec: ExecSpec | None = None, timer=None):
+        spec = ExecSpec() if spec is None else spec
+        self.spec = spec
+        self.part = (a if isinstance(a, SpMMPartition)
+                     else partition_spmm(a, int(mesh.shape[axis]),
+                                         spec=spec, mesh=mesh, timer=timer))
+        _check_mesh(self.part, mesh, axis, spec.b_layout)
+        self.mesh, self.axis = mesh, axis
+        self.backend, self.b_layout = spec.backend, spec.b_layout
+        self.m, self.k, self.nnz = self.part.m, self.part.k, self.part.nnz
+        self.arrays = [self.part.arrays(p, mesh.device(p))
+                       for p in range(self.part.n_shards)]
+        self._cache: set = set()
+
+    @property
+    def tune_config(self):
+        return self.part.run_cfg
+
+    def __call__(self, b: torch.Tensor,
+                 edge_vals: torch.Tensor | None = None) -> torch.Tensor:
+        if b.shape[0] != self.k:
+            raise ValueError(f"b has {b.shape[0]} rows, A has {self.k} "
+                             "columns")
+        return apply_at(
+            self._cache,
+            (tuple(b.shape), str(b.dtype), edge_vals is not None),
+            self.mesh.device(0), spmm_sharded, self.part, b,
+            mesh=self.mesh, axis=self.axis, backend=self.backend,
+            edge_vals=edge_vals, b_layout=self.b_layout)
 
 
 class ShardedSDDMM:
-    """Window-sharded SDDMM over a device mesh: not ported yet."""
+    """Engine-callable sharded SDDMM — see :class:`ShardedSpMM`."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"ShardedSDDMM: {_SHARDED}")
+    def __init__(self, a, mesh: ShardMesh, *, axis: str = SHARD_AXIS,
+                 spec: ExecSpec | None = None, timer=None):
+        spec = ExecSpec() if spec is None else spec
+        self.spec = spec
+        self.part = (a if isinstance(a, SDDMMPartition)
+                     else partition_sddmm(a, int(mesh.shape[axis]),
+                                          spec=spec, mesh=mesh, timer=timer))
+        _check_mesh(self.part, mesh, axis, spec.b_layout)
+        self.mesh, self.axis = mesh, axis
+        self.backend, self.y_layout = spec.backend, spec.b_layout
+        self.m, self.k, self.nnz = self.part.m, self.part.k, self.part.nnz
+        self.arrays = [self.part.arrays(p, mesh.device(p))
+                       for p in range(self.part.n_shards)]
+        self._cache: set = set()
+
+    @property
+    def tune_config(self):
+        return self.part.run_cfg
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] < self.m or y.shape[0] < self.k:
+            raise ValueError(f"x needs ≥ {self.m} rows and y ≥ {self.k}, "
+                             f"got {x.shape[0]} and {y.shape[0]}")
+        return apply_at(
+            self._cache, (tuple(x.shape), tuple(y.shape), str(x.dtype)),
+            self.mesh.device(0), sddmm_sharded, self.part, x, y,
+            mesh=self.mesh, axis=self.axis, backend=self.backend,
+            y_layout=self.y_layout)

@@ -1,7 +1,7 @@
 """repro_torch.obs — zero-dependency observability: spans, metrics,
 perf ledger, calibration, memory accounting, scrape endpoint.
 
-Six pieces (see the module docstrings for depth):
+Seven pieces (see the module docstrings for depth):
 
 * :mod:`repro_torch.obs.trace` — nestable spans with an injectable
   clock, Chrome-trace/Perfetto + dict-tree exporters, and a disabled
@@ -21,12 +21,14 @@ Six pieces (see the module docstrings for depth):
   view, op, dtype) by ``nbytes``, backing the registry byte budget and
   the :class:`MemoryPressure` admission reject.
 * :mod:`repro_torch.obs.serve_http` — stdlib scrape endpoint
-  (``/metrics``, ``/health``, ``/memory``, ``/stats``) for a running
-  engine.
+  (``/metrics``, ``/health``, ``/memory``, ``/stats``,
+  ``/explain/<graph>``) for a running engine.
+* :mod:`repro_torch.obs.explain` — plan/partition explainer: the
+  Tensor Core split, segments, padding, Hopper occupancy and a measured
+  apply as a dict and a text table.
 
-The plan explainer (the reference's ``obs/explain.py``) is not ported
-yet (ROADMAP item 10). Exports resolve lazily (PEP 562) so
-``import repro_torch.obs`` stays cheap.
+Exports resolve lazily (PEP 562) so ``import repro_torch.obs`` stays
+cheap.
 """
 from __future__ import annotations
 
@@ -58,6 +60,12 @@ _LAZY = {
     "MemLedger": "repro_torch.obs.memstat",
     "MemoryPressure": "repro_torch.obs.memstat",
     "render_memory": "repro_torch.obs.memstat",
+    "explain_plan": "repro_torch.obs.explain",
+    "explain_spmm": "repro_torch.obs.explain",
+    "explain_sddmm": "repro_torch.obs.explain",
+    "explain_entry": "repro_torch.obs.explain",
+    "explain_partition": "repro_torch.obs.explain",
+    "render_table": "repro_torch.obs.explain",
     "ObsHTTPServer": "repro_torch.obs.serve_http",
     "serve_obs_http": "repro_torch.obs.serve_http",
 }

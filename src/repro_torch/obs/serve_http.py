@@ -16,8 +16,10 @@ exposing:
   (``mem=False``);
 * ``GET /stats`` — ``engine.stats()`` as JSON (throughput, padding
   waste, bucket occupancy, exec-cache hits, the registry's counters);
-* ``GET /explain/<graph>`` — a typed 501: the plan explainer is not
-  ported yet (ROADMAP item 10).
+* ``GET /explain/<graph>[?op=spmm|sddmm]`` — the plan explainer's
+  report (:func:`repro_torch.obs.explain.explain_entry`) as JSON;
+  unknown graphs are 404, sharded graphs (which explain rejects) and
+  bad ops 400.
 
 Start one with ``engine.serve_http()`` or directly::
 
@@ -156,11 +158,21 @@ class ObsHTTPServer:
         elif path == "/stats":
             self._send_json(handler, 200, self.engine.stats())
         elif path.startswith("/explain/"):
-            self._send_json(handler, 501, {
-                "error": "not implemented: the plan explainer "
-                         "(obs/explain.py) is not ported yet, ROADMAP "
-                         "item 10",
-                "roadmap_item": 10})
+            name = urllib.parse.unquote(path[len("/explain/"):])
+            query = urllib.parse.parse_qs(parsed.query)
+            op = query.get("op", ["spmm"])[0]
+            from repro_torch.obs.explain import explain_entry
+
+            try:
+                report = explain_entry(self.engine.registry, name, op=op)
+            except KeyError:
+                self._send_json(handler, 404,
+                                {"error": f"unknown graph {name!r}"})
+                return
+            except ValueError as exc:       # sharded graphs, bad op
+                self._send_json(handler, 400, {"error": str(exc)})
+                return
+            self._send_json(handler, 200, report)
         else:
             self._send_json(handler, 404,
                             {"error": f"unknown path {path!r}",

@@ -17,6 +17,10 @@ packed into panel stacks, and executed one prepared apply per bucket:
 * **SDDMM** — the feature axis is the reduction axis (nothing packs), so
   ``(x, y)`` pairs stack on a leading batch axis through one
   :class:`~repro_torch.dist.sparse.BatchedSDDMM` call.
+* **sharded graphs** — SpMM panels column-pack the same way into one
+  :class:`~repro_torch.dist.sparse.ShardedSpMM` apply (the pack limit is
+  priced on one shard's stream, so sharded graphs pack deeper);
+  sharded SDDMM and per-request-valued sharded SpMM run per request.
 
 On ``backend="cuda"`` every apply runs K1–K4; a stack runs them panel
 by panel.
@@ -647,6 +651,20 @@ class SparseEngine:
         st = self._stats
         site = (graph, op, "fast")
         if op == "spmm":
+            if entry.sharded and has_ev:
+                # Values change the tables per request: no packing.
+                for r in chunk:
+                    out = self._call(fn, fn._cache,
+                                     _pad_width(r.payload[0], w),
+                                     edge_vals=r.edge_vals, _site=site)
+                    results[r.rid] = out[:, :r.width]
+                    self._account_exec(1, 1)
+                    st["computed_cells"].inc(entry.k * w)
+                return
+            if entry.sharded:
+                self._pack_spmm(entry, fn, fn._cache, chunk, w, results,
+                                reg.pack_limit(entry, w), site)
+                return
             if has_ev:
                 # Revalued panels ride a stack (plan values differ per
                 # panel — column-packing can't express that).
@@ -672,9 +690,10 @@ class SparseEngine:
             def apply_one(b):
                 return single(b, backend=reg.backend)
 
-            # SDDMM stacks are excluded from ledger sampling: their wall
-            # time covers p panels, which would pollute the per-plan
-            # measured-vs-predicted ratio the calibrator joins on.
+            # SDDMM stacks and sharded applies are excluded from ledger
+            # sampling: their wall time covers p panels / P shards, which
+            # would pollute the per-plan measured-vs-predicted ratio the
+            # calibrator joins on.
             sample_op = (single if self._ledger is not None
                          and self._sample_every else None)
             self._pack_spmm(entry, apply_one, single._apply_cache, chunk,
@@ -682,6 +701,16 @@ class SparseEngine:
                             sample_op=sample_op)
             return
         # ---- sddmm ----
+        if entry.sharded:
+            # kf is the reduction axis — no packing across requests.
+            for r in chunk:
+                out = self._call(fn, fn._cache,
+                                 _pad_width(r.payload[0], w),
+                                 _pad_width(r.payload[1], w), _site=site)
+                results[r.rid] = out
+                self._account_exec(1, 1)
+                st["computed_cells"].inc((entry.m + entry.k) * w)
+            return
         p = reg.panel_bucket(c)
         xs = torch.stack([_pad_width(r.payload[0], w) for r in chunk])
         ys = torch.stack([_pad_width(r.payload[1], w) for r in chunk])
@@ -705,11 +734,15 @@ class SparseEngine:
         that a kernel that fails on the card never hands its request to
         the plain path). Every rung gives the fast path's values, in
         original row order for reordered plans (the reference package's
-        ``unsegmented``/``xla`` rungs skip that unpermute)."""
+        ``unsegmented``/``xla`` rungs skip that unpermute). A sharded
+        entry has ``single`` and, on a CPU registry, ``torch`` (the
+        sharded apply on the plain path)."""
         reg = self.registry
         fn = entry.op(op)
         width = r.width
         plain = torch.device(reg.device).type == "cpu"
+        if entry.sharded:
+            return self._sharded_rungs(fn, op, w, r, plain)
         if op == "spmm":
             bp = _pad_width(r.payload[0], w)
             one = fn.op                     # the underlying LibraSpMM
@@ -768,6 +801,31 @@ class SparseEngine:
                           lambda: sd_apply(reg.backend, False)))
         if plain:
             rungs.append(("torch", lambda: sd_apply("torch", True)))
+        return rungs
+
+    @staticmethod
+    def _sharded_rungs(fn, op: str, w: int, r: SparseRequest,
+                       plain: bool) -> list:
+        """The rungs below ``fast`` for a sharded entry's request."""
+        from repro_torch.dist.sparse import sddmm_sharded, spmm_sharded
+
+        if op == "spmm":
+            bp = _pad_width(r.payload[0], w)
+            rungs = [("single", lambda: fn(
+                bp, edge_vals=r.edge_vals)[:, :r.width])]
+            if plain:
+                rungs.append(("torch", lambda: spmm_sharded(
+                    fn.part, bp, mesh=fn.mesh, axis=fn.axis,
+                    backend="torch", edge_vals=r.edge_vals,
+                    b_layout=fn.b_layout)[:, :r.width]))
+            return rungs
+        xp = _pad_width(r.payload[0], w)
+        yp = _pad_width(r.payload[1], w)
+        rungs = [("single", lambda: fn(xp, yp))]
+        if plain:
+            rungs.append(("torch", lambda: sddmm_sharded(
+                fn.part, xp, yp, mesh=fn.mesh, axis=fn.axis,
+                backend="torch", y_layout=fn.y_layout)))
         return rungs
 
     def _serve_degraded(self, entry, graph: str, op: str, w: int,

@@ -83,8 +83,9 @@ class GNNService:
                      mesh=None) -> str:
         """Register a trained :class:`~repro_torch.models.gnn.GCN`.
         ``norm_edge_vals`` defaults to the symmetric normalization
-        D^-1/2 A D^-1/2; ``mesh`` (sharded aggregation) is ROADMAP item
-        12 and raises."""
+        D^-1/2 A D^-1/2; ``mesh`` (a
+        :class:`~repro_torch.dist.sparse.ShardMesh`) serves the
+        aggregation through the sharded apply."""
         from repro_torch.models.gnn import gcn_norm_edges
 
         ev = (gcn_norm_edges(a) if norm_edge_vals is None

@@ -10,8 +10,10 @@ amortized state:
   :mod:`repro_torch.tune` (threshold + segment caps, optionally through
   the persistent plan cache) and preprocessing, and builds the
   panel-stack operators (:class:`~repro_torch.dist.sparse.BatchedSpMM`
-  / :class:`~repro_torch.dist.sparse.BatchedSDDMM`). The window-sharded
-  entries (``mesh=``) are ROADMAP item 12.
+  / :class:`~repro_torch.dist.sparse.BatchedSDDMM`, or the sharded
+  :class:`~repro_torch.dist.sparse.ShardedSpMM` /
+  :class:`~repro_torch.dist.sparse.ShardedSDDMM` when a
+  :class:`~repro_torch.dist.sparse.ShardMesh` is given).
 * **content-addressed + multi-tenant** — entries are keyed by the
   sparsity signature (:func:`repro_torch.tune.cache.matrix_signature`)
   plus a value digest and mode/layout, so two tenants registering the
@@ -52,10 +54,6 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.sparse.matrix import SparseCSR
 from repro_torch.tune.cache import matrix_signature
 
-_SHARDED = ("mesh= (window-sharded serving) is not ported yet: ROADMAP "
-            "item 12")
-
-
 def graph_key(a: SparseCSR, mode: str, layout: str) -> str:
     """Registry content key: sparsity signature **plus a value digest**.
 
@@ -90,7 +88,8 @@ class RegisteredGraph:
     k: int
     nnz: int
     mode: str
-    ops: dict[str, object]          # "spmm"/"sddmm" → Batched* op
+    sharded: bool
+    ops: dict[str, object]          # "spmm"/"sddmm" → Batched*/Sharded* op
     spmm_vpu_elems: int = 0         # CUDA-core elements of the SpMM plan
     plan_cache_hits: int = 0        # tune configs served from PlanCache
     warmed: int = 0                 # applies prepared by warm()
@@ -175,18 +174,17 @@ class GraphRegistry:
         registry's own construction defaults (``tune``, ``tune_cache``,
         ``backend``, ``device``) make it.
 
-        ``mesh`` (window-sharded execution) is ROADMAP item 12 and
-        raises ``NotImplementedError``; ``warm_widths`` prepares those
-        width buckets across all panel buckets right away (see
-        :meth:`warm`).
+        ``mesh`` (a :class:`~repro_torch.dist.sparse.ShardMesh`)
+        switches the entry to window-sharded execution
+        (:class:`~repro_torch.dist.sparse.ShardedSpMM`);
+        ``warm_widths`` prepares those width buckets across all panel
+        buckets right away (see :meth:`warm`).
         """
-        if mesh is not None:
-            raise NotImplementedError(_SHARDED)
         spec = spec if spec is not None else ExecSpec(
             tune=self.tune, tune_cache=self.tune_cache,
             backend=self.backend, device=self.device)
         mode = spec.mode
-        layout = "batched"
+        layout = "sharded" if mesh is not None else "batched"
         if spec.reorder != "off":
             # Reordered plans are different assets: don't alias them
             # with unreordered registrations of the same pattern.
@@ -207,7 +205,7 @@ class GraphRegistry:
             self._reuse_hits.inc()
             missing = [kind for kind in ops if kind not in entry.ops]
             if missing:   # alias asked for more operators: top up in place
-                built, hits = self._build(a, missing, spec=spec)
+                built, hits = self._build(a, missing, mesh=mesh, spec=spec)
                 entry.ops.update(built)
                 entry.plan_cache_hits += hits
                 self._account_entry(key, built)
@@ -217,7 +215,7 @@ class GraphRegistry:
             self.enforce_budget()
             return name
 
-        built, hits = self._build(a, ops, spec=spec)
+        built, hits = self._build(a, ops, mesh=mesh, spec=spec)
         if not built:
             raise ValueError(f"no operators requested: ops={ops!r}")
 
@@ -236,10 +234,16 @@ class GraphRegistry:
 
         vpu_elems = 0
         if "spmm" in built:
-            vpu = built["spmm"].op.plan.vpu
-            vpu_elems = int(vpu.ntiles) * int(vpu.vals.shape[-1])
+            if mesh is None:
+                vpu = built["spmm"].op.plan.vpu
+                vpu_elems = int(vpu.ntiles) * int(vpu.vals.shape[-1])
+            else:
+                # Sharded: the cache-resident stream is per shard.
+                vv = built["spmm"].part.stacked["vpu_vals"]
+                vpu_elems = int(vv.shape[1]) * int(vv.shape[2])
         entry = RegisteredGraph(key=key, names={name}, m=a.m, k=a.k,
-                                nnz=a.nnz, mode=mode, ops=built,
+                                nnz=a.nnz, mode=mode,
+                                sharded=mesh is not None, ops=built,
                                 spmm_vpu_elems=vpu_elems,
                                 plan_cache_hits=hits)
         self._entries[key] = entry
@@ -265,19 +269,24 @@ class GraphRegistry:
 
     def _account_entry(self, key: str, built: dict) -> None:
         """Attach byte accounting to an entry's operators: plan uploads
+        (each shard's, for sharded entries, under ``shard<p>/`` keys)
         stream into the ledger as they materialize, and uploads that
         already happened replay on attach."""
         if self.mem is None:
             return
         for kind, op in built.items():
-            op.op.arrays.set_accountant(self.mem.binder(key, kind))
+            for prefix, arrays in _plan_arrays(op):
+                arrays.set_accountant(_prefixed(self.mem.binder(key, kind),
+                                                prefix))
 
     def _entry_bytes(self, built: dict) -> int:
         """Projected resident bytes of an entry once serving on the
         registry backend (host nbytes plus the kernel path's derived
-        lengths)."""
-        return sum(op.op.arrays.projected_nbytes(self.backend)
-                   for op in built.values())
+        lengths; each shard's halo map for sharded entries)."""
+        return sum(arrays.projected_nbytes(self.backend)
+                   + int(arrays.host.get("halo", np.empty(0)).nbytes)
+                   for op in built.values()
+                   for _, arrays in _plan_arrays(op))
 
     def _drop_entry(self, old_key: str, old: RegisteredGraph) -> None:
         """Unbind an evicted entry's aliases and release its bytes."""
@@ -289,7 +298,8 @@ class GraphRegistry:
         if self.mem is not None:
             self.mem.release(old_key)
             for op in old.ops.values():
-                op.op.arrays.set_accountant(None)
+                for _, arrays in _plan_arrays(op):
+                    arrays.set_accountant(None)
 
     def enforce_budget(self) -> int:
         """Evict least-recently-served entries until accounted resident
@@ -309,16 +319,22 @@ class GraphRegistry:
             dropped += 1
         return dropped
 
-    def _build(self, a: SparseCSR, kinds, *,
+    def _build(self, a: SparseCSR, kinds, *, mesh,
                spec: ExecSpec) -> tuple[dict[str, object], int]:
-        from repro_torch.dist.sparse import BatchedSDDMM, BatchedSpMM
+        from repro_torch.dist.sparse import (BatchedSDDMM, BatchedSpMM,
+                                             ShardedSDDMM, ShardedSpMM)
 
         built: dict[str, object] = {}
         hits = 0
         for kind in kinds:
-            cls = BatchedSpMM if kind == "spmm" else BatchedSDDMM
-            op = cls(a, spec=spec)
-            hits += op.op.tune_config.source == "cache"
+            if mesh is None:
+                cls = BatchedSpMM if kind == "spmm" else BatchedSDDMM
+                op = cls(a, spec=spec)
+                hits += op.op.tune_config.source == "cache"
+            else:
+                cls = ShardedSpMM if kind == "spmm" else ShardedSDDMM
+                op = cls(a, mesh, spec=spec)
+                hits += op.tune_config.source == "cache"
             built[kind] = op
         return built, hits
 
@@ -345,10 +361,11 @@ class GraphRegistry:
         were new. SpMM panel buckets ride the column
         axis (the engine packs a bucket's panels side by side into one
         ``(k, p·w)`` apply, capped by :meth:`pack_limit`); SDDMM panel
-        buckets are ``(p, rows, w)`` stacks."""
+        buckets are ``(p, rows, w)`` stacks; a sharded SDDMM serves per
+        request, so it warms one panel."""
         entry = self.get(name)
         fn = entry.op(op)
-        dev = fn.op.device
+        dev = fn.mesh.device(0) if entry.sharded else fn.op.device
         compiled = 0
         for w in (widths if widths is not None else self.width_buckets):
             for p in (panels if panels is not None else self.panel_buckets):
@@ -357,10 +374,21 @@ class GraphRegistry:
                 if op == "spmm":
                     if p > self.pack_limit(entry, w):
                         continue   # the engine will never run this shape
-                    cache = fn.op._apply_cache
+                    b = torch.zeros((entry.k, p * w), dtype=dtype, device=dev)
+                    cache = fn._cache if entry.sharded else \
+                        fn.op._apply_cache
                     before = len(cache)
-                    fn.op(torch.zeros((entry.k, p * w), dtype=dtype,
-                                      device=dev), backend=self.backend)
+                    if entry.sharded:
+                        fn(b)
+                    else:
+                        fn.op(b, backend=self.backend)
+                elif entry.sharded:
+                    if p > 1:
+                        continue   # sharded SDDMM serves per request
+                    cache = fn._cache
+                    before = len(cache)
+                    fn(torch.zeros((entry.m, w), dtype=dtype, device=dev),
+                       torch.zeros((entry.k, w), dtype=dtype, device=dev))
                 else:
                     cache = fn._cache
                     before = len(cache)
@@ -407,7 +435,9 @@ class GraphRegistry:
     def pack_limit(self, entry: RegisteredGraph, width: int) -> int:
         """Largest panel bucket whose column-packed SpMM apply keeps the
         plan's CUDA-core gather working set inside
-        :data:`PACK_BUDGET_BYTES` (1 ⇒ serve panels singly)."""
+        :data:`PACK_BUDGET_BYTES` (1 ⇒ serve panels singly). For sharded
+        entries the resident stream is one shard's slice, so they pack
+        deeper."""
         top = self.panel_buckets[-1]
         if entry.spmm_vpu_elems == 0:
             return top
@@ -449,6 +479,23 @@ class GraphRegistry:
         report = self.mem.memory_report(top_k=top_k)
         report["max_bytes"] = self.max_bytes
         return report
+
+
+def _plan_arrays(op) -> list[tuple[str, object]]:
+    """``(key prefix, PlanArrays)`` of one registered operator: its plan's
+    for a batched op, one a shard for a sharded op."""
+    shards = getattr(op, "arrays", None)
+    if shards is None:
+        return [("", op.op.arrays)]
+    return [(f"shard{p}/", arrays) for p, arrays in enumerate(shards)]
+
+
+def _prefixed(account, prefix: str):
+    """An upload accountant that files each key under ``prefix``."""
+    if not prefix:
+        return account
+    return lambda view, key, nbytes, dtype: account(
+        view, prefix + key, nbytes, dtype)
 
 
 def as_csr(a, values: np.ndarray | None = None) -> SparseCSR:

@@ -927,3 +927,111 @@ def test_card_ladder_ends_above_the_plain_path(card, kind):
     h = eng.health()
     assert not h["degraded_served"]
     assert "torch" not in eng._applies.series()
+
+
+# ---------------------------------------------------------- sharded path ---
+def _sharded_matrix(card):
+    """The serving tier's integer mixed matrix, partitioned into 8
+    window shards with plans that put work on all four kernels."""
+    from repro_torch.dist import ShardMesh, partition_sddmm, partition_spmm
+
+    a, rng, spmm, sddmm = _serving_ops(card)
+    mesh = ShardMesh([card] * 8)
+    part = partition_spmm(a, 8, spec=spmm.spec)
+    sd = partition_sddmm(a, 8, spec=sddmm.spec)
+    return a, rng, spmm, sddmm, mesh, part, sd
+
+
+def _nan_empty(monkeypatch):
+    """Make every ``torch.empty`` float tensor start as NaN, so a kernel
+    that leaves an output element unwritten shows it."""
+    real = torch.empty
+
+    def nan_empty(*args, **kwargs):
+        t = real(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+
+
+def test_padded_shard_segments_write_zeros(card, monkeypatch):
+    """Every shard is padded to the largest shard's segment count: K1's
+    padded segments (real length 0, one slab each, ``torch.empty``
+    output) and K2's padded rows must still write zeros, or the combine
+    adds garbage into local row 0."""
+    from repro_torch.kernels import spmm_mxu, spmm_vpu
+
+    a, rng, _, _, mesh, part, _ = _sharded_matrix(card)
+    counts = [(part.stacked["tc_seg_pos"][p].max(axis=(1, 2)) >= 0).sum()
+              for p in range(8)]
+    p = int(np.argmin(counts))
+    arrs = part.arrays(p, card).for_backend("cuda")
+    ns = arrs["tc_seg_rank"].shape[0]
+    assert counts[p] < ns and (arrs["tc_len"][counts[p]:] == 0).all()
+    pad_rows = (arrs["vpu_len"] == 0).nonzero().flatten()
+    assert pad_rows.numel() > 0
+    b = _ints_on(rng, card, int(part.stacked["halo"].shape[1]), 256)
+    _nan_empty(monkeypatch)
+    tc = spmm_mxu(arrs["tc_seg_vals"], arrs["tc_seg_cols"],
+                  arrs["tc_seg_rank"], b, n_active=ns, unique_ranks=True,
+                  seg_len=arrs["tc_len"])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(tc).all())
+    assert (tc[counts[p] * 8:] == 0).all()
+    assert torch.equal(tc, ref.spmm_tc_compact_ref(
+        arrs["tc_seg_vals"], arrs["tc_seg_cols"], arrs["tc_seg_rank"], b,
+        ns))
+    vpu = spmm_vpu(arrs["vpu_seg_vals"], arrs["vpu_seg_cols"], b,
+                   seg_len=arrs["vpu_len"])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(vpu).all())
+    assert (vpu[pad_rows] == 0).all()
+
+
+@pytest.mark.parametrize("layout", ["replicated", "rowshard"])
+def test_sharded_applies_equal_single_device(card, layout):
+    """``spmm_sharded``/``sddmm_sharded`` over 8 shards on the card equal
+    the single-device operators bit for bit on integer data, and every
+    shard launches K1–K4."""
+    from repro_torch.dist import sddmm_sharded, spmm_sharded
+
+    a, rng, spmm, sddmm, mesh, part, sd = _sharded_matrix(card)
+    b, ev = _ints_on(rng, card, a.k, 256), _ints_on(rng, card, a.nnz)
+    x, y = _ints_on(rng, card, a.m, 128), _ints_on(rng, card, a.k, 128)
+    kernels.reset_launch_counts()
+    got = spmm_sharded(part, b, mesh=mesh, b_layout=layout)
+    got_ev = spmm_sharded(part, b, mesh=mesh, b_layout=layout, edge_vals=ev)
+    got_sd = sddmm_sharded(sd, x, y, mesh=mesh, y_layout=layout)
+    counts = kernels.launch_counts()
+    assert counts["spmm_mxu"] == counts["spmm_vpu"] == 16
+    assert counts["sddmm_mxu"] >= 8 and counts["sddmm_vpu"] >= 8
+    assert torch.equal(got, spmm(b))
+    assert torch.equal(got_sd, sddmm(x, y))
+    g = gnn.GraphOps(a, spec=spmm.spec)
+    assert torch.equal(got_ev, g._a_apply(ev, b))
+
+
+def test_dist_graphops_training_step_matches_plain(card):
+    """One GCN SGD step through ``DistGraphOps`` (8 shards, K1–K4) against
+    the same partitions on the plain path, within TF32's tolerance."""
+    from repro_torch.dist import DistGraphOps, ShardMesh
+
+    a = _training_graph(card, "off").a
+    g = DistGraphOps(a, ShardMesh([card] * 8), spec=ExecSpec(
+        device="cuda", tune=TuneConfig(threshold=2, ts=2, cs=32)))
+    gen = torch.Generator().manual_seed(11)
+    model = gnn.GCN([40, 64, 8], generator=gen).to(card)
+    x = torch.randn(g.m, 40, generator=gen).to(card)
+    labels = torch.randint(0, 8, (g.m,), generator=gen).to(card)
+    norm = torch.from_numpy(gnn.gcn_norm_edges(a)).to(card)
+    models = [model, copy.deepcopy(model)]
+    kernels.reset_launch_counts()
+    loss = gnn.train_step(models[0], g, x, labels, norm, lr=0.2)
+    counts = kernels.launch_counts()
+    # Forward A and backward A^T, each layer and each shard (GCN's fixed
+    # edge values need no SDDMM).
+    assert counts["spmm_mxu"] == counts["spmm_vpu"] == 2 * 2 * 8
+    want = gnn.train_step(models[1], _plain(g), x, labels, norm, lr=0.2)
+    _agree_tf32(loss, want, False)
+    for p, q in zip(*(mdl.parameters() for mdl in models)):
+        _agree_tf32(p.grad, q.grad, False)

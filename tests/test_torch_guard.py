@@ -9,10 +9,11 @@
   ``launch.serve.generate``, and the serving tier: ``GraphRegistry``,
   ``SparseEngine``, ``BatchedSpMM``/``BatchedSDDMM``, ``GNNService``),
   and ``chip_smoke.py`` exits non-zero and prints no result.
-* What the port does not cover yet raises ``NotImplementedError`` (or,
-  over HTTP, answers 501) naming its ROADMAP item (the model families
-  other than dense: item 13; the sharded serving entries: item 12; the
-  plan explainer behind ``/explain``: item 10).
+  The sharded path (``ShardMesh``, a partition's uploads,
+  ``ShardedSpMM``/``ShardedSDDMM``, ``DistGraphOps``, ``mesh=``) and
+  ``explain_*(measure=True)`` default to the card the same way.
+* What the port does not cover yet raises ``NotImplementedError`` naming
+  its ROADMAP item (the model families other than dense: item 13).
 """
 import ast
 import json
@@ -110,33 +111,31 @@ def test_serving_entry_points_raise_without_a_card(entry, monkeypatch):
         calls[entry]()
 
 
-@pytest.mark.parametrize("entry", ["mesh", "ShardedSpMM", "ShardedSDDMM",
-                                   "gcn_mesh", "explain"])
-def test_unported_serving_pieces_name_their_roadmap_item(entry):
-    import urllib.error
-    import urllib.request
-
+@pytest.mark.parametrize("entry", ["ShardMesh", "partition_upload",
+                                   "ShardedSpMM", "ShardedSDDMM",
+                                   "DistGraphOps", "register_mesh",
+                                   "explain_measure"])
+def test_sharded_and_explain_entry_points_raise_without_a_card(
+        entry, monkeypatch):
     from repro_torch import serve
-    from repro_torch.dist import sparse
+    from repro_torch.dist import (DistGraphOps, ShardedSDDMM, ShardedSpMM,
+                                  ShardMesh, partition_spmm)
+    from repro_torch.obs.explain import explain_spmm
 
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     a = mixed_csr(24, 24, seed=1)
-    reg = serve.GraphRegistry(device="cpu")
-    if entry == "explain":
-        reg.register(a, name="g", ops=("spmm",))
-        with serve.SparseEngine(reg).serve_http() as srv:
-            with pytest.raises(urllib.error.HTTPError) as ei:
-                urllib.request.urlopen(f"{srv.url}/explain/g", timeout=10)
-            assert ei.value.code == 501
-            assert "item 10" in ei.value.read().decode()
-        return
+    cpu = ExecSpec(device="cpu")
     calls = {
-        "mesh": lambda: reg.register(a, name="g", mesh=object()),
-        "ShardedSpMM": lambda: sparse.ShardedSpMM(a, object()),
-        "ShardedSDDMM": lambda: sparse.ShardedSDDMM(a, object()),
-        "gcn_mesh": lambda: serve.GNNService(serve.SparseEngine(
-            reg)).register_gcn("m", a, object(), mesh=object()),
+        "ShardMesh": lambda: ShardMesh.round_robin(2),
+        "partition_upload": lambda: partition_spmm(a, 2, spec=cpu).arrays(0),
+        "ShardedSpMM": lambda: ShardedSpMM(a, ShardMesh.round_robin(2)),
+        "ShardedSDDMM": lambda: ShardedSDDMM(a, ShardMesh.round_robin(2)),
+        "DistGraphOps": lambda: DistGraphOps(a, ShardMesh.round_robin(2)),
+        "register_mesh": lambda: serve.GraphRegistry(device="cpu").register(
+            a, name="g", mesh=ShardMesh.round_robin(2)),
+        "explain_measure": lambda: explain_spmm(a, measure=True),
     }
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
 
 

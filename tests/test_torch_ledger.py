@@ -13,8 +13,9 @@ against the reference (``tests/test_ledger.py``'s contracts) on the CPU.
   row once, the output once).
 * ``calibration_report``, ``render_calibration``, ``detect_drift`` and
   ``apply_drift`` agree with the reference on the same samples.
-* The endpoint serves ``/metrics``, ``/health``, ``/memory`` and
-  ``/stats``; ``/explain`` answers a typed 501 naming ROADMAP item 10.
+* The endpoint serves ``/metrics``, ``/health``, ``/memory``,
+  ``/stats`` and ``/explain/<graph>`` (the explainer's report; a
+  sharded graph is 400, an unknown one 404).
 """
 import json
 import threading
@@ -381,6 +382,12 @@ def _get(url):
 
 
 def test_scrape_metrics_health_stats_and_explain_501():
+    """Named for the 501 ``/explain`` answered before the explainer was
+    ported; it now answers the report (200), a sharded graph 400 and an
+    unknown graph 404."""
+    from repro_torch.dist import ShardMesh
+    from repro_torch.obs.explain import explain_entry
+
     a = tgen.power_law_csr(128, 96, 6.0, seed=3)
     reg = tserve.GraphRegistry(max_graphs=4, width_buckets=(16,),
                                panel_buckets=(1, 2), device="cpu")
@@ -401,11 +408,18 @@ def test_scrape_metrics_health_stats_and_explain_501():
         assert "breakers" in h and "failures" in h
         st = json.loads(_get(f"{srv.url}/stats"))
         assert st["served"] == 1 and st["registry"]["graphs_resident"] == 1
+        reg.register(a, name="t/s", ops=("spmm",),
+                     mesh=ShardMesh(["cpu", "cpu"]))
+        doc = json.loads(_get(f"{srv.url}/explain/t/g"))
+        assert doc == json.loads(json.dumps(explain_entry(reg, "t/g")))
+        assert doc["kind"] == "spmm" and doc["registry"]["name"] == "t/g"
         with pytest.raises(urllib.error.HTTPError) as ei:
-            _get(f"{srv.url}/explain/t/g")
-        assert ei.value.code == 501
-        doc = json.loads(ei.value.read().decode())
-        assert doc["roadmap_item"] == 10 and "item 10" in doc["error"]
+            _get(f"{srv.url}/explain/t/s")
+        assert ei.value.code == 400
+        assert "sharded" in json.loads(ei.value.read().decode())["error"]
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _get(f"{srv.url}/explain/t/nope")
+        assert ei.value.code == 404
         with pytest.raises(urllib.error.HTTPError) as ei:
             _get(f"{srv.url}/bogus")
         assert ei.value.code == 404

@@ -17,8 +17,10 @@ keys agree. What each scenario returns must agree:
   1e-4·max|ref| on random data, with weights carried by
   ``convert.gcn_params_from_jax`` / ``agnn_params_from_jax``.
 
-The window-sharded scenario (``mesh=``) is ROADMAP item 12; the guard
-tests check that the port refuses it by name.
+The window-sharded scenario (``mesh=``) is in
+``tests/test_torch_serve_sharded.py``: the reference's sharded apply
+raises on this tree's jax (ROADMAP §3), so it is held to the batched
+entries this file holds to the reference.
 """
 import types
 

@@ -28,6 +28,18 @@ ARCHS = ("gemma2-9b", "minitron-8b", "glm4-9b", "granite-34b")
 REL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _no_leaked_activation_context():
+    """Run the reference outside any sharding activation context. Its
+    ``train_step`` enters one by hand and leaves it entered when tracing
+    raises (``src/repro/train/train_step.py:33``, on this tree's jax),
+    so a test of the training stack that ran earlier in the same process
+    can leave its mesh installed for the reference's layers here."""
+    from repro.dist import sharding
+
+    sharding._ctx.state = None
+
+
 @functools.lru_cache(maxsize=None)
 def _models(arch):
     jcfg = j_smoke(arch).scaled(compute_dtype="float32")
