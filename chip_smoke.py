@@ -121,10 +121,30 @@ Phases:
    ``/explain/<graph>`` over ``serve_http`` against ``explain_entry``
    (a sharded graph answers 400).
 
+9. Dense training (``train/``, ``launch/train.py``, K5 under autograd),
+   gemma2-9b at full width: (a) two layers (one local, one global) on
+   1 × 4096 tokens: the training loss (K5 inside its autograd Function,
+   per-layer remat) equals the scoring loss under ``no_grad`` bit for
+   bit, K5 launches twice a layer, and the first-step gradients of every
+   parameter hold to the same model through plain autograd over the
+   twin; (a') the Function alone at K5's timing shapes (global and local
+   8192-token layers, D=128 GQA 32/8 at 4096): dQ, dK, dV and the
+   logsumexp against the twin's autograd, the backward's time and
+   launches beside K5's forward; (b) ``train_loop`` at the largest even
+   depth that fits (the arithmetic is printed), 2 × 4096 tokens a step
+   in 2 microbatches, fp32 AdamW moments, three steps: ms, loss,
+   ``grad_norm``, ``lr`` and K5 launches (2 × depth × microbatches) a
+   step, peak memory, ``model_flops`` and TFLOP/s, and one more step
+   under ``torch.profiler`` by group (K5, the attention backward, dense
+   products, optimizer, loss head, rest); (c) checkpoint and resume at a
+   reduced width: 2 steps and a resume equal 3 uninterrupted steps bit
+   for bit.
+
 Phases 2 and 3 are the GNN inference path, phase 5's steps the GNN
 training path, phase 6's tuned operators the tuned path, phase 7's served
 flushes the serving path, phase 8's sharded applies, requests, steps and
-flushes the sharded path, and phase 4's (a) and (c) the dense main path:
+flushes the sharded path, phase 9 (b)'s loop the dense training path,
+and phase 4's (a) and (c) the dense main path:
 every kernel's launch counter is set to 0 just before each path and read
 just after it; within phase 6, the counts
 of each part are read as it ends, and those of the Fig. 11 sweep and of
@@ -134,8 +154,9 @@ calls, plain references and timings). Each of K1–K4 must have launched
 on the GNN paths, the tuned path, the serving path and the sharded path,
 K1 and K3 on the
 reordered A and SDDMM(A) (whose tables must hold real vectors and
-columns), and K5 exactly 42 times (once
-per layer) per scoring request on the dense path; K1–K4's launches are
+columns), K5 exactly 42 times (once
+per layer) per scoring request on the dense path, and 2 × depth ×
+microbatches times a step on the training path; K1–K4's launches are
 also split by matrix, plan leg and width from the per-step counts. GNN
 outputs are checked against the port's plain ``backend="torch"`` path on
 the card. Then each kernel is timed (CUDA events, median of 20 launches)
@@ -164,7 +185,8 @@ fp32 matrix products in the plain versions run in full fp32: this script
 sets ``torch.backends.cuda.matmul.allow_tf32 = False`` and
 ``torch.backends.cudnn.allow_tf32 = False``. Only the two Tensor Core
 SpMM/SDDMM kernels use TF32, by design; K5 and the dense model compute
-in bf16 with fp32 accumulation.
+in bf16 with fp32 accumulation, and K5's backward (plain PyTorch) in
+full fp32.
 """
 from __future__ import annotations
 
@@ -209,8 +231,17 @@ PEAK_OPS = {"tf32": 495e12, "fp32": 67e12, "bf16": 989e12}
 #   softmax keeps fp32 p over an fp32 cache; the projections run as
 #   (8192, d) against (4, d) products), and those bf16-sized differences
 #   add up over 84 residual sublayers.
+# - gradients through K5's autograd Function against plain autograd
+#   through the twin (phase 9): max|Δ| ≤ 2e-2·max|ref| per tensor. The
+#   Function's backward keeps P and dP in fp32 and casts dQ, dK, dV to
+#   bf16 once; the twin's autograd rounds P and dP to bf16 per 64-key
+#   block, and K5's forward rounds as the twin does;
+# - K5's logsumexp against the twin's: 1e-3 absolute (ex2.approx and
+#   tanh.approx move it by about 1e-6 relative).
 FP32_RTOL = 1e-5
 TF32_REL = 2e-2
+GRAD_REL = 2e-2
+LSE_ATOL = 1e-3
 FP32_PATH_REL = 1e-4
 BF16_REL = 2e-2
 DECODE_REL = 5e-2
@@ -390,7 +421,7 @@ def main(argv=None) -> int:
                    f"*||ref||2 (worst row {worst:.3e})")
         else:
             rel = {"tf32": TF32_REL, "fp32_path": FP32_PATH_REL,
-                   "decode": DECODE_REL}[kind]
+                   "decode": DECODE_REL, "grad": GRAD_REL}[kind]
             ok, tol = err <= rel * scale, f"{rel:g}*max|ref|"
         log(f"  {label}: max|err|={err:.3e} max|ref|={scale:.3e} "
             f"tol={tol} {'ok' if ok else 'MISMATCH'}")
@@ -917,6 +948,10 @@ def main(argv=None) -> int:
         served=served, median_ms=median_ms)
     del served
 
+    # ------------------------------------------------ phase 9: training
+    training_counts = training_phase(
+        torch, np, dev, log, fail, compare, kernels, get_config, median_ms)
+
     # ------------------------------------------------ timing and bounds
     def rows_read(*ids):
         """Distinct rows that the index tensors ``ids`` name together: the
@@ -956,7 +991,9 @@ def main(argv=None) -> int:
                   for k in main_counts}
     log(f"kernels line launches by path: inference {main_counts}, "
         f"training {train_counts}, tuned {tuned_counts}, serving "
-        f"{serving_counts}, sharded {sharded_counts}")
+        f"{serving_counts}, sharded {sharded_counts}; K5: dense "
+        f"{dense_counts['flash_attention']}, dense training "
+        f"{training_counts['flash_attention']}")
 
     def record(name, label, ms, plain_ms, library_ms, nb, ops):
         """Log one kernel's times and bound; at the kernel's shape in
@@ -974,8 +1011,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": (dense_counts if name == "flash_attention"
-                         else gnn_counts)[name],
+            "launches": (dense_counts[name] + training_counts[name]
+                         if name == "flash_attention" else gnn_counts[name]),
             "max_abs_err": twin_err[(name, label)], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms})
@@ -1598,6 +1635,477 @@ def dense_phase(torch, np, dev, log, fail, compare, kernels, model_api,
     del model, cache
     torch.cuda.empty_cache()
     return dense_counts
+
+
+def training_phase(torch, np, dev, log, fail, compare, kernels, get_config,
+                   median_ms):
+    """Phase 9: dense training, gemma2-9b at full width.
+
+    (a) two layers (one local, one global) on 1 × 4096 tokens: the
+    training loss (K5 in the Function, remat) against the scoring loss
+    under ``no_grad`` bit for bit, and first-step gradients against the
+    same model through plain autograd over the twin; (a') the Function
+    alone at K5's timing shapes: gradients and logsumexp against the
+    twin, the backward's time and launches beside K5's forward; (b)
+    ``launch/train.py`` ``train_loop`` at the largest even depth that
+    fits, 2 × 4096 tokens a step in 2 microbatches, three steps, and one
+    more step profiled by group; (c) checkpoint and resume at a reduced
+    width, bit for bit against an uninterrupted run.
+
+    Returns the launch counts of the training main path, (b)'s loop."""
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import flops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import api, layers
+    from repro_torch.models.config import InputShape
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma2-9b")
+    seq = TRAIN_SEQ
+    gib = 2 ** 30
+
+    def twin_grad(q, k, v, *, chunk, **kw):
+        """Plain autograd through K5's twin: no Function, no kernel."""
+        del chunk
+        return fa.flash_attention_ref(q, k, v, **kw)
+
+    def tokens_and_labels(seed, b, s, vocab):
+        g = torch.Generator(dev).manual_seed(seed)
+        toks = torch.randint(0, vocab, (b, s), generator=g, device=dev,
+                             dtype=torch.int32)
+        labels = torch.roll(toks, -1, 1)
+        labels[:, -1] = -1
+        return {"tokens": toks, "labels": labels}
+
+    # (a) two layers at full width, 1 x 4096 tokens.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    live0 = torch.cuda.memory_allocated()
+    cfg2 = cfg.scaled(n_layers=2)
+    model = api.init_params(torch.Generator(dev).manual_seed(2), cfg2,
+                            device=dev)
+    n2 = sum(p.numel() for p in model.parameters())
+    batch = tokens_and_labels(400, 1, seq, cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    loss = api.loss_fn(model, batch, cfg2)
+    loss.backward()
+    torch.cuda.synchronize()
+    k5_a = kernels.launch_counts()["flash_attention"]
+    peak_a = torch.cuda.max_memory_allocated() - live0
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        score = api.loss_fn(model, batch, cfg2)
+    with mock.patch.object(layers, "flash_attention_grad", twin_grad):
+        twin_loss = api.loss_fn(model, batch, cfg2)
+        twin_loss.backward()
+    log(f"phase 9 (a): gemma2-9b, 2 layers, 1 x {seq} tokens: loss "
+        f"{loss.item()!r} training (K5 in the Function, remat), "
+        f"{score.item()!r} scoring (no_grad), {twin_loss.item()!r} through "
+        f"the twin's autograd; K5 launches {k5_a} (forward and recompute "
+        f"of 2 layers); the step's peak {peak_a / gib:.2f} GiB above "
+        f"{live0 / gib:.2f} GiB live ({n2 / 1e9:.3f} B parameters)")
+    if k5_a != 2 * cfg2.n_layers:
+        fail(f"phase 9 (a): K5 launched {k5_a} times, not "
+             f"{2 * cfg2.n_layers}")
+    if loss.item() != score.item() or not np.isfinite(loss.item()):
+        fail("phase 9 (a): the training loss differs from the scoring loss")
+    log("  the training loss equals the scoring loss bit for bit")
+    log("phase 9 (a): first-step gradients through the Function against "
+        "plain autograd through the twin, per leaf")
+    for name, p in model.named_parameters():
+        compare(f"d{name}", grads[name], p.grad, "grad")
+    del model, grads, loss, score, twin_loss, batch
+    torch.cuda.empty_cache()
+
+    # (a') The Function alone at K5's timing shapes.
+    log("phase 9 (a'): K5's Function: gradients and logsumexp against the "
+        f"twin's autograd, backward {cfg.attn_chunk}-key chunks")
+    for i, (label, ((b, sq, sk, h, kv, d), kw)) in enumerate(
+            FUNCTION_CASES.items()):
+        # The twin's autograd keeps, per 64-key block, four fp32 score
+        # tensors and the fp32 accumulator; cut heads (not the sequence)
+        # if that would not fit in 70% of what is free.
+        free = torch.cuda.mem_get_info(dev)[0]
+        while (-(-sk // 64) * b * h * sq * (4 * 64 + d) * 4 > 0.7 * free
+               and kv > 1):
+            h, kv = h // 2, kv // 2
+        if (h, kv) != FUNCTION_CASES[label][0][3:5]:
+            log(f"  {label}: the twin's autograd does not fit at "
+                f"{FUNCTION_CASES[label][0][3]}/{FUNCTION_CASES[label][0][4]}"
+                f" heads; compared at {h}/{kv}")
+        g = torch.Generator(dev).manual_seed(90 + i)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16) for shape in ((b, sq, h, d), (b, sk, kv, d),
+                                          (b, sk, kv, d)))
+        do = torch.randn((b, sq, h, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        args = (kw["causal"], kw.get("window", 0), kw.get("softcap", 0.0),
+                0)
+        out, lse = fa._forward(q, k, v, *args, True)
+        want_out, want_lse = fa.flash_attention_ref(q, k, v, **kw,
+                                                    return_lse=True)
+        torch.cuda.synchronize()
+        lse_err = (lse - want_lse).abs().max().item()
+        log(f"  {label} ({h}/{kv} heads): lse max|err|={lse_err:.3e} "
+            f"tol={LSE_ATOL:g} {'ok' if lse_err <= LSE_ATOL else 'MISMATCH'}")
+        if not lse_err <= LSE_ATOL:
+            fail(f"phase 9 (a'): {label}: K5's lse off by {lse_err}")
+        compare(f"{label} forward with lse", out, want_out, "bf16")
+        del want_out, want_lse
+        got, want = [], []
+        for fn, acc in ((lambda *t: fa.flash_attention_grad(
+                *t, chunk=cfg.attn_chunk, **kw), got),
+                        (lambda *t: fa.flash_attention_ref(*t, **kw), want)):
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            acc.extend(torch.autograd.grad(fn(*ins), ins, do))
+            del ins
+        for name, a, w in zip(("dQ", "dK", "dV"), got, want):
+            compare(f"{label} {name}", a, w, "grad")
+        del got, want
+        torch.cuda.empty_cache()
+        fwd_ms = median_ms(lambda: fa.flash_attention_fused(q, k, v, **kw))
+        fwd_lse_ms = median_ms(lambda: fa._forward(q, k, v, *args, True))
+        bwd_ms = median_ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, chunk=cfg.attn_chunk, **kw), reps=5)
+        bwd_launches = device_launches(torch, lambda: fa.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, chunk=cfg.attn_chunk, **kw))
+        log(f"  {label}: K5 forward {fwd_ms:.4f} ms ({fwd_lse_ms:.4f} ms "
+            f"with lse); backward (plain PyTorch, {cfg.attn_chunk}-key "
+            f"chunks) {bwd_ms:.4f} ms over {bwd_launches} launches")
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+
+    # (b) The full width at the largest even depth that fits.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    d_, h_, kv_, hd_, f_ = (cfg.d_model, cfg.n_heads, cfg.n_kv,
+                            cfg.head_dim, cfg.d_ff)
+    layer_params = (d_ * h_ * hd_ + 2 * d_ * kv_ * hd_ + h_ * hd_ * d_
+                    + 3 * d_ * f_ + 2 * d_)
+    outer_params = cfg.vocab_padded * d_ + d_
+    margin = 0.05 * total
+    # 16 bytes a parameter: fp32 weight, gradient and two AdamW moments.
+    activations = peak_a - 8 * n2
+    room = free - margin - activations - 16 * outer_params
+    depth = min(cfg.n_layers,
+                max(2, int(room // (16 * layer_params)) // 2 * 2))
+    log(f"phase 9 (b): depth {depth}: free {free / 1e9:.2f} GB of "
+        f"{total / 1e9:.2f}, less a {margin / 1e9:.2f} GB margin, less (a)'s "
+        f"peak beyond its weights and gradients {activations / 1e9:.2f} GB, "
+        f"less 16 B x {outer_params / 1e6:.1f} M embedding and final-norm "
+        f"parameters ({16 * outer_params / 1e9:.2f} GB), leaves "
+        f"{room / 1e9:.2f} GB = {room / (16 * layer_params):.2f} layers of "
+        f"16 B x {layer_params / 1e6:.1f} M ({16 * layer_params / 1e9:.2f} "
+        f"GB); the {cfg.n_layers} layers would take "
+        f"{16 * (outer_params + cfg.n_layers * layer_params) / 1e9:.1f} GB "
+        "for parameters and optimizer state alone")
+    cfgd = cfg.scaled(n_layers=depth)
+    microbatches, global_batch, steps = 2, 2, 3
+    real_make = train_launch.ts.make_train_step
+    records = []
+
+    def counted_make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def run(model, state, batch):
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()["flash_attention"]
+            t = time.perf_counter()
+            m = step(model, state, batch)
+            torch.cuda.synchronize()
+            records.append(((time.perf_counter() - t) * 1e3,
+                            {k: float(v) for k, v in m.items()},
+                            kernels.launch_counts()["flash_attention"]
+                            - before, (model, state, batch)))
+            return m
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    live_b = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with mock.patch.object(train_launch.ts, "make_train_step", counted_make):
+        model, losses = train_launch.train_loop(
+            cfgd, steps, global_batch, seq, microbatches=microbatches,
+            device=dev)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    peak_b = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    ocfg = opt.OptConfig(warmup_steps=min(10, steps // 5 + 1),
+                         total_steps=steps)
+    log(f"phase 9 (b): gemma2-9b at full width, {depth} layers, "
+        f"{n_params / 1e9:.3f} B float32 parameters, {global_batch} x {seq} "
+        f"tokens a step in {microbatches} microbatches, {ocfg}; train_loop "
+        f"{loop_s:.1f} s (weights drawn on the card, {steps} steps)")
+    want_k5 = 2 * depth * microbatches
+    for i, (ms, m, k5, _) in enumerate(records):
+        log(f"  step {i}: {ms:.1f} ms, loss {m['loss']!r}, grad_norm "
+            f"{m['grad_norm']!r}, lr {m['lr']!r}, K5 launches {k5}")
+        if k5 != want_k5:
+            fail(f"phase 9 (b): step {i} launched K5 {k5} times, not "
+                 f"{want_k5} (2 x depth x microbatches)")
+    if len(records) != steps or not all(np.isfinite(losses)):
+        fail(f"phase 9 (b): {len(records)} steps, losses {losses}")
+    shape = InputShape("phase 9 (b)", seq, global_batch, "train")
+    mf = flops.model_flops(cfgd, shape)
+    steady = statistics.median(r[0] for r in records[1:])
+    log(f"phase 9 (b): step ms (first apart): first {records[0][0]:.1f}; "
+        "then " + ", ".join(f"{r[0]:.1f}" for r in records[1:])
+        + f"; peak device memory {peak_b / gib:.2f} GiB, "
+        f"{(peak_b - live_b) / gib:.2f} GiB above the {live_b / gib:.2f} GiB "
+        f"live before the loop; model_flops {mf / 1e15:.4f} PFLOP a step "
+        f"(6 N D, launch/flops.py), {mf / steady / 1e9:.1f} TFLOP/s over "
+        f"the steady step, {mf / steady / 1e9 / 989:.3f} of 989 TFLOP/s "
+        "bf16")
+    log("profile: one steady training step of (b) (torch.profiler)")
+    _, _, _, (pmodel, pstate, pbatch) = records[-1]
+    step = real_make(cfgd, ocfg, microbatches)
+    profile_training_step(torch, log, "gemma2-9b training step",
+                          lambda: step(pmodel, pstate, pbatch))
+    del model, pmodel, pstate, pbatch, records, step
+    torch.cuda.empty_cache()
+
+    # (c) Checkpoint and resume at a reduced width.
+    small = cfg.scaled(n_layers=2, d_model=512, n_heads=4, n_kv=2,
+                       d_head=128, d_ff=1024, vocab=4096)
+    t = time.perf_counter()
+    kw = dict(global_batch=2, seq_len=512, device=dev)
+    before = kernels.launch_counts()["flash_attention"]
+    with tempfile.TemporaryDirectory() as d:
+        _, first = train_launch.train_loop(small, 2, ckpt_dir=d, **kw)
+        resumed, rest = train_launch.train_loop(small, 3, ckpt_dir=d,
+                                                resume=True, **kw)
+        saved = ckpt.available_steps(d)
+    whole, losses = train_launch.train_loop(small, 3, **kw)
+    k5_c = kernels.launch_counts()["flash_attention"] - before
+    log(f"phase 9 (c): gemma2 reduced (2 layers, d_model 512, 4/2 heads of "
+        f"128, d_ff 1024, vocab 4096), 2 x 512 tokens: 2 steps {first} + "
+        f"resume {rest} against 3 steps {losses}; checkpoints {saved}; "
+        f"{time.perf_counter() - t:.1f} s; K5 launches {k5_c}")
+    same = first + rest == losses and all(
+        torch.equal(a, b) for a, b in zip(resumed.parameters(),
+                                          whole.parameters()))
+    if not same or saved != [2, 3]:
+        fail("phase 9 (c): the resumed run differs from the uninterrupted "
+             "one")
+    log("phase 9 (c): resumed run equals the uninterrupted run bit for bit "
+        "(losses and every parameter)")
+    del resumed, whole
+    torch.cuda.empty_cache()
+    log(f"phase 9: {time.perf_counter() - t_phase:.1f} s; main path (b) "
+        f"launches {counts}")
+    return counts
+
+
+#: Phase 9's sequence length: ``train_4k``'s (``models/config.py``).
+TRAIN_SEQ = 4096
+
+#: Phase 9 (a')'s shapes: K5's timing shapes in the kernels line and its
+#: timing lines (label → ((b, sq, sk, h, kv, d), kernel kwargs)).
+FUNCTION_CASES = {
+    "gemma2 global S=8192": ((1, 8192, 8192, 16, 8, 256),
+                             dict(causal=True, softcap=50.0)),
+    "gemma2 local S=8192 window 4096": (
+        (1, 8192, 8192, 16, 8, 256),
+        dict(causal=True, window=4096, softcap=50.0)),
+    "GQA 32/8 D=128 S=4096": ((1, 4096, 4096, 32, 8, 128),
+                              dict(causal=True)),
+}
+
+
+def device_launches(torch, run) -> int:
+    """Kernels (device-side events) that one call of ``run`` launches,
+    counted by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+
+
+#: CUPTI's own events on the host, which list the kernels of the launch
+#: they stalled a second time.
+CUPTI_OVERHEAD = ("Command Buffer Full", "Activity Buffer Request")
+
+#: Forward operators of the loss head outside ``layers.unembed``.
+LOSS_OPS = ("aten::log_softmax", "aten::_log_softmax", "aten::gather")
+
+
+def profile_training_step(torch, log, name, run):
+    """Run ``run()`` (one training step) twice under ``torch.profiler``,
+    the first as a warm-up, and print the second's device busy time,
+    idle share and device time by group:
+
+    - K5 (forward and recompute): device events named ``flash_attention``;
+    - the attention backward: kernels launched under the Function's
+      backward node (``FlashAttentionBackward``);
+    - the optimizer: kernels under ``apply_updates``, labelled here;
+    - the loss head: ``layers.unembed`` (labelled here), log_softmax and
+      the gather, and the backward nodes of those forward operators
+      (matched by autograd's sequence number);
+    - dense products: the other GEMM kernels;
+    - rest: the other kernels, and any device time no operator claimed.
+    """
+    import contextlib
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+
+    from repro_torch.models import layers
+    from repro_torch.train import optimizer as opt
+
+    labels = {"optimizer": (opt, "apply_updates"),
+              "loss head": (layers, "unembed")}
+
+    def labelled(label, fn):
+        def wrapped(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for label, (mod, attr) in labels.items():
+            stack.enter_context(mock.patch.object(
+                mod, attr, labelled(label, getattr(mod, attr))))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.events()
+    # Kernels, copies and fills only: the labels above and autograd's
+    # ranges also appear on the device as user annotations spanning them.
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")
+              and not getattr(e, "is_user_annotation", False)]
+    if not device:
+        log(f"  {name}: wall {wall_ms:.1f} ms (profiled); the profiler "
+            "recorded no device time")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy_us, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    span_us = max(e for _, e in spans) - spans[0][0]
+    k5 = [0.0, 0]
+    for e in device:
+        if "flash_attention_kernel" in e.name:
+            k5[0] += e.time_range.end - e.time_range.start
+            k5[1] += 1
+    # A kernel is listed under the operator that launched it and, when
+    # the launch stalled on a full queue, again under CUPTI's overhead
+    # event for the stall (same correlation id): count it once, under
+    # the operator.
+    items, stalls = [], 0
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        if e.name in CUPTI_OVERHEAD:
+            stalls += 1
+            continue
+        items += [(e, kern.name, kern.duration) for kern in e.kernels
+                  if "flash_attention_kernel" not in kern.name]
+    groups = group_kernel_time(events, items, labels)
+    groups["K5 flash_attention (forward and recompute)"] = k5
+    device_us = sum(e.time_range.end - e.time_range.start for e in device)
+    claimed = sum(g[0] for g in groups.values())
+    rest = groups.setdefault(
+        "rest (norms, rope, casts, residuals, elementwise)", [0.0, 0])
+    rest[0] += max(0.0, device_us - claimed)
+    log(f"  {name} (one profiled step): wall {wall_ms:.1f} ms, device span "
+        f"{span_us / 1e3:.1f} ms, busy {busy_us / 1e3:.1f} ms; idle share of "
+        f"span {1 - busy_us / span_us:.3f}, of wall "
+        f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}; {len(device)} "
+        f"kernels, {device_us / 1e3:.1f} ms of kernel time "
+        f"({claimed / 1e3:.1f} ms claimed by an operator; {stalls} "
+        "launches stalled on a full queue)")
+    for group, (us, count) in sorted(groups.items(),
+                                     key=lambda kv: -kv[1][0]):
+        log(f"    {group}: {us / 1e3:.1f} ms over {count} launches "
+            f"({us / device_us:.3f} of kernel time)")
+
+
+def group_kernel_time(events, items, labels) -> dict[str, list]:
+    """Device time and launches by group of ``items``, (CPU operator
+    event, kernel name, microseconds) triples, over the profiler's
+    ``events`` (see :func:`profile_training_step`)."""
+    from torch.autograd import DeviceType
+
+    def ancestors(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    def backward_root(e):
+        return next((a for a in ancestors(e)
+                     if getattr(a, "scope", 0) == 1), None)
+
+    def forward_label(e):
+        for a in ancestors(e):
+            if a.name in labels:
+                return a.name
+            if a.name in LOSS_OPS:
+                return "loss head"
+        return None
+
+    by_seq = {}
+    for e in events:
+        if (e.device_type == DeviceType.CPU
+                and getattr(e, "sequence_nr", -1) >= 0
+                and backward_root(e) is None):
+            label = forward_label(e)
+            if label:
+                by_seq[(e.sequence_nr, e.thread)] = label
+
+    def group_of(e, kernel):
+        if any("FlashAttentionBackward" in a.name for a in ancestors(e)):
+            return "attention backward (plain PyTorch)"
+        label = forward_label(e)
+        root = backward_root(e)
+        if label is None and root is not None:
+            label = by_seq.get((root.sequence_nr, root.fwd_thread))
+        if label:
+            return label
+        if any(w in kernel.lower() for w in ("gemm", "nvjet", "cutlass",
+                                             "xmma", "cublas")):
+            return "dense products (torch.matmul)"
+        return "rest (norms, rope, casts, residuals, elementwise)"
+
+    groups: dict[str, list] = {}
+    for e, kernel, us in items:
+        g = groups.setdefault(group_of(e, kernel), [0.0, 0])
+        g[0] += us
+        g[1] += 1
+    return groups
 
 
 # Thresholds of the paper's Fig. 11 sweeps (the reference's own:

@@ -14,7 +14,37 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core.formats import WINDOW
 from repro_torch.core.windows import WindowVectors
+
+
+def r_spmm(nnz: int | np.ndarray, k: int):
+    """Data-access-cost ratio CUDA/TCU for SpMM (Eq. 2): NNZ / k."""
+    return np.asarray(nnz, dtype=np.float64) / float(k)
+
+
+def r_sddmm(nnz: int | np.ndarray, m: int, n: int):
+    """Data-access-cost ratio CUDA/TCU for SDDMM (Eq. 3): 2·NNZ / (m+n)."""
+    return 2.0 * np.asarray(nnz, dtype=np.float64) / float(m + n)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpMMSplit:
+    """Per-window split decision for SpMM (vector granularity)."""
+
+    tc_idx: np.ndarray   # indices into WindowVectors arrays → Tensor Cores
+    vpu_idx: np.ndarray  # indices → CUDA cores
+
+
+def split_spmm_window(wv: WindowVectors, threshold: int) -> SpMMSplit:
+    """Vectors with NNZ ≥ threshold go to the Tensor Cores; the rest to
+    the CUDA cores.
+
+    threshold=1 ⇒ Tensor Core only; threshold=WINDOW+1 ⇒ CUDA cores only
+    (the single-resource ablations).
+    """
+    dense = wv.counts >= threshold
+    return SpMMSplit(np.nonzero(dense)[0], np.nonzero(~dense)[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,3 +79,20 @@ def split_sddmm_window(wv: WindowVectors, threshold: int, bk: int) -> SDDMMSplit
             vpu.append(blk)
     vpu_idx = np.sort(np.concatenate(vpu)) if vpu else np.zeros(0, np.int64)
     return SDDMMSplit(blocks, np.asarray(flags, bool), vpu_idx)
+
+
+def distribution_stats(counts_per_vec: np.ndarray, threshold: int) -> dict:
+    """Summary used by the threshold tuner and the Fig.-1 benchmark."""
+    tc = counts_per_vec >= threshold
+    tc_nnz = int(counts_per_vec[tc].sum())
+    total = int(counts_per_vec.sum())
+    return {
+        "vectors": int(counts_per_vec.size),
+        "tc_vectors": int(tc.sum()),
+        "tc_nnz": tc_nnz,
+        "vpu_nnz": total - tc_nnz,
+        "tc_ratio": tc_nnz / max(total, 1),
+        "tc_redundancy": float(
+            (tc.sum() * WINDOW - tc_nnz) / max(tc.sum() * WINDOW, 1)
+        ),
+    }

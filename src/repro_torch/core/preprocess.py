@@ -490,6 +490,97 @@ def preprocess_sddmm(
     return SDDMMPlan(a.m, a.k, a.nnz, threshold, tc, tc_out_pos, vpu, meta)
 
 
+def preprocess_spmm_loop(a: SparseCSR, threshold: int = DEFAULT_SPMM_THRESHOLD,
+                         bk: int = DEFAULT_BK_SPMM, ts_tile: int = 32,
+                         balance: BalanceParams | None = None) -> SpMMPlan:
+    """Scalar-loop baseline (the paper's sequential-CPU comparison point).
+
+    Walks the matrix one element at a time in pure Python — window
+    extraction, vector counting, bitmap building, threshold split, block
+    condensation and residue tiling all scalar. Produces a plan with the
+    same tensors as :func:`preprocess_spmm` (bit-identity tested); used by
+    the preprocessing benchmark to quantify the bulk-vectorized win (the
+    analogue of the paper's GPU-vs-OpenMP 17.1×).
+    """
+    balance = balance or BalanceParams()
+    nwin = num_windows(a.m)
+    # 1) scalar window extraction: (win, col) → [(sub, val, pos)]
+    wincols: list[dict[int, list[tuple[int, float, int]]]] = \
+        [dict() for _ in range(nwin)]
+    p = 0
+    for r in range(a.m):
+        lo, hi = int(a.indptr[r]), int(a.indptr[r + 1])
+        for i in range(lo, hi):
+            c = int(a.indices[i])
+            wincols[r // WINDOW].setdefault(c, []).append(
+                (r % WINDOW, float(a.data[i]), p))
+            p += 1
+
+    blk_vals, blk_cols, blk_bits, blk_win, blk_pos = [], [], [], [], []
+    t_vals, t_cols, t_row, t_long, t_pos = [], [], [], [], []
+    tc_nnz = vpu_nnz = 0
+    for w in range(nwin):
+        tc_sel = []
+        residue: dict[int, list[tuple[int, float, int]]] = {}
+        for c in sorted(wincols[w]):
+            entries = wincols[w][c]
+            if len(entries) >= threshold:
+                tc_sel.append(c)
+                tc_nnz += len(entries)
+            else:
+                for sub, v, pp in entries:
+                    residue.setdefault(w * WINDOW + sub, []).append((c, v, pp))
+                    vpu_nnz += 1
+        for s in range(0, len(tc_sel), bk):
+            part = tc_sel[s : s + bk]
+            v = np.zeros((WINDOW, bk), np.float32)
+            cc = np.zeros(bk, np.int32)
+            bb = np.zeros(bk, np.uint32)
+            ppos = np.full((WINDOW, bk), -1, np.int32)
+            for j, c in enumerate(part):
+                cc[j] = c
+                for sub, val, pp in wincols[w][c]:
+                    v[sub, j] = val
+                    bb[j] |= np.uint32(1) << np.uint32(sub)
+                    ppos[sub, j] = pp
+            blk_vals.append(v)
+            blk_cols.append(cc)
+            blk_bits.append(bb)
+            blk_win.append(w)
+            blk_pos.append(ppos)
+        for r in sorted(residue):
+            ent = residue[r]
+            is_long = len(ent) > balance.short_len
+            for s in range(0, len(ent), ts_tile):
+                seg = ent[s : s + ts_tile]
+                cc = np.zeros(ts_tile, np.int32)
+                vv = np.zeros(ts_tile, np.float32)
+                pp = np.full(ts_tile, -1, np.int32)
+                for j, (c, val, pos_) in enumerate(seg):
+                    cc[j], vv[j], pp[j] = c, val, pos_
+                t_cols.append(cc)
+                t_vals.append(vv)
+                t_pos.append(pp)
+                t_row.append(r)
+                t_long.append(is_long)
+
+    tc = _pad_blocks(blk_vals, blk_cols, blk_bits, blk_win,
+                     [False] * len(blk_win), tc_nnz, bk, pos=blk_pos)
+    if t_vals:
+        vpu = VPUTiles(np.stack(t_vals), np.stack(t_cols),
+                       np.asarray(t_row, np.int32),
+                       np.asarray(t_long, bool),
+                       np.zeros(len(t_row), bool), vpu_nnz, ts_tile,
+                       pos=np.stack(t_pos))
+    else:
+        vpu = _empty_vpu_tiles(ts_tile)
+    meta = {"tc_nnz": tc_nnz, "vpu_nnz": vpu_nnz,
+            "tc_ratio": tc_nnz / max(a.nnz, 1), "has_tc": bool(tc_nnz),
+            "has_vpu": bool(vpu_nnz), "balance": balance,
+            "tc_segments": None, "vpu_segments": None, "seg_spt": 1}
+    return SpMMPlan(a.m, a.k, a.nnz, threshold, tc, vpu, meta)
+
+
 #: Process-local reorder decisions for runs without a PlanCache,
 #: keyed like the cache entries (pattern signature + op + threshold).
 _REORDER_MEMO: dict[str, dict] = {}

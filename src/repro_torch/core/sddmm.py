@@ -26,6 +26,12 @@ from repro_torch.sparse.matrix import SparseCSR
 from repro_torch.tune.model import TuneConfig
 
 
+def threshold_for_mode(mode: str, bk: int, threshold: int | None = None) -> int:
+    """The SDDMM block threshold that ``mode`` pins (the reference's name
+    for :func:`repro_torch.core.preprocess.threshold_for_mode_sddmm`)."""
+    return preprocess.threshold_for_mode_sddmm(mode, bk, threshold)
+
+
 class LibraSDDMM:
     """Preprocess-once, apply-many hybrid SDDMM operator."""
 

@@ -53,6 +53,12 @@ from repro_torch.sparse.matrix import SparseCSR
 from repro_torch.tune.model import TuneConfig
 
 
+def threshold_for_mode(mode: str, threshold: int | None = None) -> int:
+    """The SpMM threshold that ``mode`` pins (the reference's name for
+    :func:`repro_torch.core.preprocess.threshold_for_mode_spmm`)."""
+    return preprocess.threshold_for_mode_spmm(mode, threshold)
+
+
 class LibraSpMM:
     """Preprocess-once, apply-many hybrid SpMM operator."""
 

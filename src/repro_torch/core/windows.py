@@ -71,3 +71,17 @@ def extract_windows(a: SparseCSR) -> list[WindowVectors]:
         out.append(WindowVectors(uc.astype(np.int32), cnt.astype(np.int32),
                                  bitmap, dense, posd))
     return out
+
+
+def nnz1_fraction(a: SparseCSR) -> float:
+    """Fraction of non-zero column vectors containing exactly one non-zero.
+
+    This is the paper's Figure-1 statistic: high ⇒ CUDA-core advantage,
+    low ⇒ Tensor Core advantage, middle ⇒ hybrid region.
+    """
+    total = 0
+    nnz1 = 0
+    for wv in extract_windows(a):
+        total += int(wv.counts.size)
+        nnz1 += int((wv.counts == 1).sum())
+    return nnz1 / max(total, 1)

@@ -43,9 +43,9 @@ SIGNATURES = {
                          _P),
     # rows, cols, x, y, out, nel, kf, slice_feats, vec4, stream
     "sddmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
-    # q, k, v, o, b, sq, sk, h, kv, d, q/k/v strides over (B, S, H),
-    # scale, softcap, causal, window, q_offset, dtype, stream
-    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # q, k, v, o, lse (or null), b, sq, sk, h, kv, d, q/k/v strides over
+    # (B, S, H), scale, softcap, causal, window, q_offset, dtype, stream
+    "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                _F, _F, _I, _L, _L, _I, _P),
 }

@@ -60,7 +60,13 @@
 //   __launch_bounds__(256, 1)'s 255 without spilling, and Q never
 //   leaves shared memory.
 // - Epilogue: O times 1 / max(l, 1e-30), staged through Q's shared
-//   memory and written with 16-byte stores.
+//   memory and written with 16-byte stores. With a non-null lse pointer
+//   (the training forward) each row's natural-log logsumexp of its
+//   scaled, softcapped, masked scores, (m + log2 l) ln 2 from the log2
+//   domain's final m and l, goes to an fp32 (B, H, Sq) tensor; a row
+//   that saw no unmasked key (m still -1e30) gets +inf, so that a
+//   backward's P = exp(s - lse) is 0 there. The scoring path passes null
+//   and writes nothing more.
 // Left for later: TMA and mbarrier rings, a producer warp with
 // setmaxnreg, overlap of one tile's softmax with the next QK^T,
 // ping-pong between warpgroups, persistent blocks, packing the query
@@ -80,12 +86,14 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // two warpgroups
 constexpr float kNeg = -1e30f; // the reference's NEG
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) fp32, or null
   int b, sq, sk, h, kv;
   long long q_sb, q_ss, q_sh;  // element strides of Q over (B, S, H)
   long long k_sb, k_ss, k_sh;
@@ -513,6 +521,17 @@ flash_attention_kernel(const Params p) {
     inv[half] = 1.f / fmaxf(l[half], 1e-30f);
   }
   const int row = 64 * wg + warp * 16 + g;
+  if (p.lse != nullptr && t == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qrow = q0 + row + 8 * half;
+      if (qrow < p.sq) {
+        p.lse[(long long)bh * p.sq + qrow] =
+            m[half] == kNeg ? __int_as_float(0x7f800000)  // +inf
+                            : (m[half] + log2f(l[half])) * kLn2;
+      }
+    }
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     *reinterpret_cast<uint32_t*>(sQ_ptr + swizzled(row, j, kBQ) + 4 * t) =
@@ -569,17 +588,20 @@ cudaError_t dispatch(const Params& p, int d, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float16. Output o is (B, Sq, H, D) contiguous.
+// dtype: 0 = bfloat16, 1 = float16. Output o is (B, Sq, H, D) contiguous;
+// lse, when not null, (B, H, Sq) fp32 contiguous.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int b, int sq,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int b, int sq,
     int sk, int h, int kv, int d, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, float scale,
     float softcap, int causal, long long window, long long q_offset,
     int dtype, cudaStream_t stream) {
-  const Params p{q,    k,    v,    o,    b,    sq,    sk,      h,
-                 kv,   q_sb, q_ss, q_sh, k_sb, k_ss,  k_sh,    v_sb,
-                 v_ss, v_sh, scale, softcap, causal, window, q_offset};
+  const Params p{q,    k,    v,    o,    lse,  b,     sq,      sk,
+                 h,    kv,   q_sb, q_ss, q_sh, k_sb,  k_ss,    k_sh,
+                 v_sb, v_ss, v_sh, scale, softcap, causal, window,
+                 q_offset};
   if (sq == 0 || b * h == 0) return 0;
   return static_cast<int>(dtype == 0 ? dispatch<__nv_bfloat16>(p, d, stream)
                                      : dispatch<__half>(p, d, stream));

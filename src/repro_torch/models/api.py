@@ -3,14 +3,16 @@
 Mirrors ``repro.models.api`` for the ``dense`` family. The other
 families raise :class:`NotImplementedError` naming their ROADMAP item.
 ``params`` is the :class:`~repro_torch.models.transformer.Transformer`
-module itself.
+module itself. The input specs are tensors on the ``meta`` device, the
+counterpart of the reference's ``jax.ShapeDtypeStruct``: shapes and
+dtypes, no storage.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import transformer
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, InputShape
 
 _UNPORTED = {
     "moe": "ROADMAP queue 1 item 13 (moe.py)",
@@ -64,3 +66,24 @@ def decode_step(params: transformer.Transformer, cache: dict, token,
     """One-token decode: (logits, cache); the cache updates in place."""
     _dense(cfg)
     return params.decode_step(cache, token, cache_len)
+
+
+# ------------------------------------------------------------ input specs --
+def _spec(shape, dtype=torch.int32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_input_specs(cfg: ArchConfig, shape: InputShape) -> dict:
+    """Meta-tensor stand-ins for one global train/prefill batch."""
+    _dense(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    return {"tokens": _spec((b, s)), "labels": _spec((b, s))}
+
+
+def decode_input_specs(cfg: ArchConfig, shape: InputShape) -> dict:
+    """Stand-ins for one decode step with a cache of seq_len history."""
+    _dense(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    return {"token": _spec((b, 1)), "cache_len": _spec(()),
+            "cache": init_cache(cfg, b, s, dtype=torch.bfloat16,
+                                device="meta")}

@@ -20,7 +20,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import flash_attention_fused
+from repro_torch.kernels.flash_attention import (
+    flash_attention_fused,
+    flash_attention_grad,
+)
 from repro_torch.models.config import ArchConfig
 
 
@@ -69,13 +72,21 @@ def flash_attention(q, k, v, *, causal: bool, window=None,
     q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H % KV == 0. ``window``
     restricts keys to within ``window`` of the query; ``None`` disables it
     (the reference's ``Sk + Sq + 1``). ``q_offset`` is the absolute
-    position of q[0]. ``chunk`` and ``remat_chunks`` shape the reference's
-    XLA scan and its backward; they have no effect here (K5 walks 64-key
-    tiles).
+    position of q[0]. When grad is enabled and an input requires it, the
+    call goes through the autograd Function (K5's forward with its
+    logsumexp, and a backward that walks ``chunk`` keys a step, as the
+    reference's scan does); otherwise K5 runs alone. ``remat_chunks``
+    decides whether the reference's backward stores or recomputes each
+    chunk's scores; the Function always recomputes them from the saved
+    logsumexp, so it has no effect here.
     """
-    del chunk, remat_chunks
+    del remat_chunks
     sq, sk = q.shape[1], k.shape[1]
     window = sk + sq + 1 if window is None else int(window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return flash_attention_grad(q, k, v, causal=causal, window=window,
+                                    softcap=softcap_val, q_offset=q_offset,
+                                    chunk=chunk)
     return flash_attention_fused(q, k, v, causal=causal, window=window,
                                  softcap=softcap_val, q_offset=q_offset)
 
@@ -197,13 +208,19 @@ def embed(embedding, tokens, cfg: ArchConfig):
 def unembed(embedding, x, cfg: ArchConfig):
     """Logits in fp32 over the true vocabulary, softcapped.
 
-    The softcap runs in place on the fp32 logits (the same operations in
-    the same order as the reference's ``cap * tanh(x / cap)``): at 8192
-    tokens × 256k vocabulary each temporary would be 8.4 GB.
+    The softcap is the reference's ``cap * tanh(x / cap)``, the same
+    operations in the same order either way. Under ``no_grad`` it runs in
+    place on the fp32 logits: at 8192 tokens × 256k vocabulary each
+    temporary would be 8.4 GB. Under grad it runs out of place, because
+    ``tanh`` saves its output for the backward (in place, the ``mul_``
+    would overwrite it); that saved output is the one fp32 copy of the
+    logits the loss head keeps.
     """
     cd = dtype_of(cfg, "compute_dtype")
     logits = (x @ embedding.to(cd).T)[..., : cfg.vocab].float()
     cap = cfg.logit_softcap
-    if cap:
-        logits.div_(cap).tanh_().mul_(cap)
-    return logits
+    if not cap:
+        return logits
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return cap * torch.tanh(logits / cap)
+    return logits.div_(cap).tanh_().mul_(cap)

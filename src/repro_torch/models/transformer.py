@@ -12,6 +12,12 @@ K5 (``layers.flash_attention``); decoding runs the plain
 kernel. The VLM frontend (patch embeddings, M-RoPE) waits for the VLM
 slice.
 
+Training: with ``cfg.remat`` and grad enabled, each layer's block runs
+under ``torch.utils.checkpoint`` (non-reentrant), the reference's
+per-layer ``jax.checkpoint(..., policy=nothing_saveable)``: only the
+layer inputs are kept, and the backward recomputes each layer, K5
+included, so K5 launches twice a layer in a training step.
+
 Decoding updates the cache tensors in place and returns the same dict
 (the reference returns a new tree).
 """
@@ -19,6 +25,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import checked_device
 from repro_torch.models import layers as L
@@ -74,20 +81,30 @@ class Transformer(nn.Module):
         self.final_norm = nn.Parameter(L.init_norm(cfg, dev))
 
     # ------------------------------------------------------- prefill ---
+    def _layer(self, lp: Layer, x, window: int, positions):
+        cfg = self.cfg
+        h = L.rms_norm(x, lp.attn_norm, cfg.norm_eps)
+        h = L.attention_block(lp.attn, h, cfg, layer_window=window,
+                              positions=positions)
+        x = x + h
+        h = L.rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+        return x + L.mlp_block(lp.mlp, h, cfg)
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Train/prefill forward: logits (B, S, vocab) in fp32."""
         cfg = self.cfg
         x = L.embed(self.embedding, tokens, cfg)
         s = x.shape[1]
         positions = torch.arange(s, device=x.device)[None, :]
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, lp in enumerate(self.layers):
-            h = L.rms_norm(x, lp.attn_norm, cfg.norm_eps)
-            h = L.attention_block(lp.attn, h, cfg,
-                                  layer_window=layer_window(cfg, i, s),
-                                  positions=positions)
-            x = x + h
-            h = L.rms_norm(x, lp.mlp_norm, cfg.norm_eps)
-            x = x + L.mlp_block(lp.mlp, h, cfg)
+            window = layer_window(cfg, i, s)
+            if remat:
+                # The layer draws no random numbers: no RNG state to keep.
+                x = checkpoint(self._layer, lp, x, window, positions,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = self._layer(lp, x, window, positions)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
         return L.unembed(self.embedding, x, cfg)
 

@@ -1,4 +1,5 @@
-"""Kernels on the card against their plain twins: K5 and the dense path,
+"""Kernels on the card against their plain twins: K5 and the dense path
+(scoring, and training through K5's autograd Function),
 the two CUDA-core streams K2 (``spmm_vpu``) and K4 (``sddmm_vpu``), the
 two Tensor Core streams K1 (``spmm_mxu``) and K3 (``sddmm_mxu``), and
 GNN training through all four (``GraphOps`` forward and backward, with
@@ -169,10 +170,119 @@ def test_kernel_refuses_what_it_does_not_take(card):
     q, k, v = _qkv(card, 1, 64, 64, 4, 2, 96, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fused(q, k, v)
+    # Under grad the kernel runs inside the autograd Function: the same
+    # launch, the same output, and a graph to differentiate.
     q, k, v = _qkv(card, 1, 64, 64, 4, 2, 128, torch.bfloat16)
+    with torch.no_grad():
+        want = fa.flash_attention_fused(q, k, v)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fa.flash_attention_fused(q, k, v)
+    before = fa.flash_attention_fused.launches
+    out = fa.flash_attention_fused(q, k, v)
+    assert fa.flash_attention_fused.launches == before + 1
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    assert torch.equal(out.detach(), want)
+
+
+LSE_CASES = {
+    # b, sq, sk, h, kv, d, causal, window, softcap, q_offset, dtype
+    "d256": (1, 1000, 1000, 16, 8, 256, True, 0, 50.0, 0, torch.bfloat16),
+    "d256-window": (1, 1000, 1000, 16, 8, 256, True, 300, 50.0, 0,
+                    torch.bfloat16),
+    "d128-gqa": (2, 257, 257, 32, 8, 128, True, 0, 0.0, 0, torch.bfloat16),
+    "mqa-fp16": (1, 300, 300, 48, 1, 128, True, 0, 0.0, 0, torch.float16),
+    "d64-full": (2, 130, 130, 4, 2, 64, False, 0, 0.0, 0, torch.bfloat16),
+    "q_offset": (1, 100, 612, 8, 2, 128, True, 200, 30.0, 512,
+                 torch.bfloat16),
+    "no-keys": (1, 130, 0, 4, 2, 256, True, 0, 0.0, 0, torch.bfloat16),
+    "window-empties-all": (1, 64, 64, 4, 2, 128, True, 10, 50.0, 200,
+                           torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("name", list(LSE_CASES))
+def test_kernel_lse_matches_twin(card, name):
+    """K5's logsumexp output against the twin's within 1e-3 absolute
+    (the kernel's ex2/tanh approximations move it by about 1e-6
+    relative); +inf on the same rows (no visible key); the output is the
+    scoring launch's bit for bit."""
+    b, sq, sk, h, kv, d, causal, window, cap, q_off, dt = LSE_CASES[name]
+    q, k, v = _qkv(card, b, sq, sk, h, kv, d, dt)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_off)
+    out, lse = fa._forward(q, k, v, causal, window, cap, q_off, True)
+    torch.cuda.synchronize()
+    want_out, want = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert bool((lse[~fin] > 0).all())
+    if bool(fin.any()):
+        assert (lse[fin] - want[fin]).abs().max().item() <= 1e-3
+    assert torch.equal(out, fa.flash_attention_fused(q, k, v, **kw))
+    _close(out, want_out)
+
+
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_function_grads_match_twin_autograd(card, d, window, cap):
+    """dQ, dK, dV through the Function (K5 forward, chunked backward,
+    128-key chunks) against plain autograd through the twin, within
+    2e-2·max|ref|: the two round P and dP to bf16 at different points."""
+    q, k, v = _qkv(card, 1, 300, 300, 8, 2, d, torch.bfloat16, seed=d)
+    do = torch.randn(q.shape, generator=torch.Generator(card).manual_seed(9),
+                     device=card).to(torch.bfloat16)
+    kw = dict(causal=True, window=window, softcap=cap)
+    grads = []
+    for fn in (lambda *t: fa.flash_attention_grad(*t, chunk=128, **kw),
+               lambda *t: fa.flash_attention_ref(*t, **kw)):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*ins), ins, do))
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16
+        got, want = got.float(), want.float()
+        assert bool(torch.isfinite(got).all())
+        err = (got - want).abs().max().item()
+        assert err <= REL * want.abs().max().item(), err
+
+
+def test_gemma2_training_step_matches_cpu(card):
+    """A two-layer gemma2 at head dim 64, the same weights on the card
+    and on the CPU: first-microbatch gradients within 2e-2·max|g| (K5
+    against the twin, bf16 products in another order), and one training
+    step's loss and gradient norm within 1e-2 relative, with K5 launched
+    twice a layer (forward and recompute)."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_smoke_config("gemma2-9b").scaled(d_head=64)
+    gpu = api.init_params(torch.Generator(card).manual_seed(0), cfg,
+                          device=card)
+    cpu = copy.deepcopy(gpu).cpu()
+    g = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 100), generator=g,
+                                     dtype=torch.int32),
+             "labels": torch.randint(0, cfg.vocab, (2, 100), generator=g,
+                                     dtype=torch.int32)}
+    on_card = {k: t.to(card) for k, t in batch.items()}
+    got = torch.autograd.grad(api.loss_fn(gpu, on_card, cfg),
+                              list(gpu.parameters()))
+    want = torch.autograd.grad(api.loss_fn(cpu, batch, cfg),
+                               list(cpu.parameters()))
+    for a, b in zip(got, want):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= REL * b.abs().max().item(), err
+    ocfg = opt.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    metrics = []
+    for model, b in ((gpu, on_card), (cpu, batch)):
+        state = opt.init_opt_state(dict(model.named_parameters()), ocfg)
+        kernels.reset_launch_counts()
+        metrics.append(make_train_step(cfg, ocfg, 2)(model, state, b))
+        if model is gpu:
+            assert kernels.launch_counts()["flash_attention"] == \
+                2 * cfg.n_layers * 2
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(metrics[0][key]),
+                                   float(metrics[1][key]), rtol=1e-2)
 
 
 def test_dense_forward_through_k5_matches_twin(card):
