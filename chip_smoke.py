@@ -22,8 +22,9 @@ Phases:
    twin's pattern. K5 (flash attention) on random bf16/fp16 data at
    gemma2-9b's
    global and local layer shapes (8192 tokens, 16/8 heads, head dim 256,
-   softcap 50), a ragged length, D=128 GQA 32/8, MQA 48/1, fp16, a query
-   offset and scores near the softcap's saturation.
+   softcap 50), a ragged length, D=128 GQA 32/8, MQA 48/1, moonshot's
+   MHA 16/16 and qwen3-moe's GQA 64/4 at D=128 and 8192 tokens, fp16, a
+   query offset and scores near the softcap's saturation.
 2. Operators at full size on ``mixed_csr(16384, 16384, seed=3)``:
    ``LibraSpMM`` at n=256 and ``LibraSDDMM`` at kf=128, with the configs
    that put about 90% (SpMM) and all (SDDMM) non-zeros on Tensor Cores.
@@ -140,11 +141,35 @@ Phases:
    reduced width: 2 steps and a resume equal 3 uninterrupted steps bit
    for bit.
 
+10. The MoE family (``models/moe.py``: router, sort-based dispatch,
+    experts, shared experts), moonshot-v1-16b-a3b at full width: (a) two
+    layers of moonshot-v1-16b-a3b and of qwen3-moe-235b-a22b on 1 × 8192
+    tokens, logits and aux through K5 against the same model through the
+    twin, the twin's routing pinned to K5's (the routings a near-tie
+    flips are counted and printed with the smallest gap); (b) moonshot's
+    layer-0 dispatch matrix D, (e·cap) × t = 61,440 × 8,192 with one 1.0
+    a kept assignment, built from the port's own slots: ``LibraSpMM(D)``
+    equals the sort-based buffer bit for bit, puts nothing on the Tensor
+    Cores (K1, which the apply launches on every call, reads no real
+    vector; K2 carries D), and both dispatches are timed; (c) moonshot at
+    the largest depth that fits (the arithmetic is printed), float32
+    weights drawn on the card: three scoring requests of 1 × 8192 tokens
+    (ms, tokens/s, aux, peak memory, one K5 launch per layer), one more
+    under ``torch.profiler`` by group (K5, expert products, router,
+    dispatch/combine, weight casts, unembed, rest) with the idle share,
+    ``generate(batch=4, prompt_len=16, gen=16)``, and decode-step logits
+    at the last prompt position against ``forward_logits`` at
+    ``capacity_factor = n_experts / top_k`` (capacity = tokens, nothing
+    drops), each step's routing pinned to the forward's; (d) K5 at
+    moonshot's layer (1 × 8192, 16/16 heads, D = 128) beside its twin and
+    SDPA, timed in the timing section.
+
 Phases 2 and 3 are the GNN inference path, phase 5's steps the GNN
 training path, phase 6's tuned operators the tuned path, phase 7's served
 flushes the serving path, phase 8's sharded applies, requests, steps and
 flushes the sharded path, phase 9 (b)'s loop the dense training path,
-and phase 4's (a) and (c) the dense main path:
+phase 10 (c)'s requests and ``generate`` the MoE path, and phase 4's (a)
+and (c) the dense main path:
 every kernel's launch counter is set to 0 just before each path and read
 just after it; within phase 6, the counts
 of each part are read as it ends, and those of the Fig. 11 sweep and of
@@ -155,7 +180,8 @@ on the GNN paths, the tuned path, the serving path and the sharded path,
 K1 and K3 on the
 reordered A and SDDMM(A) (whose tables must hold real vectors and
 columns), K5 exactly 42 times (once
-per layer) per scoring request on the dense path, and 2 × depth ×
+per layer) per scoring request on the dense path, once per layer per
+scoring request on the MoE path, and 2 × depth ×
 microbatches times a step on the training path; K1–K4's launches are
 also split by matrix, plan leg and width from the per-step counts. GNN
 outputs are checked against the port's plain ``backend="torch"`` path on
@@ -230,7 +256,10 @@ PEAK_OPS = {"tf32": 495e12, "fp32": 67e12, "bf16": 989e12}
 #   every sublayer (K5 rounds p to bf16 per 64-key tile, the decode
 #   softmax keeps fp32 p over an fp32 cache; the projections run as
 #   (8192, d) against (4, d) products), and those bf16-sized differences
-#   add up over 84 residual sublayers.
+#   add up over 84 residual sublayers. Phase 10 (c) holds the MoE path's
+#   decode to its forward by the same bound, with each decode step's
+#   expert choice pinned to the forward's: the same rounding differences
+#   flip near-tied routings, which move a token by O(1);
 # - gradients through K5's autograd Function against plain autograd
 #   through the twin (phase 9): max|Δ| ≤ 2e-2·max|ref| per tensor. The
 #   Function's backward keeps P and dP in fp32 and casts dQ, dK, dV to
@@ -637,6 +666,10 @@ def main(argv=None) -> int:
                                   dict(causal=True)),
         "MQA 48/1 D=128 S=2048": (1, 2048, 2048, 48, 1, 128, torch.bfloat16,
                                   dict(causal=True)),
+        "moonshot MHA 16/16 D=128 S=8192": (
+            1, 8192, 8192, 16, 16, 128, torch.bfloat16, dict(causal=True)),
+        "qwen3-moe GQA 64/4 D=128 S=8192": (
+            1, 8192, 8192, 64, 4, 128, torch.bfloat16, dict(causal=True)),
         "gemma2 fp16 S=2048": (1, 2048, 2048, 16, 8, 256, torch.float16,
                                dict(causal=True, softcap=50.0)),
         "q_offset 3072, Sq=1024 Sk=4096 window 2048": (
@@ -952,6 +985,10 @@ def main(argv=None) -> int:
     training_counts = training_phase(
         torch, np, dev, log, fail, compare, kernels, get_config, median_ms)
 
+    # ------------------------------------------------ phase 10: MoE path
+    moe_counts = moe_phase(torch, np, dev, log, fail, compare, kernels,
+                           get_config, median_ms)
+
     # ------------------------------------------------ timing and bounds
     def rows_read(*ids):
         """Distinct rows that the index tensors ``ids`` name together: the
@@ -993,7 +1030,8 @@ def main(argv=None) -> int:
         f"training {train_counts}, tuned {tuned_counts}, serving "
         f"{serving_counts}, sharded {sharded_counts}; K5: dense "
         f"{dense_counts['flash_attention']}, dense training "
-        f"{training_counts['flash_attention']}")
+        f"{training_counts['flash_attention']}, MoE "
+        f"{moe_counts['flash_attention']}")
 
     def record(name, label, ms, plain_ms, library_ms, nb, ops):
         """Log one kernel's times and bound; at the kernel's shape in
@@ -1012,7 +1050,8 @@ def main(argv=None) -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
             "launches": (dense_counts[name] + training_counts[name]
-                         if name == "flash_attention" else gnn_counts[name]),
+                         + moe_counts[name] if name == "flash_attention"
+                         else gnn_counts[name]),
             "max_abs_err": twin_err[(name, label)], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms})
@@ -1246,16 +1285,27 @@ def main(argv=None) -> int:
     # K5 at gemma2's local layer and at the D = 128 width of the other
     # dense configs (timing lines only; the kernels line keeps the global
     # shape). SDPA has no sliding window without a materialised mask, so
-    # the local shape has no library time.
+    # the local shape has no library time. Moonshot's layer (the MoE
+    # path's, phase 10) is also timed against the twin, and qwen3-moe's
+    # (phase 10 (a)'s) beside SDPA.
     for label, shape, kw in (
             ("gemma2 local S=8192 window 4096", (1, 8192, 8192, 16, 8, 256),
              dict(causal=True, window=4096, softcap=50.0)),
             ("GQA 32/8 D=128 S=4096", (1, 4096, 4096, 32, 8, 128),
+             dict(causal=True)),
+            ("moonshot MHA 16/16 D=128 S=8192", (1, 8192, 8192, 16, 16, 128),
+             dict(causal=True)),
+            ("qwen3-moe GQA 64/4 D=128 S=8192", (1, 8192, 8192, 64, 4, 128),
              dict(causal=True))):
         b, sq, sk, h, kv, d = shape
         q, k, v = qkv(71, *shape, torch.bfloat16)
         out = kernels.flash_attention_fused(q, k, v, **kw)
         ms = median_ms(lambda: kernels.flash_attention_fused(q, k, v, **kw))
+        if label.startswith("moonshot"):
+            plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                                 reps=3)
+            log(f"  flash_attention [{label}] (phase 10 (d)): plain twin "
+                f"{plain_ms:.4f} ms")
         lib = "null"
         if not kw.get("window"):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1477,16 +1527,7 @@ def profile_request(torch, log, name, run, classify=None, grad=False):
     # one's end, so busy / span is the device's share of the request
     # once work has reached it, and busy / wall the share of the whole
     # profiled request, host launch overhead included.
-    busy_us, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_us += cur_e - cur_s
-    busy_ms = busy_us / 1e3
-    span_ms = (max(e for _, e in spans) - spans[0][0]) / 1e3
+    busy_ms, span_ms = (us / 1e3 for us in busy_and_span(spans))
     log(f"  {name} (one profiled request): wall {wall_ms:.3f} ms, "
         f"device span {span_ms:.3f} ms, device busy {busy_ms:.3f} ms; "
         f"idle share of span {1 - busy_ms / span_ms:.3f}, of wall "
@@ -1600,7 +1641,7 @@ def dense_phase(torch, np, dev, log, fail, compare, kernels, model_api,
         f"{gen_toks.size / gen_s:.1f} tok/s; sample "
         f"{gen_toks[0][:8].tolist()}")
 
-    # (d) Decode-step logits at the last prompt position against the
+    # Decode-step logits at the last prompt position against the
     # forward logits of the same prompt (generate's prompt, seed 0).
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (4, 16)).astype(np.int32)).to(dev)
@@ -2006,16 +2047,8 @@ def profile_training_step(torch, log, name, run):
         log(f"  {name}: wall {wall_ms:.1f} ms (profiled); the profiler "
             "recorded no device time")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-    busy_us, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_us += cur_e - cur_s
-    span_us = max(e for _, e in spans) - spans[0][0]
+    busy_us, span_us = busy_and_span(sorted(
+        (e.time_range.start, e.time_range.end) for e in device))
     k5 = [0.0, 0]
     for e in device:
         if "flash_attention_kernel" in e.name:
@@ -2106,6 +2139,467 @@ def group_kernel_time(events, items, labels) -> dict[str, list]:
         g[0] += us
         g[1] += 1
     return groups
+
+
+def busy_and_span(spans) -> tuple[float, float]:
+    """Busy time (the union of the intervals) and span (first start to
+    last end) of sorted (start, end) pairs, in their unit."""
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy, max(e for _, e in spans) - spans[0][0]
+
+
+#: Phase 10's scoring length: the dense path's (phase 4).
+MOE_SEQ = 8192
+
+
+def routing(torch, moe, pin=None):
+    """A patch of ``moe.router_topk`` and the record it fills: each call's
+    expert choice (``topi``) and the smallest gap between a token's k-th
+    and (k+1)-th router probability (``gap``). With ``pin`` (call index →
+    the choice an earlier run made there), every call chooses as pinned,
+    its weights renormalised over this call's own probabilities, and
+    ``apart`` counts the tokens whose own top-k set differs: a near-tie
+    that rounding flips moves such a token by O(1), which no tolerance on
+    rounding covers, so values are compared with the routing pinned and
+    the flips are reported beside them."""
+    from unittest import mock
+
+    real = moe.router_topk
+    rec = {"topi": [], "apart": 0, "gap": float("inf")}
+
+    def route(logits, k):
+        topv, topi, aux = real(logits, k)
+        probs = torch.softmax(logits.float(), dim=-1)
+        top = probs.topk(k + 1, dim=-1).values
+        rec["gap"] = min(rec["gap"],
+                         (top[..., k - 1] - top[..., k]).min().item())
+        if pin is not None:
+            want = pin(len(rec["topi"]))
+            rec["apart"] += int((topi.sort(-1).values
+                                 != want.sort(-1).values).any(-1).sum())
+            picked = probs.gather(-1, want)
+            topv = picked / torch.clamp(picked.sum(-1, keepdim=True),
+                                        min=1e-9)
+            topi = want
+        rec["topi"].append(topi)
+        return topv, topi, aux
+
+    return mock.patch.object(moe, "router_topk", route), rec
+
+
+def moe_phase(torch, np, dev, log, fail, compare, kernels, get_config,
+              median_ms):
+    """Phase 10: the MoE family's serving path, moonshot-v1-16b-a3b at
+    full width.
+
+    (a) two layers of moonshot-v1-16b-a3b and of qwen3-moe-235b-a22b on
+    1 × 8192 tokens: logits and aux through K5 against the same model
+    through the twin, the twin's routing pinned to K5's; (b) moonshot's
+    layer-0 dispatch matrix, built from the port's own slots, through
+    ``LibraSpMM``: bit for bit against the sort-based buffer, no non-zero
+    on the Tensor Cores (K1 reads no real vector), K2 launched, and the
+    two dispatches timed side by side; (c) moonshot at the largest depth
+    that fits (the arithmetic is printed): three scoring requests, one
+    more profiled by group, ``generate(4, 16, 16)``, and decode against
+    forward at ``capacity_factor = n_experts / top_k``.
+
+    Returns the launch counts of the MoE main path ((c)'s requests and
+    ``generate``)."""
+    from unittest import mock
+
+    from repro_torch.core.spmm import LibraSpMM
+    from repro_torch.core.windows import nnz1_fraction
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import api, layers, moe
+    from repro_torch.sparse import coo_to_csr
+
+    t_phase = time.perf_counter()
+    seq, gib = MOE_SEQ, 2**30
+
+    def tokens(cfg, seed, b, s):
+        g = torch.Generator(dev).manual_seed(seed)
+        return torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev)
+
+    # (a) Two layers of each MoE config at full width: K5 against the
+    # twin. Layer 0's MoE input and parameters of moonshot's forward are
+    # kept for (b).
+    captured = {}
+    real_block = moe.moe_block
+
+    def capture(p, x, cfg):
+        captured.setdefault("layer 0", (p["router"], x))
+        return real_block(p, x, cfg)
+
+    for seed, name in ((2, "moonshot-v1-16b-a3b"),
+                       (3, "qwen3-moe-235b-a22b")):
+        cfg2 = get_config(name).scaled(n_layers=2)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        model = api.init_params(torch.Generator(dev).manual_seed(seed), cfg2,
+                                device=dev)
+        weights = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        toks = tokens(cfg2, 400 + seed, 1, seq)
+        with torch.no_grad():
+            patch, rec = routing(torch, moe)
+            block = capture if name.startswith("moonshot") else real_block
+            with patch, mock.patch.object(moe, "moe_block", block):
+                out, aux = api.forward_logits(model, {"tokens": toks}, cfg2)
+            peak = torch.cuda.max_memory_allocated()
+            patch, pinned = routing(torch, moe, pin=rec["topi"].__getitem__)
+            with patch, mock.patch.object(layers, "flash_attention_fused",
+                                          flash_attention_ref):
+                want, want_aux = api.forward_logits(model, {"tokens": toks},
+                                                    cfg2)
+        log(f"phase 10 (a): {name}, 2 layers, 1 x {seq} tokens, "
+            f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+            f"float32 parameters: aux {aux.item()!r} through K5, "
+            f"{want_aux.item()!r} through the twin; {pinned['apart']} of "
+            f"{2 * seq} (token, layer) routings of the twin's own differ "
+            f"from K5's run (pinned to K5's; smallest k-th to (k+1)-th "
+            f"router probability gap {rec['gap']:.3e}); peak "
+            f"{peak / gib:.2f} GiB, {live / gib:.2f} GiB of it live before")
+        compare(f"{name} logits through K5 against the twin", out, want,
+                "bf16")
+        compare(f"{name} aux through K5 against the twin", aux.reshape(1),
+                want_aux.reshape(1), "bf16")
+        if name.startswith("moonshot"):
+            cfg_m = cfg2
+            layer_params = sum(p.numel() for p in model.layers[0].parameters())
+            outer_params = model.embedding.numel() + model.final_norm.numel()
+            activations = peak - live - weights
+            router, x0 = (t.clone() for t in captured.pop("layer 0"))
+            x0 = x0.reshape(seq, -1)
+        del model, out, want, aux, want_aux, rec, pinned, toks
+    torch.cuda.empty_cache()
+
+    # (b) The dispatch matrix D of moonshot's layer 0, (e·cap) × t, one 1.0
+    # a kept assignment, from the port's own slots, through LibraSpMM.
+    e, k, cd = cfg_m.n_experts, cfg_m.top_k, layers.dtype_of(
+        cfg_m, "compute_dtype")
+    with torch.no_grad():
+        _, topi, _ = moe.router_topk(x0.float() @ router, k)
+        cap = moe._capacity(cfg_m, seq, 4)
+        buf, slots = moe._local_dispatch(x0, topi, e, k, cap, cd)
+    s = slots.reshape(-1).cpu().numpy()
+    kept = s < e * cap
+    t = time.perf_counter()
+    d_mat = coo_to_csr(e * cap, seq, s[kept].astype(np.int32),
+                       np.repeat(np.arange(seq, dtype=np.int32), k)[kept],
+                       np.ones(int(kept.sum()), np.float32))
+    op = LibraSpMM(d_mat)
+    host_s = time.perf_counter() - t
+    xf = x0.float()
+    kernels.reset_launch_counts()
+    got = op(xf)
+    counts_b = kernels.launch_counts()
+    log(f"phase 10 (b): moonshot layer 0's dispatch matrix {d_mat.m} x "
+        f"{d_mat.k}, {d_mat.nnz} non-zeros ({int((~kept).sum())} of "
+        f"{seq * k} assignments dropped at capacity {cap}), NNZ-1 "
+        f"fraction {nnz1_fraction(d_mat):.4f}, tc_ratio {op.tc_ratio!r}; "
+        f"COO->CSR and LibraSpMM plan {host_s:.2f} s on the host; "
+        f"launches {counts_b} (K1 over {op.arrays.tc_len().numel()} "
+        "empty segment)")
+    if op.tc_ratio != 0.0:
+        fail(f"phase 10 (b): LibraSpMM puts {op.tc_ratio} of the dispatch "
+             "on the Tensor Cores")
+    # The apply launches both streams on every call, as the reference's
+    # does: with no Tensor Core work K1 runs over the plan's one empty
+    # segment, whose real-vector count is 0, so it reads nothing.
+    tc_vectors = int(op.arrays.tc_len().sum())
+    if tc_vectors != 0 or counts_b["spmm_mxu"] > 1 \
+            or counts_b["spmm_vpu"] < 1:
+        fail(f"phase 10 (b): the dispatch launched {counts_b} with "
+             f"{tc_vectors} real Tensor Core vectors")
+    compare("LibraSpMM(D)(x) against the sort-based dispatch buffer", got,
+            buf.reshape(e * cap, -1), "exact")
+    with torch.no_grad():
+        libra_ms = median_ms(lambda: op(xf))
+        sort_ms = median_ms(lambda: moe._local_dispatch(x0, topi, e, k, cap,
+                                                        cd))
+    log(f"phase 10 (b): dispatch of {seq} tokens x {x0.shape[1]} (a timing "
+        f"line, not the main path): LibraSpMM apply (fp32, K2 and its "
+        f"combine) {libra_ms:.4f} ms; sort-based dispatch (bf16) "
+        f"{sort_ms:.4f} ms")
+    del op, got, buf, slots, xf, x0, router, topi, d_mat
+
+    # (c) Full width at the largest depth that fits, fp32 weights.
+    cfg = get_config("moonshot-v1-16b-a3b")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    margin = 0.05 * total
+    room = free - margin - activations - 4 * outer_params
+    depth = min(cfg.n_layers, max(2, int(room // (4 * layer_params))))
+    log(f"phase 10 (c): depth {depth}: free {free / 1e9:.2f} GB of "
+        f"{total / 1e9:.2f}, less a {margin / 1e9:.2f} GB margin, less (a)'s "
+        f"peak above its weights {activations / 1e9:.2f} GB, less 4 B x "
+        f"{outer_params / 1e6:.1f} M embedding and final-norm parameters "
+        f"({4 * outer_params / 1e9:.2f} GB), leaves {room / 1e9:.2f} GB = "
+        f"{room / (4 * layer_params):.2f} layers of 4 B x "
+        f"{layer_params / 1e6:.1f} M ({4 * layer_params / 1e9:.3f} GB); the "
+        f"{cfg.n_layers} layers would take "
+        f"{4 * (outer_params + cfg.n_layers * layer_params) / 1e9:.1f} GB "
+        "of weights alone")
+    cfgd = cfg.scaled(n_layers=depth)
+    t = time.perf_counter()
+    model = api.init_params(torch.Generator(dev).manual_seed(0), cfgd,
+                            device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 10 (c): moonshot-v1-16b-a3b, {depth} layers, "
+        f"{n_params / 1e9:.3f} B float32 parameters drawn on the card in "
+        f"{time.perf_counter() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB allocated")
+    requests = [tokens(cfgd, 500 + i, 1, seq) for i in range(3)]
+    latency, auxes, k5_by_step = [], [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        for i, toks in enumerate(requests):
+            before = kernels.launch_counts()["flash_attention"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, aux = api.forward_logits(model, {"tokens": toks}, cfgd)
+            torch.cuda.synchronize()
+            latency.append((time.perf_counter() - t) * 1e3)
+            k5_by_step[f"request {i}"] = (
+                kernels.launch_counts()["flash_attention"] - before)
+            if (tuple(logits.shape) != (1, seq, cfgd.vocab)
+                    or logits.dtype != torch.float32):
+                fail(f"phase 10 (c): logits {tuple(logits.shape)} "
+                     f"{logits.dtype}")
+            # NaN propagates through amax/amin; no logits-sized temporary
+            # (isfinite allocates one beside its fp32 abs).
+            if not bool(torch.isfinite(torch.stack(
+                    [logits.amax(), logits.amin()])).all()):
+                fail(f"phase 10 (c): request {i}: non-finite logits")
+            auxes.append(aux.item())
+            del logits
+        peak = torch.cuda.max_memory_allocated()
+        before = kernels.launch_counts()["flash_attention"]
+        gen_toks, gen_s = generate(cfgd, 4, 16, 16, params=model, device=dev)
+        k5_by_step["generate"] = (
+            kernels.launch_counts()["flash_attention"] - before)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"phase 10 (main path) launches: {counts}; K5 by step: "
+        f"{k5_by_step}")
+    for i in range(3):
+        if k5_by_step[f"request {i}"] != depth:
+            fail(f"phase 10 (c): K5 launched {k5_by_step[f'request {i}']} "
+                 f"times in scoring request {i}, not {depth}")
+    if not all(0.9 < a < 4.0 for a in auxes):
+        fail(f"phase 10 (c): aux {auxes} outside (0.9, 4.0)")
+    log("phase 10 (c): scoring request latency ms (1 x 8192 tokens, first "
+        f"apart): first {latency[0]:.2f}; then "
+        + ", ".join(f"{v:.2f}" for v in latency[1:])
+        + "; tokens/s " + ", ".join(f"{seq / v * 1e3:.0f}" for v in latency)
+        + f"; aux {auxes}; peak device memory {peak / gib:.2f} GiB")
+    if gen_toks.shape != (4, 16) or gen_toks.min() < 0 \
+            or gen_toks.max() >= cfgd.vocab:
+        fail(f"phase 10 (c): generate returned {gen_toks.shape} tokens out "
+             "of range")
+    log(f"phase 10 (c): generate(batch=4, prompt_len=16, gen=16): "
+        f"{gen_s * 1e3:.1f} ms for 31 decode steps, "
+        f"{gen_toks.size / gen_s:.1f} tok/s; sample "
+        f"{gen_toks[0][:8].tolist()}")
+
+    log("profile: one steady moonshot scoring request (torch.profiler)")
+    profile_moe_request(torch, log, f"moonshot-v1-16b-a3b ({depth} layers) "
+                        "scoring request",
+                        lambda: api.forward_logits(
+                            model, {"tokens": requests[0]}, cfgd), model)
+
+    # Decode-step logits at the last prompt position against the
+    # forward logits of the same prompt (generate's, seed 0), where the
+    # capacity reaches the tokens of either call (cap = t) and nothing
+    # drops; each decode step's routing is pinned to the forward's at its
+    # position.
+    nodrop = cfgd.scaled(capacity_factor=cfgd.n_experts / cfgd.top_k)
+    b, plen = 4, 16
+    if any(moe._capacity(nodrop, n, 4) != n for n in (b, b * plen)):
+        fail("phase 10 (c): the capacity does not reach the tokens")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfgd.vocab, (b, plen)).astype(np.int32)).to(dev)
+    model.cfg = nodrop
+    with torch.no_grad():
+        patch, fwd_rec = routing(torch, moe)
+        with patch:
+            fwd, _ = api.forward_logits(model, {"tokens": prompt}, nodrop)
+        cache = api.init_cache(nodrop, b, plen, dtype=torch.float32,
+                               device=dev)
+        patch, dec = routing(torch, moe, pin=lambda i: fwd_rec["topi"][
+            i % depth][:, i // depth:i // depth + 1])
+        with patch:
+            for t in range(plen):
+                lg, cache = api.decode_step(model, cache,
+                                            prompt[:, t:t + 1], t + 1, nodrop)
+    model.cfg = cfgd
+    log(f"phase 10 (c): decode against forward at the last prompt position "
+        f"(capacity_factor {nodrop.capacity_factor:.4f}: cap = t); "
+        f"{dec['apart']} of {b * plen * depth} (token, layer) routings of "
+        f"the decode's own differ from the forward's (pinned to the "
+        f"forward's; smallest gap {min(fwd_rec['gap'], dec['gap']):.3e})")
+    compare("decode-step logits against forward_logits", lg[:, 0],
+            fwd[:, -1], "decode")
+    del model, cache, fwd, lg, requests
+    torch.cuda.empty_cache()
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s; main path (c) "
+        f"launches {counts}")
+    return counts
+
+
+#: Kernel-name fragments of cuBLAS/CUTLASS products.
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
+
+
+#: ``profile_moe_request``'s labels: (module, function) → label.
+MOE_LABELS = {("moe", "router_topk"): "router",
+              ("moe", "_local_dispatch"): "dispatch/combine",
+              ("moe", "_local_combine"): "dispatch/combine",
+              ("moe", "_experts"): "experts",
+              ("layers", "mlp_block"): "experts",
+              ("layers", "unembed"): "unembed",
+              ("moe", "moe_block"): "moe block"}
+
+
+def classify_moe(e, kernel: str, shapes) -> str:
+    """The group of a kernel named ``kernel`` that the profiler's CPU
+    operator event ``e`` launched, from ``e`` and its ancestors: a copy
+    under an ``aten::_to_copy`` of a tensor of a parameter's shape (one of
+    ``shapes``) is a weight cast; else the innermost
+    :data:`MOE_LABELS` range decides (see :func:`profile_moe_request`)."""
+    gemm = any(w in kernel.lower() for w in GEMM_NAMES)
+    names = set(MOE_LABELS.values())
+    label = None
+    while e is not None:
+        if e.name == "aten::_to_copy" and label is None:
+            ins = getattr(e, "input_shapes", None) or [[]]
+            if tuple(ins[0]) in shapes:
+                return "weight casts (fp32 -> bf16 per use)"
+        if e.name in names and label is None:
+            label = e.name
+        e = e.cpu_parent
+    if label == "experts":
+        return ("expert products (bmm, shared expert)" if gemm
+                else "experts' elementwise (silu, product)")
+    if label == "moe block":
+        return "router" if gemm else "rest (norms, rope, residuals)"
+    if label is None:
+        return ("attention products (q, k, v, o)" if gemm
+                else "rest (norms, rope, residuals)")
+    return label
+
+
+def profile_moe_request(torch, log, name, run, model):
+    """Run ``run()`` (one MoE scoring request) twice under
+    ``torch.profiler``, the first as a warm-up, and print the second's
+    device busy time, idle share and device time by group, from the
+    operator that launched each kernel:
+
+    - K5: device events named ``flash_attention``;
+    - weight casts: copies under an ``aten::_to_copy`` whose input has a
+      parameter's shape (the per-use fp32 → bf16 casts);
+    - expert products and the experts' elementwise work: under
+      ``moe._experts`` and the shared expert's ``layers.mlp_block``;
+    - router: ``moe.router_topk`` and the products made directly in
+      ``moe.moe_block`` (its ``x @ router``);
+    - dispatch/combine: ``moe._local_dispatch`` and ``moe._local_combine``
+      (the sort, searchsorted, gathers and scatters);
+    - unembed: ``layers.unembed``;
+    - attention products: the other GEMMs (q, k, v, o);
+    - rest: the other kernels, and device time no operator claimed."""
+    import contextlib
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+
+    from repro_torch.models import layers, moe
+
+    modules = {"moe": moe, "layers": layers}
+    shapes = {tuple(p.shape) for p in model.parameters()}
+
+    def labelled(label, fn):
+        def wrapped(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for (mod, attr), label in MOE_LABELS.items():
+            mod = modules[mod]
+            stack.enter_context(mock.patch.object(
+                mod, attr, labelled(label, getattr(mod, attr))))
+        with torch.no_grad(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                record_shapes=True,
+                schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")
+              and not getattr(e, "is_user_annotation", False)]
+    if not device:
+        log(f"  {name}: wall {wall_ms:.1f} ms (profiled); the profiler "
+            "recorded no device time")
+        return
+    busy_us, span_us = busy_and_span(sorted(
+        (e.time_range.start, e.time_range.end) for e in device))
+    groups: dict[str, list] = {"K5 flash_attention": [0.0, 0]}
+    for e in device:
+        if "flash_attention_kernel" in e.name:
+            g = groups["K5 flash_attention"]
+            g[0] += e.time_range.end - e.time_range.start
+            g[1] += 1
+    stalls = 0
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        if e.name in CUPTI_OVERHEAD:
+            stalls += 1
+            continue
+        for kern in e.kernels:
+            if "flash_attention_kernel" in kern.name:
+                continue
+            g = groups.setdefault(classify_moe(e, kern.name, shapes),
+                                  [0.0, 0])
+            g[0] += kern.duration
+            g[1] += 1
+    device_us = sum(e.time_range.end - e.time_range.start for e in device)
+    claimed = sum(g[0] for g in groups.values())
+    rest = groups.setdefault("rest (norms, rope, residuals)", [0.0, 0])
+    rest[0] += max(0.0, device_us - claimed)
+    log(f"  {name} (one profiled request): wall {wall_ms:.1f} ms, device "
+        f"span {span_us / 1e3:.1f} ms, busy {busy_us / 1e3:.1f} ms; idle "
+        f"share of span {1 - busy_us / span_us:.3f}, of wall "
+        f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}; {len(device)} "
+        f"kernels, {device_us / 1e3:.1f} ms of kernel time "
+        f"({claimed / 1e3:.1f} ms claimed by an operator; {stalls} "
+        "launches stalled on a full queue)")
+    for group, (us, count) in sorted(groups.items(),
+                                     key=lambda kv: -kv[1][0]):
+        log(f"    {group}: {us / 1e3:.1f} ms over {count} launches "
+            f"({us / device_us:.3f} of kernel time)")
 
 
 # Thresholds of the paper's Fig. 11 sweeps (the reference's own:

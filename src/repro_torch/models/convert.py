@@ -2,8 +2,8 @@
 
 The reference keeps a GNN's parameters as a list of per-layer dicts:
 ``[{"w": (d_in, d_out)}, ...]`` for GCN, plus ``"beta": ()`` per layer
-for AGNN; a dense transformer's as one tree whose ``layers`` leaves are
-stacked over a leading ``n_layers`` axis. These functions take such
+for AGNN; a dense or MoE transformer's as one tree whose ``layers``
+leaves are stacked over a leading ``n_layers`` axis. These functions take such
 trees as NumPy arrays (convert ``jax.Array`` leaves with ``np.asarray``
 first) and return the port's modules holding the same values, so both
 packages compute the same function. Like every entry point of the port
@@ -17,6 +17,7 @@ import torch
 from repro_torch.api import checked_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.gnn import AGNN, GCN
+from repro_torch.models.moe import MoETransformer
 from repro_torch.models.transformer import Transformer
 
 
@@ -46,6 +47,34 @@ def agnn_params_from_jax(params, device="cuda") -> AGNN:
     return _load_weights(model, params, device)
 
 
+def _put(dst, src):
+    dst.copy_(torch.from_numpy(np.array(src)))
+
+
+def _load_stacked(model, params, groups):
+    """Copy a stacked reference tree into ``model`` (a module with
+    ``embedding``, ``layers`` and ``final_norm``); ``groups`` names each
+    layer's ``ParameterDict``s, whose nested dicts nest in the tree too."""
+    stacked = params["layers"]
+
+    def put_dict(pd, tree, i):
+        for name, t in pd.items():
+            if isinstance(t, torch.nn.ParameterDict):
+                put_dict(t, tree[name], i)
+            else:
+                _put(t, tree[name][i])
+
+    with torch.no_grad():
+        _put(model.embedding, params["embed"]["embedding"])
+        _put(model.final_norm, params["final_norm"]["scale"])
+        for i, lp in enumerate(model.layers):
+            _put(lp.attn_norm, stacked["attn_norm"]["scale"][i])
+            _put(lp.mlp_norm, stacked["mlp_norm"]["scale"][i])
+            for group in groups:
+                put_dict(getattr(lp, group), stacked[group], i)
+    return model
+
+
 def transformer_params_from_jax(params, cfg: ArchConfig,
                                 device="cuda") -> Transformer:
     """A :class:`Transformer` holding the reference's dense parameters.
@@ -56,18 +85,17 @@ def transformer_params_from_jax(params, cfg: ArchConfig,
     every ``layers`` leaf stacked over ``n_layers``.
     """
     model = Transformer(cfg, device=checked_device(device, "convert"))
-    stacked = params["layers"]
+    return _load_stacked(model, params, ("attn", "mlp"))
 
-    def put(dst, src):
-        dst.copy_(torch.from_numpy(np.array(src)))
 
-    with torch.no_grad():
-        put(model.embedding, params["embed"]["embedding"])
-        put(model.final_norm, params["final_norm"]["scale"])
-        for i, lp in enumerate(model.layers):
-            put(lp.attn_norm, stacked["attn_norm"]["scale"][i])
-            put(lp.mlp_norm, stacked["mlp_norm"]["scale"][i])
-            for group in ("attn", "mlp"):
-                for name, t in getattr(lp, group).items():
-                    put(t, stacked[group][name][i])
-    return model
+def moe_params_from_jax(params, cfg: ArchConfig,
+                        device="cuda") -> MoETransformer:
+    """A :class:`MoETransformer` holding the reference's MoE parameters.
+
+    ``params`` is the dense tree with ``"moe": {"router", "wi_gate",
+    "wi_up", "wo"}`` (and ``"shared": {"wi_gate", "wi_up", "wo"}`` with
+    shared experts) in place of ``"mlp"``, every ``layers`` leaf stacked
+    over ``n_layers``.
+    """
+    model = MoETransformer(cfg, device=checked_device(device, "convert"))
+    return _load_stacked(model, params, ("attn", "moe"))

@@ -1,5 +1,6 @@
 """Kernels on the card against their plain twins: K5 and the dense path
-(scoring, and training through K5's autograd Function),
+(scoring, and training through K5's autograd Function), the MoE family
+(scoring through K5, and its dispatch matrix through ``LibraSpMM``),
 the two CUDA-core streams K2 (``spmm_vpu``) and K4 (``sddmm_vpu``), the
 two Tensor Core streams K1 (``spmm_mxu``) and K3 (``sddmm_mxu``), and
 GNN training through all four (``GraphOps`` forward and backward, with
@@ -302,6 +303,89 @@ def test_dense_forward_through_k5_matches_twin(card):
             want, _ = api.forward_logits(model, {"tokens": tokens}, cfg)
         assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
     _close(out, want)
+
+
+# ------------------------------------------------------------------ MoE
+def _routing(pin=None):
+    """Patch ``moe.router_topk`` to record each call's expert choice; with
+    ``pin`` (an earlier run's record) each call chooses as that run did,
+    its weights renormalised over this run's probabilities: a near-tie
+    that rounding flips moves a token by O(1), not by rounding. As
+    ``chip_smoke.routing``."""
+    from repro_torch.models import moe
+
+    real = moe.router_topk
+    rec = {"topi": []}
+
+    def route(logits, k):
+        topv, topi, aux = real(logits, k)
+        if pin is not None:
+            topi = pin[len(rec["topi"])]
+            picked = torch.softmax(logits.float(), dim=-1).gather(-1, topi)
+            topv = picked / torch.clamp(picked.sum(-1, keepdim=True),
+                                        min=1e-9)
+        rec["topi"].append(topi)
+        return topv, topi, aux
+
+    return mock.patch.object(moe, "router_topk", route), rec
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_forward_through_k5_matches_twin(card, arch):
+    """A two-layer MoE at head dim 64 (moonshot's with a shared expert,
+    qwen3-moe's GQA): logits and aux through K5 against the same model
+    with the plain twin, the twin's routing pinned to K5's, and one K5
+    launch per layer."""
+    cfg = get_smoke_config(arch).scaled(d_head=64)
+    model = api.init_params(torch.Generator(card).manual_seed(0), cfg,
+                            device=card)
+    tokens = torch.randint(0, cfg.vocab, (2, 100), device=card,
+                           generator=torch.Generator(card).manual_seed(1))
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        patch, rec = _routing()
+        with patch:
+            out, aux = api.forward_logits(model, {"tokens": tokens}, cfg)
+        assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+        patch, _ = _routing(pin=rec["topi"])
+        with patch, mock.patch.object(layers, "flash_attention_fused",
+                                      fa.flash_attention_ref):
+            want, want_aux = api.forward_logits(model, {"tokens": tokens},
+                                                cfg)
+        assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+    _close(out, want)
+    assert abs(aux.item() - want_aux.item()) <= REL * want_aux.item()
+
+
+@pytest.mark.parametrize("t,e,k", [(512, 8, 2), (4096, 64, 6)])
+def test_moe_dispatch_through_libra_on_the_card(card, t, e, k):
+    """The dispatch matrix of the sort-based dispatch, (e·cap) × t with
+    one 1.0 a kept assignment, through ``LibraSpMM`` on the card: the
+    buffer bit for bit and nothing on the Tensor Cores: K2 carries it, and
+    K1, which the apply launches on every call, runs over the plan's one
+    empty segment (0 real vectors)."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(card).manual_seed(3)
+    x = torch.randn(t, 64, generator=gen, device=card)
+    logits = torch.randn(t, e, generator=gen, device=card)
+    _, topi, _ = moe.router_topk(logits, k)
+    cap = max(4, min(int(1.25 * t * k / e), t))
+    buf, slots = moe._local_dispatch(x, topi, e, k, cap, torch.float32)
+    s = slots.reshape(-1).cpu().numpy()
+    kept = s < e * cap
+    d = coo_to_csr(e * cap, t, s[kept].astype(np.int32),
+                   np.repeat(np.arange(t, dtype=np.int32), k)[kept],
+                   np.ones(int(kept.sum()), np.float32))
+    op = LibraSpMM(d)
+    assert op.tc_ratio == 0.0
+    kernels.reset_launch_counts()
+    out = op(x)
+    counts = kernels.launch_counts()
+    assert int(op.arrays.tc_len().sum()) == 0
+    assert counts["spmm_mxu"] <= 1 and counts["spmm_vpu"] >= 1
+    assert torch.equal(out, buf.reshape(e * cap, -1))
 
 
 # --------------------------------------------------------------- K2, K4

@@ -458,7 +458,8 @@ def test_flops_equal_reference(arch):
 
 
 # --------------------------------------------------------- input specs --
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ("moonshot-v1-16b-a3b",
+                                          "qwen3-moe-235b-a22b"))
 def test_input_specs_match_reference(arch):
     cfg, jcfg = get_config(arch), j_config(arch)
 
