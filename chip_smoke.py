@@ -24,7 +24,11 @@ Phases:
    global and local layer shapes (8192 tokens, 16/8 heads, head dim 256,
    softcap 50), a ragged length, D=128 GQA 32/8, MQA 48/1, moonshot's
    MHA 16/16 and qwen3-moe's GQA 64/4 at D=128 and 8192 tokens, fp16, a
-   query offset and scores near the softcap's saturation.
+   query offset, scores near the softcap's saturation, and phase 11's
+   shapes: zamba2's D=112 layer (32/32 heads, window 4096, 8192 tokens;
+   fp16 with softcap 50 at 2048), whisper's non-causal encoder (8 x 1500
+   x 1500) and cross attention (8 x 448 x 1500) at D=64, and qwen2-vl's
+   GQA 28/4 D=128 layer.
 2. Operators at full size on ``mixed_csr(16384, 16384, seed=3)``:
    ``LibraSpMM`` at n=256 and ``LibraSDDMM`` at kf=128, with the configs
    that put about 90% (SpMM) and all (SDDMM) non-zeros on Tensor Cores.
@@ -163,13 +167,33 @@ Phases:
     drops), each step's routing pinned to the forward's; (d) K5 at
     moonshot's layer (1 × 8192, 16/16 heads, D = 128) beside its twin and
     SDPA, timed in the timing section.
+11. The SSM, hybrid, audio and VLM families (``models/mamba2.py``,
+    ``models/hybrid.py``, ``models/whisper.py``, the VLM frontend of
+    ``models/transformer.py``) at full width: (a) mamba2-130m,
+    zamba2-7b (one group of six Mamba2 layers and the shared block),
+    whisper-tiny (two encoder and two decoder layers) and qwen2-vl-7b
+    cut to two layers, on 1 × 8192 tokens (whisper 8 × 448 decoder
+    tokens over 8 × 1500 frames; qwen2-vl with 1024 seeded patch
+    embeddings): logits through K5 against the twin, and K5's launches;
+    (b) K5 at zamba2's D = 112 layer, whisper's encoder and cross
+    shapes and qwen2-vl's layer beside its twin, SDPA and its bound, in
+    the timing section; (c) each model at its published depth unless
+    free memory forces a cut (the arithmetic is printed), float32
+    weights drawn on the card: three scoring requests (ms, tokens/s,
+    peak memory, K5 launches a request: 0, 13, 12 and 28), one more
+    under ``torch.profiler`` by group (K5, dense products, the SSD's
+    einsums and recurrence, conv, weight casts, unembed, rest) with the
+    idle share, ``generate(batch=4, prompt_len=16, gen=16)``; (d)
+    decode-step logits at the last prompt position against
+    ``forward_logits`` within 5e-2·max|ref|.
 
 Phases 2 and 3 are the GNN inference path, phase 5's steps the GNN
 training path, phase 6's tuned operators the tuned path, phase 7's served
 flushes the serving path, phase 8's sharded applies, requests, steps and
 flushes the sharded path, phase 9 (b)'s loop the dense training path,
-phase 10 (c)'s requests and ``generate`` the MoE path, and phase 4's (a)
-and (c) the dense main path:
+phase 10 (c)'s requests and ``generate`` the MoE path, phase 11 (c)'s
+requests and ``generate`` the SSM/hybrid/audio/VLM path, and phase 4's
+(a) and (c) the dense main path:
 every kernel's launch counter is set to 0 just before each path and read
 just after it; within phase 6, the counts
 of each part are read as it ends, and those of the Fig. 11 sweep and of
@@ -181,7 +205,9 @@ K1 and K3 on the
 reordered A and SDDMM(A) (whose tables must hold real vectors and
 columns), K5 exactly 42 times (once
 per layer) per scoring request on the dense path, once per layer per
-scoring request on the MoE path, and 2 × depth ×
+scoring request on the MoE path, 0, 13, 12 and 28 times per scoring
+request of mamba2-130m, zamba2-7b, whisper-tiny and qwen2-vl-7b, and
+2 × depth ×
 microbatches times a step on the training path; K1–K4's launches are
 also split by matrix, plan leg and width from the per-step counts. GNN
 outputs are checked against the port's plain ``backend="torch"`` path on
@@ -680,6 +706,22 @@ def main(argv=None) -> int:
         "gemma2 near-saturation softcap (Q x 50) S=2048": (
             1, 2048, 2048, 16, 8, 256, torch.bfloat16,
             dict(causal=True, softcap=50.0, q_scale=50.0)),
+        # Phase 11's shapes: zamba2's shared attention at head dim 112
+        # (the 128-column pitch inside the kernel), whisper's non-causal
+        # encoder and cross attention (1500 = 23 x 64 + 28 keys), and
+        # qwen2-vl's GQA 28/4 layer.
+        "zamba2 D=112 S=8192 window 4096": (
+            1, 8192, 8192, 32, 32, 112, torch.bfloat16,
+            dict(causal=True, window=4096)),
+        "zamba2 D=112 fp16 S=2048 softcap 50": (
+            1, 2048, 2048, 32, 32, 112, torch.float16,
+            dict(causal=True, softcap=50.0)),
+        "whisper encoder 8x1500x1500 D=64": (
+            8, 1500, 1500, 6, 6, 64, torch.bfloat16, dict(causal=False)),
+        "whisper cross 8x448x1500 D=64": (
+            8, 448, 1500, 6, 6, 64, torch.bfloat16, dict(causal=False)),
+        "qwen2-vl GQA 28/4 D=128 S=8192": (
+            1, 8192, 8192, 28, 4, 128, torch.bfloat16, dict(causal=True)),
     }
     for i, (label, (b, sq, sk, h, kv, d, dtype, kw)) in enumerate(
             flash_cases.items()):
@@ -989,6 +1031,10 @@ def main(argv=None) -> int:
     moe_counts = moe_phase(torch, np, dev, log, fail, compare, kernels,
                            get_config, median_ms)
 
+    # ------------------------------------------------ phase 11: families
+    family_counts = families_phase(torch, np, dev, log, fail, compare,
+                                   kernels, get_config)
+
     # ------------------------------------------------ timing and bounds
     def rows_read(*ids):
         """Distinct rows that the index tensors ``ids`` name together: the
@@ -1031,7 +1077,8 @@ def main(argv=None) -> int:
         f"{serving_counts}, sharded {sharded_counts}; K5: dense "
         f"{dense_counts['flash_attention']}, dense training "
         f"{training_counts['flash_attention']}, MoE "
-        f"{moe_counts['flash_attention']}")
+        f"{moe_counts['flash_attention']}, SSM/hybrid/audio/VLM "
+        f"{family_counts['flash_attention']}")
 
     def record(name, label, ms, plain_ms, library_ms, nb, ops):
         """Log one kernel's times and bound; at the kernel's shape in
@@ -1050,7 +1097,8 @@ def main(argv=None) -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
             "launches": (dense_counts[name] + training_counts[name]
-                         + moe_counts[name] if name == "flash_attention"
+                         + moe_counts[name] + family_counts[name]
+                         if name == "flash_attention"
                          else gnn_counts[name]),
             "max_abs_err": twin_err[(name, label)], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1321,6 +1369,40 @@ def main(argv=None) -> int:
             f"({pairs / (b * h) / 1e6:.2f} M pairs per head, "
             f"{4 * d * pairs / ms / 1e9:.1f} TFLOP/s)")
         del q, k, v, out
+    # Phase 11 (b): K5 at the shapes the SSM/hybrid/audio/VLM families
+    # give it, each beside its twin and SDPA. SDPA has no sliding window
+    # without a materialised mask, so zamba2's SDPA time is of the full
+    # causal attention: not the same function, a yardstick only.
+    for label, shape, kw in (
+            ("zamba2 D=112 S=8192 window 4096", (1, 8192, 8192, 32, 32, 112),
+             dict(causal=True, window=4096)),
+            ("whisper encoder 8x1500x1500 D=64", (8, 1500, 1500, 6, 6, 64),
+             dict(causal=False)),
+            ("whisper cross 8x448x1500 D=64", (8, 448, 1500, 6, 6, 64),
+             dict(causal=False)),
+            ("qwen2-vl GQA 28/4 D=128 S=8192", (1, 8192, 8192, 28, 4, 128),
+             dict(causal=True))):
+        b, sq, sk, h, kv, d = shape
+        q, k, v = qkv(72, *shape, torch.bfloat16)
+        out = kernels.flash_attention_fused(q, k, v, **kw)
+        ms = median_ms(lambda: kernels.flash_attention_fused(q, k, v, **kw))
+        plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                             reps=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = median_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=kw["causal"], enable_gqa=True))
+        del qt, kt, vt
+        pairs = k5_pairs(b, sq, sk, h, **kw)
+        bound_ms, bound_by = bound(nbytes(q, k, v, out), 4 * d * pairs,
+                                   "bf16")
+        log(f"  flash_attention [{label}] (phase 11 (b)): {ms:.4f} ms, "
+            f"plain twin {plain_ms:.4f} ms, library (SDPA"
+            + (", no window" if kw.get("window") else "")
+            + f") {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({pairs / (b * h) / 1e6:.2f} M pairs per head, "
+            f"{4 * d * pairs / ms / 1e9:.1f} TFLOP/s)")
+        del q, k, v, out
 
     # ------------------------------------------------ profile: one request
     # Device time by kernel for one steady request of each model. This is
@@ -1360,8 +1442,9 @@ def main(argv=None) -> int:
 def kernel_ptxas(build_log: str) -> dict[str, str]:
     """Registers, spills and shared memory of each K1–K5 instance, from
     the ``ptxas -v`` report. K1's, K3's and K5's shared memory is
-    dynamic, so ptxas reports none: K5 takes (128 + 4 · 64) · D · 2 bytes
-    plus 1 KB of alignment slack, as ``launch`` in
+    dynamic, so ptxas reports none: K5 takes (128 + 4 · 64) · Dp · 2
+    bytes (Dp the row pitch, D rounded up to a multiple of 64) plus 1 KB
+    of alignment slack, as ``launch`` in
     ``csrc/flash_attention.cu`` requests; K1 two stages of 32 B rows at a
     pitch of nt + 4 and 8 value rows of 40 (nt = 128 columns at n >= 128);
     K3 two stages a warp of a chunk's Y rows (32, or 16 at kF = 128) and
@@ -1396,7 +1479,8 @@ def _instance(entry: str):
     if k5:
         d = int(k5.group(2))
         dtype = "bf16" if "bfloat16" in k5.group(1) else "fp16"
-        return f"K5 <{dtype}, D={d}>", (128 + 4 * 64) * d * 2 + 1024
+        pitch = (d + 63) // 64 * 64
+        return f"K5 <{dtype}, D={d}>", (128 + 4 * 64) * pitch * 2 + 1024
     vpu = re.search(r"(spmm|sddmm)_vpu_kernelILi(\d+)E", entry)
     if vpu:
         kind = "float4" if vpu.group(2) == "4" else "scalar"
@@ -2461,6 +2545,231 @@ def moe_phase(torch, np, dev, log, fail, compare, kernels, get_config,
     return counts
 
 
+#: Phase 11's families: arch → (scoring batch, tokens a row, (a)'s cut
+#: to two layers at full width). whisper scores 448 decoder tokens, its
+#: published text context (arXiv:2212.04356), over 1500 frames; zamba2's
+#: two layers are one group of six and the shared block, its smallest
+#: cut that keeps an attention.
+FAMILIES = {
+    "mamba2-130m": (1, 8192, dict(n_layers=2)),
+    "zamba2-7b": (1, 8192, dict(n_layers=6)),
+    "whisper-tiny": (8, 448, dict(n_layers=2, n_enc_layers=2)),
+    "qwen2-vl-7b": (1, 8192, dict(n_layers=2)),
+}
+
+
+def k5_per_request(cfg) -> int:
+    """K5 launches of one scoring request of ``cfg``: none in Mamba2, one
+    a shared-attention application in the hybrid, whisper's encoder
+    layers and two a decoder layer (self and cross), one a layer
+    otherwise."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    if cfg.family == "audio":
+        return (cfg.n_enc_layers or cfg.n_layers) + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def family_batch(torch, dev, cfg, seed, b, s):
+    """A seeded scoring batch: tokens, and whisper's frame embeddings or
+    qwen2-vl's ``n_patches`` patch embeddings."""
+    g = torch.Generator(dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                     device=dev)}
+    if cfg.family == "audio":
+        batch["frame_embeds"] = torch.randn(
+            (b, cfg.n_audio_ctx, cfg.d_model), generator=g, device=dev)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (b, cfg.n_patches, cfg.d_model), generator=g, device=dev)
+    return batch
+
+
+def families_phase(torch, np, dev, log, fail, compare, kernels, get_config):
+    """Phase 11: the SSM, hybrid, audio and VLM families' serving path,
+    each at full width.
+
+    (a) each family cut to two layers (:data:`FAMILIES`): logits through
+    K5 against the same model through the twin, and K5's launches; (c)
+    each at its published depth unless free memory forces a cut (the
+    arithmetic is printed): three scoring requests (ms, tokens/s, peak
+    memory, K5 launches a request: 0, 13, 12 and 28), one more profiled
+    by group with its idle share, ``generate(4, 16, 16)``; (d) decode-step
+    logits at the last prompt position against ``forward_logits`` of the
+    same prompt (whisper over zero frames, as ``generate`` encodes).
+    K5 at these families' shapes is timed in the timing section ((b)).
+
+    Returns the launch counts of the families' main path ((c)'s requests
+    and ``generate``, all four families)."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import api, layers
+
+    t_phase = time.perf_counter()
+    gib = 2**30
+
+    def meta_params(cfg) -> int:
+        return sum(p.numel() for p in api.init_params(
+            None, cfg, device="meta").parameters())
+
+    activations = {}
+    for seed, (name, (b, s, cut)) in enumerate(FAMILIES.items()):
+        cfg2 = get_config(name).scaled(**cut)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        model = api.init_params(torch.Generator(dev).manual_seed(seed),
+                                cfg2, device=dev)
+        weights = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        batch = family_batch(torch, dev, cfg2, 600 + seed, b, s)
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            out, _ = api.forward_logits(model, batch, cfg2)
+            k5 = kernels.launch_counts()["flash_attention"]
+            peak = torch.cuda.max_memory_allocated()
+            with mock.patch.object(layers, "flash_attention_fused",
+                                   flash_attention_ref):
+                want, _ = api.forward_logits(model, batch, cfg2)
+        activations[name] = peak - live - weights
+        log(f"phase 11 (a): {name}, {cfg2.n_layers} layers at full width, "
+            f"{b} x {s} tokens, {weights / 4e9:.3f} B float32 parameters: "
+            f"{k5} K5 launches; peak {peak / gib:.2f} GiB, "
+            f"{activations[name] / 1e9:.2f} GB of it above the weights")
+        if k5 != k5_per_request(cfg2):
+            fail(f"phase 11 (a): {name}: K5 launched {k5} times, not "
+                 f"{k5_per_request(cfg2)}")
+        compare(f"{name} logits through K5 against the twin", out, want,
+                "bf16")
+        del model, out, want, batch
+
+    counts = {}
+    kernels.reset_launch_counts()
+    for seed, (name, (b, s, _)) in enumerate(FAMILIES.items()):
+        t_family = time.perf_counter()
+        cfg = get_config(name)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        margin = 0.05 * total
+        room = free - margin - activations[name]
+        n_params = meta_params(cfg)
+        depth = cfg.n_layers
+        while depth > 1 and 4 * meta_params(cfg.scaled(n_layers=depth)) \
+                > room:
+            depth -= 1
+        log(f"phase 11 (c): {name}: {n_params / 1e9:.3f} B parameters at "
+            f"{cfg.n_layers} layers, {4 * n_params / 1e9:.2f} GB in float32; "
+            f"free {free / 1e9:.2f} GB of {total / 1e9:.2f}, less a "
+            f"{margin / 1e9:.2f} GB margin, less (a)'s activations "
+            f"{activations[name] / 1e9:.2f} GB, leaves {room / 1e9:.2f} GB: "
+            f"depth {depth} of {cfg.n_layers}"
+            + ("" if depth == cfg.n_layers else " (cut to fit)"))
+        cfgd = cfg.scaled(n_layers=depth)
+        t = time.perf_counter()
+        model = api.init_params(torch.Generator(dev).manual_seed(0), cfgd,
+                                device=dev)
+        torch.cuda.synchronize()
+        log(f"phase 11 (c): {name}: weights drawn on the card in "
+            f"{time.perf_counter() - t:.1f} s; "
+            f"{torch.cuda.memory_allocated() / gib:.2f} GiB allocated")
+        requests = [family_batch(torch, dev, cfgd, 700 + 10 * seed + i, b, s)
+                    for i in range(3)]
+        latency, k5_by_step = [], {}
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            for i, batch in enumerate(requests):
+                k5_0 = kernels.launch_counts()["flash_attention"]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, _ = api.forward_logits(model, batch, cfgd)
+                torch.cuda.synchronize()
+                latency.append((time.perf_counter() - t) * 1e3)
+                k5_by_step[f"request {i}"] = (
+                    kernels.launch_counts()["flash_attention"] - k5_0)
+                if (tuple(logits.shape) != (b, s, cfgd.vocab)
+                        or logits.dtype != torch.float32):
+                    fail(f"phase 11 (c): {name}: logits "
+                         f"{tuple(logits.shape)} {logits.dtype}")
+                if not bool(torch.isfinite(torch.stack(
+                        [logits.amax(), logits.amin()])).all()):
+                    fail(f"phase 11 (c): {name}: request {i}: non-finite "
+                         "logits")
+                del logits
+            peak = torch.cuda.max_memory_allocated()
+            k5_0 = kernels.launch_counts()["flash_attention"]
+            gen_toks, gen_s = generate(cfgd, 4, 16, 16, params=model,
+                                       device=dev)
+            k5_by_step["generate"] = (
+                kernels.launch_counts()["flash_attention"] - k5_0)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        counts[name] = {k: after[k] - before[k] for k in after}
+        want = k5_per_request(cfgd)
+        log(f"phase 11 (c): {name}: launches {counts[name]}; K5 by step: "
+            f"{k5_by_step}")
+        for i in range(3):
+            if k5_by_step[f"request {i}"] != want:
+                fail(f"phase 11 (c): {name}: K5 launched "
+                     f"{k5_by_step[f'request {i}']} times in scoring "
+                     f"request {i}, not {want}")
+        log(f"phase 11 (c): {name} scoring request latency ms ({b} x {s} "
+            f"tokens, first apart): first {latency[0]:.2f}; then "
+            + ", ".join(f"{v:.2f}" for v in latency[1:])
+            + "; tokens/s "
+            + ", ".join(f"{b * s / v * 1e3:.0f}" for v in latency)
+            + f"; peak device memory {peak / gib:.2f} GiB")
+        if gen_toks.shape != (4, 16) or gen_toks.min() < 0 \
+                or gen_toks.max() >= cfgd.vocab:
+            fail(f"phase 11 (c): {name}: generate returned "
+                 f"{gen_toks.shape} tokens out of range")
+        log(f"phase 11 (c): {name}: generate(batch=4, prompt_len=16, "
+            f"gen=16): {gen_s * 1e3:.1f} ms for 31 decode steps, "
+            f"{gen_toks.size / gen_s:.1f} tok/s; sample "
+            f"{gen_toks[0][:8].tolist()}")
+        profile_labelled_request(
+            torch, log, f"{name} ({depth} layers) scoring request",
+            lambda: api.forward_logits(model, requests[0], cfgd), model,
+            FAMILY_LABELS, classify_family)
+
+        # (d) Decode-step logits at the last prompt position against the
+        # forward logits of generate's prompt (seed 0).
+        pb, plen = 4, 16
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfgd.vocab, (pb, plen)).astype(np.int32)).to(dev)
+        fbatch = {"tokens": prompt}
+        with torch.no_grad():
+            cache = api.init_cache(cfgd, pb, plen, dtype=torch.float32,
+                                   device=dev)
+            if cfgd.family == "audio":
+                frames = torch.zeros((pb, cfgd.n_audio_ctx, cfgd.d_model),
+                                     device=dev)
+                fbatch["frame_embeds"] = frames
+                xk, xv = model.enc_kv(model.encode(frames))
+                cache["xk"], cache["xv"] = xk.float(), xv.float()
+            fwd, _ = api.forward_logits(model, fbatch, cfgd)
+            for t in range(plen):
+                lg, cache = api.decode_step(model, cache,
+                                            prompt[:, t:t + 1], t + 1, cfgd)
+        compare(f"{name} decode-step logits against forward_logits",
+                lg[:, 0], fwd[:, -1], "decode")
+        del model, cache, fwd, lg, requests
+        torch.cuda.empty_cache()
+        log(f"phase 11: {name}: {time.perf_counter() - t_family:.1f} s")
+    total_counts = {k: sum(c[k] for c in counts.values())
+                    for k in next(iter(counts.values()))}
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s; main path (c) "
+        f"launches {total_counts}")
+    return total_counts
+
+
 #: Kernel-name fragments of cuBLAS/CUTLASS products.
 GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 
@@ -2503,11 +2812,38 @@ def classify_moe(e, kernel: str, shapes) -> str:
     return label
 
 
+#: Phase 11's labels: (module, function) → label.
+FAMILY_LABELS = {("mamba2", "ssd_scan"): "SSD einsums and recurrence",
+                 ("mamba2", "_causal_conv"): "conv",
+                 ("layers", "unembed"): "unembed"}
+
+
+def classify_family(e, kernel: str, shapes) -> str:
+    """The group of a kernel of phase 11's families, as
+    :func:`classify_moe` finds it: a weight cast, else the innermost
+    :data:`FAMILY_LABELS` range, else a dense product (any other GEMM:
+    the projections and MLPs) or the rest."""
+    names = set(FAMILY_LABELS.values())
+    label = None
+    while e is not None:
+        if e.name == "aten::_to_copy" and label is None:
+            ins = getattr(e, "input_shapes", None) or [[]]
+            if tuple(ins[0]) in shapes:
+                return "weight casts (fp32 -> bf16 per use)"
+        if e.name in names and label is None:
+            label = e.name
+        e = e.cpu_parent
+    if label is None:
+        return ("dense products" if any(w in kernel.lower()
+                                        for w in GEMM_NAMES)
+                else "rest (norms, rope, residuals)")
+    return label
+
+
 def profile_moe_request(torch, log, name, run, model):
     """Run ``run()`` (one MoE scoring request) twice under
-    ``torch.profiler``, the first as a warm-up, and print the second's
-    device busy time, idle share and device time by group, from the
-    operator that launched each kernel:
+    ``torch.profiler`` (:func:`profile_labelled_request`), with these
+    groups:
 
     - K5: device events named ``flash_attention``;
     - weight casts: copies under an ``aten::_to_copy`` whose input has a
@@ -2521,6 +2857,20 @@ def profile_moe_request(torch, log, name, run, model):
     - unembed: ``layers.unembed``;
     - attention products: the other GEMMs (q, k, v, o);
     - rest: the other kernels, and device time no operator claimed."""
+    profile_labelled_request(torch, log, name, run, model, MOE_LABELS,
+                             classify_moe)
+
+
+def profile_labelled_request(torch, log, name, run, model, labels,
+                             classify):
+    """Run ``run()`` (one scoring request) twice under ``torch.profiler``,
+    the first as a warm-up, with each function of ``labels`` ((module,
+    function) → label) under a ``record_function`` range of its label,
+    and print the second run's device busy time, idle share and device
+    time by group: K5 (device events named ``flash_attention``), and for
+    every other kernel ``classify(operator event, kernel name, parameter
+    shapes)`` of the operator that launched it; device time that no
+    operator claimed goes to the rest."""
     import contextlib
     from unittest import mock
 
@@ -2528,9 +2878,9 @@ def profile_moe_request(torch, log, name, run, model):
     from torch.profiler import (ProfilerActivity, profile, record_function,
                                 schedule)
 
-    from repro_torch.models import layers, moe
+    from repro_torch.models import layers, mamba2, moe
 
-    modules = {"moe": moe, "layers": layers}
+    modules = {"moe": moe, "layers": layers, "mamba2": mamba2}
     shapes = {tuple(p.shape) for p in model.parameters()}
 
     def labelled(label, fn):
@@ -2540,7 +2890,7 @@ def profile_moe_request(torch, log, name, run, model):
         return wrapped
 
     with contextlib.ExitStack() as stack:
-        for (mod, attr), label in MOE_LABELS.items():
+        for (mod, attr), label in labels.items():
             mod = modules[mod]
             stack.enter_context(mock.patch.object(
                 mod, attr, labelled(label, getattr(mod, attr))))
@@ -2581,8 +2931,7 @@ def profile_moe_request(torch, log, name, run, model):
         for kern in e.kernels:
             if "flash_attention_kernel" in kern.name:
                 continue
-            g = groups.setdefault(classify_moe(e, kern.name, shapes),
-                                  [0.0, 0])
+            g = groups.setdefault(classify(e, kern.name, shapes), [0.0, 0])
             g[0] += kern.duration
             g[1] += 1
     device_us = sum(e.time_range.end - e.time_range.start for e in device)

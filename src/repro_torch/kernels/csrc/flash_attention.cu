@@ -24,11 +24,22 @@
 // work, start first. The block walks 64-key tiles (the twin's block_k)
 // over the union of the two warpgroups' key ranges; a warpgroup skips a
 // tile that the causal or window mask empties for all its rows.
-// - Shared memory: Q (128 x D) and two stages each of K and V (64 x D),
-//   all in the 128-byte-swizzled K-major layout a wgmma descriptor reads
-//   (atoms of 8 rows x 128 bytes, 16-byte chunk c of row r stored at
-//   chunk c ^ (r % 8); each 64-column slab contiguous). 768 D bytes:
-//   192 KB at D = 256, so one block an SM.
+// - Shared memory: Q (128 x Dp) and two stages each of K and V
+//   (64 x Dp), all in the 128-byte-swizzled K-major layout a wgmma
+//   descriptor reads (atoms of 8 rows x 128 bytes, 16-byte chunk c of
+//   row r stored at chunk c ^ (r % 8); each 64-column slab contiguous).
+//   Dp is the row pitch, D rounded up to whole 64-column slabs (Dp = D
+//   at D = 64, 128 and 256; Dp = 128 at D = 112). 768 Dp bytes: 192 KB
+//   at D = 256, so one block an SM.
+// - Head dim 112 (zamba2): the tiles keep the 128-column pitch, so the
+//   second slab holds 48 real columns and 16 that are never loaded. QK^T
+//   runs D / 16 = 7 k-steps over the real columns only. PV runs at
+//   n = 128 over V's whole pitch: V's 16 pad columns are zeroed once per
+//   block (both stages) before the first tile, the loads never write
+//   them, and the 16 extra output columns they give are dropped by the
+//   epilogue, which stages and stores only D columns. The cost is 16/112
+//   more tensor work in PV alone, and no copy of Q, K or V outside the
+//   kernel.
 // - Loads: all 256 threads issue 16-byte cp.async copies into the
 //   swizzled addresses, zero-filling rows past Sq or Sk. Tile i+1's K
 //   and V go into the other stage as soon as the barrier that frees it
@@ -52,10 +63,10 @@
 //   (never -inf), so a row that meets a fully masked tile first gets
 //   exp(0) garbage that the next rescale by exp(-1e30 - m) = 0 wipes,
 //   exactly as in the reference; the final division clamps l at 1e-30.
-// - O += P V: wgmma m64n{D}k16 with A = P from registers (the S
+// - O += P V: wgmma m64n{Dp}k16 with A = P from registers (the S
 //   accumulator's pairs rounded to V's type, as the reference rounds
 //   them) and B = V from shared memory read MN-major (the transpose bit),
-//   so V needs no transposed copy. O stays in D / 2 fp32 registers a
+//   so V needs no transposed copy. O stays in Dp / 2 fp32 registers a
 //   thread (128 at D = 256); with S (32) and P (16) that fits under
 //   __launch_bounds__(256, 1)'s 255 without spilling, and Q never
 //   leaves shared memory.
@@ -268,7 +279,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
   } else if constexpr (N == 128) {
     if constexpr (kHalf) K5_WGMMA_RS128("f16"); else K5_WGMMA_RS128("bf16");
   } else {
-    static_assert(N == 256, "head dims 64, 128, 256");
+    static_assert(N == 256, "tile pitches 64, 128, 256");
     if constexpr (kHalf) K5_WGMMA_RS256("f16"); else K5_WGMMA_RS256("bf16");
   }
 }
@@ -312,10 +323,16 @@ __device__ __forceinline__ void load_tile(uint32_t s, const T* base,
   }
 }
 
+// Row pitch of the shared-memory tiles: D rounded up to whole 64-column
+// slabs of the 128-byte swizzle.
+template <int D>
+constexpr int kPitch = (D + 63) / 64 * 64;
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const Params p) {
-  constexpr int kTileBytes = kBK * D * 2;  // one K or V stage
+  constexpr int kDp = kPitch<D>;
+  constexpr int kTileBytes = kBK * kDp * 2;  // one K or V stage
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // Swizzle atoms must sit on 1024-byte boundaries (the launch adds the
   // slack).
@@ -370,6 +387,19 @@ flash_attention_kernel(const Params p) {
     row_lo[half] = p.window > 0 ? qpos - p.window + 1 : 0;
   }
 
+  if constexpr (kDp != D) {
+    // V's pad columns [D, kDp) in both stages: zero for the whole kernel
+    // (load_tile writes only the D real columns), so PV's extra output
+    // columns, which the epilogue drops, are 0.
+    constexpr int kPad = (kDp - D) / 8;  // 16-byte chunks a row
+    for (int c = threadIdx.x; c < 2 * kBK * kPad; c += kThreads) {
+      const int st = c / (kBK * kPad), r = (c / kPad) % kBK;
+      const int cc = D / 8 + c % kPad;
+      *reinterpret_cast<uint4*>(smem_raw + (sV - smem_u32(smem_raw)) +
+                                st * kTileBytes + swizzled(r, cc, kBK)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
   load_tile<T, D, kBQ>(sQ, qb, p.q_ss, q0, p.sq);
   if (t_begin < t_end) {
     load_tile<T, D, kBK>(sK, kb, p.k_ss, t_begin * kBK, p.sk);
@@ -382,9 +412,9 @@ flash_attention_kernel(const Params p) {
   const uint64_t dk = make_desc(sK, 16, 1024);
   const uint64_t dv = make_desc(sV, kBK * 128, 1024);
 
-  float o[D / 2];
+  float o[kDp / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kDp / 2; ++i) o[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
   // Scores go to the log2 domain: x = s * scale * log2 e, or with a
   // softcap c, x = c log2 e * tanh(s * scale / c).
@@ -478,7 +508,7 @@ flash_attention_kernel(const Params p) {
       l[0] = l[0] * alpha[0] + rs[0];
       l[1] = l[1] * alpha[1] + rs[1];
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < kDp / 8; ++j) {
         o[4 * j] *= alpha[0];
         o[4 * j + 1] *= alpha[0];
         o[4 * j + 2] *= alpha[1];
@@ -498,7 +528,7 @@ flash_attention_kernel(const Params p) {
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_pv<T, D>(o, a[kk], dv + st_off + ((kk * 16 * 128) >> 4));
+        wgmma_pv<T, kDp>(o, a[kk], dv + st_off + ((kk * 16 * 128) >> 4));
       }
       wgmma_commit();
       wgmma_wait0();
@@ -557,8 +587,9 @@ flash_attention_kernel(const Params p) {
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  // Q, two K stages, two V stages, and slack to align them to 1024 bytes.
-  const int smem = (kBQ + 4 * kBK) * D * 2 + 1024;
+  // Q, two K stages, two V stages at the row pitch, and slack to align
+  // them to 1024 bytes.
+  const int smem = (kBQ + 4 * kBK) * kPitch<D> * 2 + 1024;
   static bool configured = false;  // once per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -577,6 +608,8 @@ cudaError_t dispatch(const Params& p, int d, cudaStream_t stream) {
   switch (d) {
     case 64:
       return launch<T, 64>(p, stream);
+    case 112:
+      return launch<T, 112>(p, stream);
     case 128:
       return launch<T, 128>(p, stream);
     case 256:

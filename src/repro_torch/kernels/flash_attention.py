@@ -37,8 +37,11 @@ from repro_torch.kernels import _build
 
 NEG = -1e30
 BLOCK_K = 64
-#: Head dimensions the kernel is built for.
-HEAD_DIMS = (64, 128, 256)
+#: Head dimensions the kernel is built for. 112 (zamba2) runs at a
+#: 128-column tile pitch inside the kernel: QKᵀ over the 112 real columns,
+#: PV at 128 with V's pad columns zeroed in shared memory and the extra
+#: output columns dropped.
+HEAD_DIMS = (64, 112, 128, 256)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
 

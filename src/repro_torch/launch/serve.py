@@ -5,7 +5,10 @@
 
 The loop of ``repro.launch.serve.generate``: a prompt drawn by numpy
 from ``seed``, prefill through teacher-forced decode steps, then greedy
-argmax. One card holds the whole model, so there is no mesh.
+argmax (always argmax for a config with ``serve_sample``, whose serve
+step returns the argmax tokens in the reference). The audio family
+first encodes zero frames and puts each decoder layer's cross K/V in the
+cache. One card holds the whole model, so there is no mesh.
 """
 from __future__ import annotations
 
@@ -40,6 +43,13 @@ def generate(cfg, batch: int, prompt_len: int, gen: int, max_len: int = 0,
                                  device=dev)
     cache = api.init_cache(cfg, batch, max_len, dtype=torch.float32,
                            device=dev)
+    if cfg.family == "audio":
+        frame = torch.zeros((batch, cfg.n_audio_ctx, cfg.d_model),
+                            dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            xk, xv = params.enc_kv(params.encode(frame))
+        cache["xk"] = xk.to(cache["xk"].dtype)
+        cache["xv"] = xv.to(cache["xv"].dtype)
     toks = torch.from_numpy(prompt).to(dev)
     out_tokens = []
     if dev.type == "cuda":
@@ -50,7 +60,7 @@ def generate(cfg, batch: int, prompt_len: int, gen: int, max_len: int = 0,
             tok = toks[:, t:t + 1] if t < prompt_len else out_tokens[-1]
             lg, cache = api.decode_step(params, cache, tok, t + 1, cfg)
             if t >= prompt_len - 1:
-                if greedy:
+                if greedy or cfg.serve_sample:
                     nxt = torch.argmax(lg[:, -1], dim=-1).to(
                         torch.int32)[:, None]
                 else:

@@ -2,8 +2,9 @@
 
 The reference keeps a GNN's parameters as a list of per-layer dicts:
 ``[{"w": (d_in, d_out)}, ...]`` for GCN, plus ``"beta": ()`` per layer
-for AGNN; a dense or MoE transformer's as one tree whose ``layers``
-leaves are stacked over a leading ``n_layers`` axis. These functions take such
+for AGNN; a language model's as one tree whose layer leaves are stacked
+over leading layer axes (``layers`` over ``n_layers``; the hybrid's
+``groups`` over groups and layers). These functions take such
 trees as NumPy arrays (convert ``jax.Array`` leaves with ``np.asarray``
 first) and return the port's modules holding the same values, so both
 packages compute the same function. Like every entry point of the port
@@ -17,8 +18,11 @@ import torch
 from repro_torch.api import checked_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.gnn import AGNN, GCN
+from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.mamba2 import Mamba2LM
 from repro_torch.models.moe import MoETransformer
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.whisper import Whisper
 
 
 def _dims(params) -> list[int]:
@@ -51,33 +55,41 @@ def _put(dst, src):
     dst.copy_(torch.from_numpy(np.array(src)))
 
 
-def _load_stacked(model, params, groups):
-    """Copy a stacked reference tree into ``model`` (a module with
-    ``embedding``, ``layers`` and ``final_norm``); ``groups`` names each
-    layer's ``ParameterDict``s, whose nested dicts nest in the tree too."""
-    stacked = params["layers"]
+def _leaf(tree, name: str):
+    """The reference's leaf for a parameter's dotted name; a norm is a
+    ``{"scale"}`` dict in the reference and a bare parameter here."""
+    for part in name.split("."):
+        tree = tree[part]
+    return tree["scale"] if isinstance(tree, dict) else tree
 
-    def put_dict(pd, tree, i):
-        for name, t in pd.items():
-            if isinstance(t, torch.nn.ParameterDict):
-                put_dict(t, tree[name], i)
-            else:
-                _put(t, tree[name][i])
 
+def _put_module(module, tree, idx=()):
+    """Copy every parameter of ``module`` from ``tree``, each leaf indexed
+    by ``idx`` (the layer's place in a stacked tree)."""
+    for name, t in module.named_parameters():
+        _put(t, np.asarray(_leaf(tree, name))[idx])
+
+
+def _put_outer(model, params):
+    """The embedding and the final norm."""
+    _put(model.embedding, params["embed"]["embedding"])
+    _put(model.final_norm, params["final_norm"]["scale"])
+
+
+def _load_stacked(model, params):
+    """Copy a tree whose ``layers`` leaves are stacked over the layers
+    into ``model`` (``embedding``, ``layers``, ``final_norm``)."""
     with torch.no_grad():
-        _put(model.embedding, params["embed"]["embedding"])
-        _put(model.final_norm, params["final_norm"]["scale"])
+        _put_outer(model, params)
         for i, lp in enumerate(model.layers):
-            _put(lp.attn_norm, stacked["attn_norm"]["scale"][i])
-            _put(lp.mlp_norm, stacked["mlp_norm"]["scale"][i])
-            for group in groups:
-                put_dict(getattr(lp, group), stacked[group], i)
+            _put_module(lp, params["layers"], i)
     return model
 
 
 def transformer_params_from_jax(params, cfg: ArchConfig,
                                 device="cuda") -> Transformer:
-    """A :class:`Transformer` holding the reference's dense parameters.
+    """A :class:`Transformer` holding the reference's dense or VLM
+    parameters.
 
     ``params`` is ``{"embed": {"embedding"}, "layers": {"attn_norm":
     {"scale"}, "attn": {"wq", "wk", "wv", "wo"}, "mlp_norm": {"scale"},
@@ -85,7 +97,7 @@ def transformer_params_from_jax(params, cfg: ArchConfig,
     every ``layers`` leaf stacked over ``n_layers``.
     """
     model = Transformer(cfg, device=checked_device(device, "convert"))
-    return _load_stacked(model, params, ("attn", "mlp"))
+    return _load_stacked(model, params)
 
 
 def moe_params_from_jax(params, cfg: ArchConfig,
@@ -98,4 +110,49 @@ def moe_params_from_jax(params, cfg: ArchConfig,
     over ``n_layers``.
     """
     model = MoETransformer(cfg, device=checked_device(device, "convert"))
-    return _load_stacked(model, params, ("attn", "moe"))
+    return _load_stacked(model, params)
+
+
+def mamba2_params_from_jax(params, cfg: ArchConfig,
+                           device="cuda") -> Mamba2LM:
+    """A :class:`Mamba2LM` holding the reference's SSM parameters:
+    ``embed``, ``final_norm`` and ``layers`` (``norm``, ``wz``, ``wx``,
+    ``wb``, ``wc``, ``wdt``, ``conv_x``, ``conv_b``, ``conv_c``,
+    ``a_log``, ``d_skip``, ``dt_bias``, ``gate_norm``, ``out_proj``, each
+    stacked over ``n_layers``)."""
+    model = Mamba2LM(cfg, device=checked_device(device, "convert"))
+    return _load_stacked(model, params)
+
+
+def hybrid_params_from_jax(params, cfg: ArchConfig,
+                           device="cuda") -> HybridLM:
+    """A :class:`HybridLM` holding the reference's hybrid parameters:
+    ``groups`` (Mamba2 leaves stacked ``(ngroups, every, ...)``),
+    ``shared_attn`` (one attention + MLP block), ``tail`` (stacked over
+    the tail's layers, when there is one), ``embed`` and ``final_norm``."""
+    model = HybridLM(cfg, device=checked_device(device, "convert"))
+    with torch.no_grad():
+        _put_outer(model, params)
+        for g, group in enumerate(model.groups):
+            for j, lp in enumerate(group):
+                _put_module(lp, params["groups"], (g, j))
+        _put_module(model.shared_attn, params["shared_attn"])
+        for i, lp in enumerate(model.tail):
+            _put_module(lp, params["tail"], i)
+    return model
+
+
+def whisper_params_from_jax(params, cfg: ArchConfig,
+                            device="cuda") -> Whisper:
+    """A :class:`Whisper` holding the reference's audio parameters:
+    ``enc_layers`` and ``dec_layers`` stacked over their layers,
+    ``enc_norm``, ``embed`` and ``final_norm``."""
+    model = Whisper(cfg, device=checked_device(device, "convert"))
+    with torch.no_grad():
+        _put_outer(model, params)
+        _put(model.enc_norm, params["enc_norm"]["scale"])
+        for i, lp in enumerate(model.enc_layers):
+            _put_module(lp, params["enc_layers"], i)
+        for i, lp in enumerate(model.dec_layers):
+            _put_module(lp, params["dec_layers"], i)
+    return model

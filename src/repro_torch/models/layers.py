@@ -1,4 +1,5 @@
-"""Shared transformer layers in PyTorch: norms, RoPE, attention, MLPs.
+"""Shared transformer layers in PyTorch: norms, RoPE/M-RoPE, attention,
+MLPs.
 
 Mirrors ``repro.models.layers`` function for function, with the same
 rounding points: activations in ``compute_dtype``, weights cast per use
@@ -10,7 +11,6 @@ the result on ``device``.
 
 One card has no sharding, so the reference's ``sh.constrain`` and
 ``sh.kv_repeat_for_tp`` (identities outside a mesh) are dropped.
-M-RoPE and the VLM frontend come with the VLM slice.
 """
 from __future__ import annotations
 
@@ -59,6 +59,34 @@ def apply_rope(x, positions, theta: float):
     cos = torch.cos(ang)[..., None, :].to(x.dtype)        # (..., S, 1, d/2)
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """Qwen2-VL M-RoPE: the rotary frequencies split into (t, h, w)
+    sections, each rotated by its own position stream.
+
+    x: (..., S, H, D); positions3: (3, ..., S). Unlike :func:`apply_rope`
+    the reference keeps the frequencies in fp32 (no rounding to x's
+    type); cos and sin are cast to x's type.
+    """
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.tensor(rope_freqs(d, theta), dtype=torch.float32,
+                         device=x.device)
+    # Section id of each rotary frequency index.
+    sec = np.zeros(half, np.int64)
+    start = 0
+    for si, width in enumerate(np.asarray(sections) * half
+                               // int(np.sum(sections))):
+        sec[start:start + width] = si
+        start += width
+    sec[start:] = len(sections) - 1
+    pos = positions3[torch.from_numpy(sec).to(positions3.device)]
+    ang = pos.movedim(0, -1).float() * freqs              # (..., S, half)
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
@@ -153,14 +181,19 @@ def qkv_project(p, x, cfg: ArchConfig):
 
 
 def attention_block(p, x, cfg: ArchConfig, *, layer_window: int = 0,
-                    positions=None):
-    """Full self-attention block (projections + rope + K5 + output)."""
+                    positions=None, positions3=None):
+    """Full self-attention block (projections + rope + K5 + output); with
+    ``cfg.mrope`` and ``positions3`` (3, B, S), M-RoPE instead of RoPE."""
     b, s, _ = x.shape
     q, k, v = qkv_project(p, x, cfg)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope and positions3 is not None:
+        q = apply_mrope(q, positions3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions3, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     out = flash_attention(q, k, v, causal=True, window=layer_window,
                           softcap_val=cfg.attn_softcap, chunk=cfg.attn_chunk,
                           remat_chunks=cfg.flash_remat)

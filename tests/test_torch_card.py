@@ -1,6 +1,8 @@
 """Kernels on the card against their plain twins: K5 and the dense path
 (scoring, and training through K5's autograd Function), the MoE family
-(scoring through K5, and its dispatch matrix through ``LibraSpMM``),
+(scoring through K5, and its dispatch matrix through ``LibraSpMM``), the
+SSM, hybrid, audio and VLM families (scoring through K5 at full width,
+K5 at head dim 112 and at whisper's non-causal shapes),
 the two CUDA-core streams K2 (``spmm_vpu``) and K4 (``sddmm_vpu``), the
 two Tensor Core streams K1 (``spmm_mxu``) and K3 (``sddmm_mxu``), and
 GNN training through all four (``GraphOps`` forward and backward, with
@@ -106,7 +108,7 @@ def _check(card, b, sq, sk, h, kv, d, dt, seed=0, q_scale=1.0, **kw):
 
 
 @pytest.mark.parametrize("sq", [1, 37, 64, 65, 129, 200])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 112, 128, 256])
 def test_kernel_ragged_query_tiles(card, sq, d):
     """Query tiles of 128 rows over two warpgroups of 64: Sq not a
     multiple of 128, and Sq <= 64, where the second warpgroup has no
@@ -134,19 +136,39 @@ def test_kernel_window_without_causal(card, window):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
                          ids=["bf16", "fp16"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 112, 128, 256])
 def test_kernel_head_dims_and_types(card, d, dtype):
     _check(card, 1, 333, 333, 8, 2, d, dtype, causal=True, softcap=50.0)
     _check(card, 1, 333, 333, 8, 2, d, dtype, seed=1, causal=True)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 112, 128, 256])
 def test_kernel_near_saturation_softcap(card, d):
     """Q scaled by 50, so that |s / sqrt(D)| reaches 2-4x the cap of 50:
     most scores sit near +-50, where the kernel's tanh must stay accurate
     in absolute terms (an error e in tanh moves the logit by 50 e)."""
     _check(card, 1, 512, 512, 8, 4, d, torch.bfloat16, q_scale=50.0,
            causal=True, softcap=50.0)
+
+
+@pytest.mark.parametrize("case", [
+    # b, sq, sk, h, kv, d, causal, window, softcap
+    (1, 1500, 1500, 32, 32, 112, True, 0, 0.0),
+    (1, 5000, 5000, 8, 8, 112, True, 4096, 0.0),
+    (2, 300, 300, 8, 4, 112, True, 100, 50.0),
+    (8, 1500, 1500, 6, 6, 64, False, 0, 0.0),
+    (8, 448, 1500, 6, 6, 64, False, 0, 0.0),
+], ids=["d112-causal", "d112-window", "d112-softcap", "whisper-encoder",
+        "whisper-cross"])
+def test_kernel_family_shapes(card, case):
+    """zamba2's head dim 112 (the kernel's 128-column pitch: QKᵀ over
+    the real columns, V's pad zeroed in shared memory, the extra output
+    columns dropped) causal, windowed and softcapped; whisper's
+    non-causal encoder (1500 frames, 1500 = 23·64 + 28) and cross
+    attention (448 decoder tokens over 1500 frames)."""
+    b, sq, sk, h, kv, d, causal, window, cap = case
+    _check(card, b, sq, sk, h, kv, d, torch.bfloat16, causal=causal,
+           window=window, softcap=cap)
 
 
 def test_kernel_reads_strided_inputs(card):
@@ -224,7 +246,7 @@ def test_kernel_lse_matches_twin(card, name):
 
 @pytest.mark.parametrize("cap", [0.0, 50.0])
 @pytest.mark.parametrize("window", [0, 100])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 112, 128, 256])
 def test_function_grads_match_twin_autograd(card, d, window, cap):
     """dQ, dK, dV through the Function (K5 forward, chunked backward,
     128-key chunks) against plain autograd through the twin, within
@@ -302,6 +324,51 @@ def test_dense_forward_through_k5_matches_twin(card):
                                fa.flash_attention_ref):
             want, _ = api.forward_logits(model, {"tokens": tokens}, cfg)
         assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+    _close(out, want)
+
+
+#: arch → (config at full width, 2 layers; batch; tokens; K5 launches).
+FAMILY_CASES = {
+    "mamba2-130m": (dict(n_layers=2), 1, 2048, 0),
+    # One group of two Mamba2 layers and the shared attention; 4608
+    # tokens run past zamba2's 4096-token window at head dim 112.
+    "zamba2-7b": (dict(n_layers=2, hybrid_attn_every=2), 1, 4608, 1),
+    # Two encoder and two decoder layers: 2 + 2 + 2 cross launches.
+    "whisper-tiny": (dict(n_layers=2, n_enc_layers=2), 2, 448, 6),
+    "qwen2-vl-7b": (dict(n_layers=2), 1, 2048, 2),
+}
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_CASES))
+def test_family_forward_through_k5_matches_twin(card, arch):
+    """Each family at full width, 2 layers: logits through K5 against
+    the same model with the plain twin (whisper over seeded frame
+    embeddings, qwen2-vl with seeded patch embeddings), and K5's
+    launches."""
+    from repro_torch.configs import get_config
+
+    scale, b, s, launches = FAMILY_CASES[arch]
+    cfg = get_config(arch).scaled(**scale)
+    model = api.init_params(torch.Generator(card).manual_seed(0), cfg,
+                            device=card)
+    g = torch.Generator(card).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), device=card,
+                                     generator=g)}
+    if cfg.family == "audio":
+        batch["frame_embeds"] = torch.randn(
+            (b, cfg.n_audio_ctx, cfg.d_model), device=card, generator=g)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (b, cfg.n_patches, cfg.d_model), device=card, generator=g)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        out, _ = api.forward_logits(model, batch, cfg)
+        assert kernels.launch_counts()["flash_attention"] == launches
+        with mock.patch.object(layers, "flash_attention_fused",
+                               fa.flash_attention_ref):
+            want, _ = api.forward_logits(model, batch, cfg)
+        assert kernels.launch_counts()["flash_attention"] == launches
+    assert out.shape == (b, s, cfg.vocab)
     _close(out, want)
 
 

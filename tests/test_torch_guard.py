@@ -4,18 +4,17 @@
   ``jax`` or the reference package ``repro`` (AST scan), and importing
   every module of the port loads no ``jax`` and builds no kernel.
 * Entry points default to the card: without one they raise instead of
-  running on the CPU (the operators, the GNN, transformer and MoE
-  converters, the transformer and MoE constructors,
-  ``api.init_params``/``init_cache``, ``launch.serve.generate`` (dense
-  and MoE), and the serving tier: ``GraphRegistry``,
+  running on the CPU (the operators, the GNN and language-model
+  converters, the constructors of every model family,
+  ``api.init_params``/``init_cache``, ``launch.serve.generate`` (dense,
+  MoE and audio), and the serving tier: ``GraphRegistry``,
   ``SparseEngine``, ``BatchedSpMM``/``BatchedSDDMM``, ``GNNService``),
   and ``chip_smoke.py`` exits non-zero and prints no result.
   The sharded path (``ShardMesh``, a partition's uploads,
   ``ShardedSpMM``/``ShardedSDDMM``, ``DistGraphOps``, ``mesh=``) and
   ``explain_*(measure=True)`` default to the card the same way.
-* What the port does not cover yet raises ``NotImplementedError`` naming
-  its ROADMAP item (the model families other than dense and MoE: item
-  13c).
+* Every family of ``configs.ARCHS`` routes through all of
+  ``models.api``'s entry points on the CPU.
 """
 import ast
 import json
@@ -29,14 +28,17 @@ import pytest
 import torch
 
 from repro_torch.api import ExecSpec
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCHS, get_smoke_config
 from repro_torch.core.sddmm import LibraSDDMM
 from repro_torch.core.spmm import LibraSpMM
 from repro_torch.launch.serve import generate
 from repro_torch.models import api, convert
 from repro_torch.models.gnn import GraphOps
+from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.mamba2 import Mamba2LM
 from repro_torch.models.moe import MoETransformer
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.whisper import Whisper
 from repro_torch.sparse import mixed_csr
 from repro_torch.tune.model import TuneConfig
 
@@ -161,10 +163,15 @@ def _dense_tree(cfg):
     "gcn_params_from_jax", "agnn_params_from_jax",
     "transformer_params_from_jax", "Transformer", "init_params",
     "init_cache", "generate", "moe_params_from_jax", "MoETransformer",
-    "moe_init_params", "moe_generate"])
+    "moe_init_params", "moe_generate", "Mamba2LM", "HybridLM", "Whisper",
+    "vlm_Transformer", "mamba2_params_from_jax", "hybrid_params_from_jax",
+    "whisper_params_from_jax", "ssm_init_cache", "audio_generate"])
 def test_model_entry_points_raise_without_a_card(entry, monkeypatch):
     cfg = get_smoke_config("gemma2-9b")
     moe_cfg = get_smoke_config("moonshot-v1-16b-a3b")
+    smoke = {f: get_smoke_config(a) for f, a in (
+        ("ssm", "mamba2-130m"), ("hybrid", "zamba2-7b"),
+        ("audio", "whisper-tiny"), ("vlm", "qwen2-vl-7b"))}
     tree = _dense_tree(cfg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     gnn_params = [{"w": np.ones((4, 3), np.float32),
@@ -189,6 +196,22 @@ def test_model_entry_points_raise_without_a_card(entry, monkeypatch):
         "moe_init_params": lambda: api.init_params(
             torch.Generator().manual_seed(0), moe_cfg),
         "moe_generate": lambda: generate(moe_cfg, 1, 2, 2),
+        "Mamba2LM": lambda: Mamba2LM(
+            smoke["ssm"], generator=torch.Generator().manual_seed(0)),
+        "HybridLM": lambda: HybridLM(
+            smoke["hybrid"], generator=torch.Generator().manual_seed(0)),
+        "Whisper": lambda: Whisper(
+            smoke["audio"], generator=torch.Generator().manual_seed(0)),
+        "vlm_Transformer": lambda: Transformer(
+            smoke["vlm"], generator=torch.Generator().manual_seed(0)),
+        "mamba2_params_from_jax": lambda: convert.mamba2_params_from_jax(
+            None, smoke["ssm"]),
+        "hybrid_params_from_jax": lambda: convert.hybrid_params_from_jax(
+            None, smoke["hybrid"]),
+        "whisper_params_from_jax": lambda: convert.whisper_params_from_jax(
+            None, smoke["audio"]),
+        "ssm_init_cache": lambda: api.init_cache(smoke["ssm"], 1, 8),
+        "audio_generate": lambda: generate(smoke["audio"], 1, 2, 2),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
@@ -201,20 +224,31 @@ def test_dense_tree_round_trips_on_cpu():
     assert all(not p.any() for p in model.parameters())
 
 
-@pytest.mark.parametrize("arch", [
-    "mamba2_130m", "zamba2_7b", "whisper_tiny", "qwen2_vl_7b"])
-def test_unported_families_name_their_roadmap_item(arch):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_family_routes_through_the_api(arch):
+    """``init_params``, ``forward_logits``, ``loss_fn``, ``init_cache``
+    and ``decode_step`` on the CPU for each config's smoke size: finite
+    logits of the right shape from both paths."""
     cfg = get_smoke_config(arch)
-    gen = torch.Generator().manual_seed(0)
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    for call in (lambda: api.init_params(gen, cfg, device="cpu"),
-                 lambda: api.forward_logits(None, {"tokens": tokens}, cfg),
-                 lambda: api.loss_fn(None, {"tokens": tokens,
-                                            "labels": tokens}, cfg),
-                 lambda: api.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: api.decode_step(None, {}, tokens[:, :1], 1, cfg)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
+    model = api.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    b, s = 2, 32
+    tokens = torch.randint(0, cfg.vocab, (b, s),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.family == "audio":
+        batch["frame_embeds"] = torch.randn(b, cfg.n_audio_ctx, cfg.d_model)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(b, cfg.n_patches, cfg.d_model)
+    with torch.no_grad():
+        logits, _ = api.forward_logits(model, batch, cfg)
+        loss = api.loss_fn(model, batch, cfg)
+        cache = api.init_cache(cfg, b, 4, dtype=torch.float32, device="cpu")
+        step, cache = api.decode_step(model, cache, tokens[:, :1], 1, cfg)
+    assert logits.shape == (b, s, cfg.vocab) and step.shape == (b, 1,
+                                                                 cfg.vocab)
+    assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+    assert torch.isfinite(loss)
 
 
 def test_spec_takes_only_off_or_a_tune_config():
