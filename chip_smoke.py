@@ -126,24 +126,12 @@ Phases:
    ``/explain/<graph>`` over ``serve_http`` against ``explain_entry``
    (a sharded graph answers 400).
 
-9. Dense training (``train/``, ``launch/train.py``, K5 under autograd),
-   gemma2-9b at full width: (a) two layers (one local, one global) on
-   1 × 4096 tokens: the training loss (K5 inside its autograd Function,
-   per-layer remat) equals the scoring loss under ``no_grad`` bit for
-   bit, K5 launches twice a layer, and the first-step gradients of every
-   parameter hold to the same model through plain autograd over the
-   twin; (a') the Function alone at K5's timing shapes (global and local
-   8192-token layers, D=128 GQA 32/8 at 4096): dQ, dK, dV and the
-   logsumexp against the twin's autograd, the backward's time and
-   launches beside K5's forward; (b) ``train_loop`` at the largest even
-   depth that fits (the arithmetic is printed), 2 × 4096 tokens a step
-   in 2 microbatches, fp32 AdamW moments, three steps: ms, loss,
-   ``grad_norm``, ``lr`` and K5 launches (2 × depth × microbatches) a
-   step, peak memory, ``model_flops`` and TFLOP/s, and one more step
-   under ``torch.profiler`` by group (K5, the attention backward, dense
-   products, optimizer, loss head, rest); (c) checkpoint and resume at a
-   reduced width: 2 steps and a resume equal 3 uninterrupted steps bit
-   for bit.
+9. K5's autograd Function (the kernel's forward with its logsumexp and
+   the plain chunked backward) alone at K5's timing shapes (gemma2-9b's
+   global and local 8192-token layers, D=128 GQA 32/8 at 4096): dQ, dK,
+   dV and the logsumexp against the twin's autograd, the backward's time
+   and launches beside K5's forward. Phase 12 trains the dense family
+   with the others.
 
 10. The MoE family (``models/moe.py``: router, sort-based dispatch,
     experts, shared experts), moonshot-v1-16b-a3b at full width: (a) two
@@ -186,14 +174,42 @@ Phases:
     idle share, ``generate(batch=4, prompt_len=16, gen=16)``; (d)
     decode-step logits at the last prompt position against
     ``forward_logits`` within 5e-2·max|ref|.
+12. Training of every family at full width (``launch/train.py`` →
+    ``train/train_step.py`` → ``models/api.py`` ``loss_fn`` with remat at
+    the reference's scopes → AdamW): (a) gemma2-9b (one local, one
+    global layer), moonshot-v1-16b-a3b, qwen3-moe-235b-a22b, mamba2-130m
+    and qwen2-vl-7b (1024 seeded patch embeddings) cut to two layers,
+    zamba2-7b to one group of six and its tail of three, whisper-tiny
+    whole (8 × 448 over 8 × 1500 seeded frames), on 1 × 4096 tokens:
+    the training loss against the scoring loss bit for bit, K5's
+    launches (2 × layers, 2 × groups, 4 + 16 for whisper, 0), and the
+    loss and first-step gradients through K5's Function against plain
+    autograd through the twin within 2e-2·max|ref| per tensor (MoE
+    routing pinned), a tensor beyond it decided by an fp32 run where
+    rounding puts either bf16 gradient beyond 2e-2 of it (K5's within
+    2e-2·max|g32| of it or 1.5 times the twin's distance); (b)
+    ``train_loop`` for each family but qwen3-moe at the largest depth
+    that fits (the arithmetic printed; gemma2 cut by
+    local/global pairs, zamba2 by whole groups with its tail kept), 2 ×
+    4096 tokens a step in 2 microbatches (whisper 2 × 448 over zero
+    frames; qwen2-vl's steps take seeded patch embeddings in place of
+    the loop's zeros, which give non-finite gradients at this depth in
+    both packages), fp32 AdamW moments, three steps: ms a step, loss,
+    ``grad_norm``, ``lr``, TFLOP/s (``model_flops``), peak memory, K5's
+    launches a step checked, and one more step of one microbatch under
+    ``torch.profiler`` by group (K5, attention backward, the SSD, expert
+    products, dispatch/combine, router, optimizer, loss head, dense
+    products, rest) with the idle share; (c) checkpoint and resume at a
+    reduced width against an uninterrupted run, bit for bit (MoE too:
+    the gathers' backward accumulates in a fixed order on the card).
 
 Phases 2 and 3 are the GNN inference path, phase 5's steps the GNN
 training path, phase 6's tuned operators the tuned path, phase 7's served
 flushes the serving path, phase 8's sharded applies, requests, steps and
-flushes the sharded path, phase 9 (b)'s loop the dense training path,
-phase 10 (c)'s requests and ``generate`` the MoE path, phase 11 (c)'s
-requests and ``generate`` the SSM/hybrid/audio/VLM path, and phase 4's
-(a) and (c) the dense main path:
+flushes the sharded path, phase 10 (c)'s requests and ``generate`` the
+MoE path, phase 11 (c)'s requests and ``generate`` the
+SSM/hybrid/audio/VLM path, phase 12 (b)'s loops the training path of
+every family, and phase 4's (a) and (c) the dense main path:
 every kernel's launch counter is set to 0 just before each path and read
 just after it; within phase 6, the counts
 of each part are read as it ends, and those of the Fig. 11 sweep and of
@@ -206,9 +222,10 @@ reordered A and SDDMM(A) (whose tables must hold real vectors and
 columns), K5 exactly 42 times (once
 per layer) per scoring request on the dense path, once per layer per
 scoring request on the MoE path, 0, 13, 12 and 28 times per scoring
-request of mamba2-130m, zamba2-7b, whisper-tiny and qwen2-vl-7b, and
-2 × depth ×
-microbatches times a step on the training path; K1–K4's launches are
+request of mamba2-130m, zamba2-7b, whisper-tiny and qwen2-vl-7b, and on
+the training path per microbatch twice a checkpointed scope's attention
+(2 × depth for the dense, MoE and VLM families, 2 × groups for zamba2,
+4 + 16 for whisper, none for mamba2); K1–K4's launches are
 also split by matrix, plan leg and width from the per-step counts. GNN
 outputs are checked against the port's plain ``backend="torch"`` path on
 the card. Then each kernel is timed (CUDA events, median of 20 launches)
@@ -287,15 +304,30 @@ PEAK_OPS = {"tf32": 495e12, "fp32": 67e12, "bf16": 989e12}
 #   expert choice pinned to the forward's: the same rounding differences
 #   flip near-tied routings, which move a token by O(1);
 # - gradients through K5's autograd Function against plain autograd
-#   through the twin (phase 9): max|Δ| ≤ 2e-2·max|ref| per tensor. The
-#   Function's backward keeps P and dP in fp32 and casts dQ, dK, dV to
-#   bf16 once; the twin's autograd rounds P and dP to bf16 per 64-key
-#   block, and K5's forward rounds as the twin does;
+#   through the twin (phases 9 and 12 (a)): max|Δ| ≤ 2e-2·max|ref| per
+#   tensor. The Function's backward keeps P and dP in fp32 and casts dQ,
+#   dK, dV to bf16 once; the twin's autograd rounds P and dP to bf16 per
+#   64-key block, and K5's forward rounds as the twin does. Near-uniform
+#   attention at random weights (whisper's decoder) makes dP − Δ cancel,
+#   and both bf16 gradients of its q and k projections then lie 2-5% of
+#   max|g32| from the exact one (fp32 compute through the twin in fp32).
+#   Where one chunk holds every key (whisper's 448-token decoder), the
+#   backward's Δ is rowsum(P∘dP), as autograd's softmax backward has it.
+#   Phase 12 (a) lets the exact gradient decide a tensor beyond the
+#   bound, where rounding puts either bf16 gradient more than
+#   2e-2·max|g32| from it: K5's max|Δ| from g32 within 2e-2·max|g32|, or
+#   at most 1.5 times the twin's. Measured by tools/grad_spread.py over
+#   six seeds of whisper-tiny on an H100: 5 tensors beyond the bound (up
+#   to 3.1% of max|ref|; 20, up to 3.3%, with Δ = rowsum(dO∘O) over the
+#   bf16 O), K5's distance to g32 on them 0.62-1.46 times the twin's; in
+#   L2, over every tensor, 0.84-1.25 times, and the two at most 1.9%
+#   apart;
 # - K5's logsumexp against the twin's: 1e-3 absolute (ex2.approx and
 #   tanh.approx move it by about 1e-6 relative).
 FP32_RTOL = 1e-5
 TF32_REL = 2e-2
 GRAD_REL = 2e-2
+WITNESS_RATIO = 1.5
 LSE_ATOL = 1e-3
 FP32_PATH_REL = 1e-4
 BF16_REL = 2e-2
@@ -1023,9 +1055,8 @@ def main(argv=None) -> int:
         served=served, median_ms=median_ms)
     del served
 
-    # ------------------------------------------------ phase 9: training
-    training_counts = training_phase(
-        torch, np, dev, log, fail, compare, kernels, get_config, median_ms)
+    # ------------------------------------------------ phase 9: K5's Function
+    function_phase(torch, dev, log, fail, compare, get_config, median_ms)
 
     # ------------------------------------------------ phase 10: MoE path
     moe_counts = moe_phase(torch, np, dev, log, fail, compare, kernels,
@@ -1034,6 +1065,10 @@ def main(argv=None) -> int:
     # ------------------------------------------------ phase 11: families
     family_counts = families_phase(torch, np, dev, log, fail, compare,
                                    kernels, get_config)
+
+    # ------------------------------------------------ phase 12: training
+    training_counts = training_phase(torch, np, dev, log, fail, kernels,
+                                     get_config)
 
     # ------------------------------------------------ timing and bounds
     def rows_read(*ids):
@@ -1075,10 +1110,11 @@ def main(argv=None) -> int:
     log(f"kernels line launches by path: inference {main_counts}, "
         f"training {train_counts}, tuned {tuned_counts}, serving "
         f"{serving_counts}, sharded {sharded_counts}; K5: dense "
-        f"{dense_counts['flash_attention']}, dense training "
-        f"{training_counts['flash_attention']}, MoE "
+        f"{dense_counts['flash_attention']}, MoE "
         f"{moe_counts['flash_attention']}, SSM/hybrid/audio/VLM "
-        f"{family_counts['flash_attention']}")
+        f"{family_counts['flash_attention']}, training "
+        + ", ".join(f"{arch} {c['flash_attention']}"
+                    for arch, c in training_counts.items()))
 
     def record(name, label, ms, plain_ms, library_ms, nb, ops):
         """Log one kernel's times and bound; at the kernel's shape in
@@ -1096,8 +1132,9 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": (dense_counts[name] + training_counts[name]
-                         + moe_counts[name] + family_counts[name]
+            "launches": (dense_counts[name] + moe_counts[name]
+                         + family_counts[name]
+                         + sum(c[name] for c in training_counts.values())
                          if name == "flash_attention"
                          else gnn_counts[name]),
             "max_abs_err": twin_err[(name, label)], "ms": ms,
@@ -1762,96 +1799,15 @@ def dense_phase(torch, np, dev, log, fail, compare, kernels, model_api,
     return dense_counts
 
 
-def training_phase(torch, np, dev, log, fail, compare, kernels, get_config,
-                   median_ms):
-    """Phase 9: dense training, gemma2-9b at full width.
-
-    (a) two layers (one local, one global) on 1 × 4096 tokens: the
-    training loss (K5 in the Function, remat) against the scoring loss
-    under ``no_grad`` bit for bit, and first-step gradients against the
-    same model through plain autograd over the twin; (a') the Function
-    alone at K5's timing shapes: gradients and logsumexp against the
-    twin, the backward's time and launches beside K5's forward; (b)
-    ``launch/train.py`` ``train_loop`` at the largest even depth that
-    fits, 2 × 4096 tokens a step in 2 microbatches, three steps, and one
-    more step profiled by group; (c) checkpoint and resume at a reduced
-    width, bit for bit against an uninterrupted run.
-
-    Returns the launch counts of the training main path, (b)'s loop."""
-    import tempfile
-    from unittest import mock
-
+def function_phase(torch, dev, log, fail, compare, get_config, median_ms):
+    """Phase 9: K5's autograd Function alone at K5's timing shapes
+    (:data:`FUNCTION_CASES`): gradients and logsumexp against the twin's
+    autograd, the backward's time and launches beside K5's forward."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import flops
-    from repro_torch.launch import train as train_launch
-    from repro_torch.models import api, layers
-    from repro_torch.models.config import InputShape
-    from repro_torch.train import checkpoint as ckpt
-    from repro_torch.train import optimizer as opt
 
     t_phase = time.perf_counter()
     cfg = get_config("gemma2-9b")
-    seq = TRAIN_SEQ
-    gib = 2 ** 30
-
-    def twin_grad(q, k, v, *, chunk, **kw):
-        """Plain autograd through K5's twin: no Function, no kernel."""
-        del chunk
-        return fa.flash_attention_ref(q, k, v, **kw)
-
-    def tokens_and_labels(seed, b, s, vocab):
-        g = torch.Generator(dev).manual_seed(seed)
-        toks = torch.randint(0, vocab, (b, s), generator=g, device=dev,
-                             dtype=torch.int32)
-        labels = torch.roll(toks, -1, 1)
-        labels[:, -1] = -1
-        return {"tokens": toks, "labels": labels}
-
-    # (a) two layers at full width, 1 x 4096 tokens.
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    live0 = torch.cuda.memory_allocated()
-    cfg2 = cfg.scaled(n_layers=2)
-    model = api.init_params(torch.Generator(dev).manual_seed(2), cfg2,
-                            device=dev)
-    n2 = sum(p.numel() for p in model.parameters())
-    batch = tokens_and_labels(400, 1, seq, cfg.vocab)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    loss = api.loss_fn(model, batch, cfg2)
-    loss.backward()
-    torch.cuda.synchronize()
-    k5_a = kernels.launch_counts()["flash_attention"]
-    peak_a = torch.cuda.max_memory_allocated() - live0
-    grads = {n: p.grad for n, p in model.named_parameters()}
-    model.zero_grad(set_to_none=True)
-    with torch.no_grad():
-        score = api.loss_fn(model, batch, cfg2)
-    with mock.patch.object(layers, "flash_attention_grad", twin_grad):
-        twin_loss = api.loss_fn(model, batch, cfg2)
-        twin_loss.backward()
-    log(f"phase 9 (a): gemma2-9b, 2 layers, 1 x {seq} tokens: loss "
-        f"{loss.item()!r} training (K5 in the Function, remat), "
-        f"{score.item()!r} scoring (no_grad), {twin_loss.item()!r} through "
-        f"the twin's autograd; K5 launches {k5_a} (forward and recompute "
-        f"of 2 layers); the step's peak {peak_a / gib:.2f} GiB above "
-        f"{live0 / gib:.2f} GiB live ({n2 / 1e9:.3f} B parameters)")
-    if k5_a != 2 * cfg2.n_layers:
-        fail(f"phase 9 (a): K5 launched {k5_a} times, not "
-             f"{2 * cfg2.n_layers}")
-    if loss.item() != score.item() or not np.isfinite(loss.item()):
-        fail("phase 9 (a): the training loss differs from the scoring loss")
-    log("  the training loss equals the scoring loss bit for bit")
-    log("phase 9 (a): first-step gradients through the Function against "
-        "plain autograd through the twin, per leaf")
-    for name, p in model.named_parameters():
-        compare(f"d{name}", grads[name], p.grad, "grad")
-    del model, grads, loss, score, twin_loss, batch
-    torch.cuda.empty_cache()
-
-    # (a') The Function alone at K5's timing shapes.
-    log("phase 9 (a'): K5's Function: gradients and logsumexp against the "
+    log("phase 9: K5's Function: gradients and logsumexp against the "
         f"twin's autograd, backward {cfg.attn_chunk}-key chunks")
     for i, (label, ((b, sq, sk, h, kv, d), kw)) in enumerate(
             FUNCTION_CASES.items()):
@@ -1882,7 +1838,7 @@ def training_phase(torch, np, dev, log, fail, compare, kernels, get_config,
         log(f"  {label} ({h}/{kv} heads): lse max|err|={lse_err:.3e} "
             f"tol={LSE_ATOL:g} {'ok' if lse_err <= LSE_ATOL else 'MISMATCH'}")
         if not lse_err <= LSE_ATOL:
-            fail(f"phase 9 (a'): {label}: K5's lse off by {lse_err}")
+            fail(f"phase 9: {label}: K5's lse off by {lse_err}")
         compare(f"{label} forward with lse", out, want_out, "bf16")
         del want_out, want_lse
         got, want = [], []
@@ -1907,136 +1863,10 @@ def training_phase(torch, np, dev, log, fail, compare, kernels, get_config,
             f"chunks) {bwd_ms:.4f} ms over {bwd_launches} launches")
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
-
-    # (b) The full width at the largest even depth that fits.
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info(dev)
-    d_, h_, kv_, hd_, f_ = (cfg.d_model, cfg.n_heads, cfg.n_kv,
-                            cfg.head_dim, cfg.d_ff)
-    layer_params = (d_ * h_ * hd_ + 2 * d_ * kv_ * hd_ + h_ * hd_ * d_
-                    + 3 * d_ * f_ + 2 * d_)
-    outer_params = cfg.vocab_padded * d_ + d_
-    margin = 0.05 * total
-    # 16 bytes a parameter: fp32 weight, gradient and two AdamW moments.
-    activations = peak_a - 8 * n2
-    room = free - margin - activations - 16 * outer_params
-    depth = min(cfg.n_layers,
-                max(2, int(room // (16 * layer_params)) // 2 * 2))
-    log(f"phase 9 (b): depth {depth}: free {free / 1e9:.2f} GB of "
-        f"{total / 1e9:.2f}, less a {margin / 1e9:.2f} GB margin, less (a)'s "
-        f"peak beyond its weights and gradients {activations / 1e9:.2f} GB, "
-        f"less 16 B x {outer_params / 1e6:.1f} M embedding and final-norm "
-        f"parameters ({16 * outer_params / 1e9:.2f} GB), leaves "
-        f"{room / 1e9:.2f} GB = {room / (16 * layer_params):.2f} layers of "
-        f"16 B x {layer_params / 1e6:.1f} M ({16 * layer_params / 1e9:.2f} "
-        f"GB); the {cfg.n_layers} layers would take "
-        f"{16 * (outer_params + cfg.n_layers * layer_params) / 1e9:.1f} GB "
-        "for parameters and optimizer state alone")
-    cfgd = cfg.scaled(n_layers=depth)
-    microbatches, global_batch, steps = 2, 2, 3
-    real_make = train_launch.ts.make_train_step
-    records = []
-
-    def counted_make(*a, **kw):
-        step = real_make(*a, **kw)
-
-        def run(model, state, batch):
-            torch.cuda.synchronize()
-            before = kernels.launch_counts()["flash_attention"]
-            t = time.perf_counter()
-            m = step(model, state, batch)
-            torch.cuda.synchronize()
-            records.append(((time.perf_counter() - t) * 1e3,
-                            {k: float(v) for k, v in m.items()},
-                            kernels.launch_counts()["flash_attention"]
-                            - before, (model, state, batch)))
-            return m
-        return run
-
-    torch.cuda.reset_peak_memory_stats()
-    live_b = torch.cuda.memory_allocated()
-    kernels.reset_launch_counts()
-    t = time.perf_counter()
-    with mock.patch.object(train_launch.ts, "make_train_step", counted_make):
-        model, losses = train_launch.train_loop(
-            cfgd, steps, global_batch, seq, microbatches=microbatches,
-            device=dev)
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t
-    counts = kernels.launch_counts()
-    peak_b = torch.cuda.max_memory_allocated()
-    n_params = sum(p.numel() for p in model.parameters())
-    ocfg = opt.OptConfig(warmup_steps=min(10, steps // 5 + 1),
-                         total_steps=steps)
-    log(f"phase 9 (b): gemma2-9b at full width, {depth} layers, "
-        f"{n_params / 1e9:.3f} B float32 parameters, {global_batch} x {seq} "
-        f"tokens a step in {microbatches} microbatches, {ocfg}; train_loop "
-        f"{loop_s:.1f} s (weights drawn on the card, {steps} steps)")
-    want_k5 = 2 * depth * microbatches
-    for i, (ms, m, k5, _) in enumerate(records):
-        log(f"  step {i}: {ms:.1f} ms, loss {m['loss']!r}, grad_norm "
-            f"{m['grad_norm']!r}, lr {m['lr']!r}, K5 launches {k5}")
-        if k5 != want_k5:
-            fail(f"phase 9 (b): step {i} launched K5 {k5} times, not "
-                 f"{want_k5} (2 x depth x microbatches)")
-    if len(records) != steps or not all(np.isfinite(losses)):
-        fail(f"phase 9 (b): {len(records)} steps, losses {losses}")
-    shape = InputShape("phase 9 (b)", seq, global_batch, "train")
-    mf = flops.model_flops(cfgd, shape)
-    steady = statistics.median(r[0] for r in records[1:])
-    log(f"phase 9 (b): step ms (first apart): first {records[0][0]:.1f}; "
-        "then " + ", ".join(f"{r[0]:.1f}" for r in records[1:])
-        + f"; peak device memory {peak_b / gib:.2f} GiB, "
-        f"{(peak_b - live_b) / gib:.2f} GiB above the {live_b / gib:.2f} GiB "
-        f"live before the loop; model_flops {mf / 1e15:.4f} PFLOP a step "
-        f"(6 N D, launch/flops.py), {mf / steady / 1e9:.1f} TFLOP/s over "
-        f"the steady step, {mf / steady / 1e9 / 989:.3f} of 989 TFLOP/s "
-        "bf16")
-    log("profile: one steady training step of (b) (torch.profiler)")
-    _, _, _, (pmodel, pstate, pbatch) = records[-1]
-    step = real_make(cfgd, ocfg, microbatches)
-    profile_training_step(torch, log, "gemma2-9b training step",
-                          lambda: step(pmodel, pstate, pbatch))
-    del model, pmodel, pstate, pbatch, records, step
-    torch.cuda.empty_cache()
-
-    # (c) Checkpoint and resume at a reduced width.
-    small = cfg.scaled(n_layers=2, d_model=512, n_heads=4, n_kv=2,
-                       d_head=128, d_ff=1024, vocab=4096)
-    t = time.perf_counter()
-    kw = dict(global_batch=2, seq_len=512, device=dev)
-    before = kernels.launch_counts()["flash_attention"]
-    with tempfile.TemporaryDirectory() as d:
-        _, first = train_launch.train_loop(small, 2, ckpt_dir=d, **kw)
-        resumed, rest = train_launch.train_loop(small, 3, ckpt_dir=d,
-                                                resume=True, **kw)
-        saved = ckpt.available_steps(d)
-    whole, losses = train_launch.train_loop(small, 3, **kw)
-    k5_c = kernels.launch_counts()["flash_attention"] - before
-    log(f"phase 9 (c): gemma2 reduced (2 layers, d_model 512, 4/2 heads of "
-        f"128, d_ff 1024, vocab 4096), 2 x 512 tokens: 2 steps {first} + "
-        f"resume {rest} against 3 steps {losses}; checkpoints {saved}; "
-        f"{time.perf_counter() - t:.1f} s; K5 launches {k5_c}")
-    same = first + rest == losses and all(
-        torch.equal(a, b) for a, b in zip(resumed.parameters(),
-                                          whole.parameters()))
-    if not same or saved != [2, 3]:
-        fail("phase 9 (c): the resumed run differs from the uninterrupted "
-             "one")
-    log("phase 9 (c): resumed run equals the uninterrupted run bit for bit "
-        "(losses and every parameter)")
-    del resumed, whole
-    torch.cuda.empty_cache()
-    log(f"phase 9: {time.perf_counter() - t_phase:.1f} s; main path (b) "
-        f"launches {counts}")
-    return counts
+    log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
 
 
-#: Phase 9's sequence length: ``train_4k``'s (``models/config.py``).
-TRAIN_SEQ = 4096
-
-#: Phase 9 (a')'s shapes: K5's timing shapes in the kernels line and its
+#: Phase 9's shapes: K5's timing shapes in the kernels line and its
 #: timing lines (label → ((b, sq, sk, h, kv, d), kernel kwargs)).
 FUNCTION_CASES = {
     "gemma2 global S=8192": ((1, 8192, 8192, 16, 8, 256),
@@ -2073,7 +1903,7 @@ CUPTI_OVERHEAD = ("Command Buffer Full", "Activity Buffer Request")
 LOSS_OPS = ("aten::log_softmax", "aten::_log_softmax", "aten::gather")
 
 
-def profile_training_step(torch, log, name, run):
+def profile_training_step(torch, log, name, run, extra=()):
     """Run ``run()`` (one training step) twice under ``torch.profiler``,
     the first as a warm-up, and print the second's device busy time,
     idle share and device time by group:
@@ -2085,6 +1915,10 @@ def profile_training_step(torch, log, name, run):
     - the loss head: ``layers.unembed`` (labelled here), log_softmax and
       the gather, and the backward nodes of those forward operators
       (matched by autograd's sequence number);
+    - each ``(label, module, function)`` of ``extra`` (phase 12: the SSD,
+      expert products, dispatch/combine, the router): kernels under the
+      function, forward and recompute, and the backward nodes of its
+      forward operators, as for the loss head;
     - dense products: the other GEMM kernels;
     - rest: the other kernels, and any device time no operator claimed.
     """
@@ -2098,8 +1932,9 @@ def profile_training_step(torch, log, name, run):
     from repro_torch.models import layers
     from repro_torch.train import optimizer as opt
 
-    labels = {"optimizer": (opt, "apply_updates"),
-              "loss head": (layers, "unembed")}
+    patches = [("optimizer", opt, "apply_updates"),
+               ("loss head", layers, "unembed"), *extra]
+    labels = {label for label, _, _ in patches}
 
     def labelled(label, fn):
         def wrapped(*a, **kw):
@@ -2108,7 +1943,7 @@ def profile_training_step(torch, log, name, run):
         return wrapped
 
     with contextlib.ExitStack() as stack:
-        for label, (mod, attr) in labels.items():
+        for label, mod, attr in patches:
             stack.enter_context(mock.patch.object(
                 mod, attr, labelled(label, getattr(mod, attr))))
         with profile(activities=[ProfilerActivity.CPU,
@@ -2121,108 +1956,117 @@ def profile_training_step(torch, log, name, run):
             run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
-    events = prof.events()
-    # Kernels, copies and fills only: the labels above and autograd's
-    # ranges also appear on the device as user annotations spanning them.
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.key.startswith("ProfilerStep")
-              and not getattr(e, "is_user_annotation", False)]
+    t_read = time.perf_counter()
+    device, groups, stalls = group_kernel_time(
+        prof.profiler.kineto_results.events(), labels, DeviceType)
     if not device:
         log(f"  {name}: wall {wall_ms:.1f} ms (profiled); the profiler "
             "recorded no device time")
         return
-    busy_us, span_us = busy_and_span(sorted(
-        (e.time_range.start, e.time_range.end) for e in device))
-    k5 = [0.0, 0]
-    for e in device:
-        if "flash_attention_kernel" in e.name:
-            k5[0] += e.time_range.end - e.time_range.start
-            k5[1] += 1
-    # A kernel is listed under the operator that launched it and, when
-    # the launch stalled on a full queue, again under CUPTI's overhead
-    # event for the stall (same correlation id): count it once, under
-    # the operator.
-    items, stalls = [], 0
-    for e in events:
-        if e.device_type != DeviceType.CPU or not e.kernels:
-            continue
-        if e.name in CUPTI_OVERHEAD:
-            stalls += 1
-            continue
-        items += [(e, kern.name, kern.duration) for kern in e.kernels
-                  if "flash_attention_kernel" not in kern.name]
-    groups = group_kernel_time(events, items, labels)
-    groups["K5 flash_attention (forward and recompute)"] = k5
-    device_us = sum(e.time_range.end - e.time_range.start for e in device)
+    busy_ns, span_ns = busy_and_span(sorted(device))
+    device_us = sum(e - s for s, e in device) / 1e3
     claimed = sum(g[0] for g in groups.values())
     rest = groups.setdefault(
         "rest (norms, rope, casts, residuals, elementwise)", [0.0, 0])
     rest[0] += max(0.0, device_us - claimed)
     log(f"  {name} (one profiled step): wall {wall_ms:.1f} ms, device span "
-        f"{span_us / 1e3:.1f} ms, busy {busy_us / 1e3:.1f} ms; idle share of "
-        f"span {1 - busy_us / span_us:.3f}, of wall "
-        f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}; {len(device)} "
+        f"{span_ns / 1e6:.1f} ms, busy {busy_ns / 1e6:.1f} ms; idle share of "
+        f"span {1 - busy_ns / span_ns:.3f}, of wall "
+        f"{max(0.0, 1 - busy_ns / 1e6 / wall_ms):.3f}; {len(device)} "
         f"kernels, {device_us / 1e3:.1f} ms of kernel time "
         f"({claimed / 1e3:.1f} ms claimed by an operator; {stalls} "
-        "launches stalled on a full queue)")
+        "launches stalled on a full queue); the trace read and grouped in "
+        f"{time.perf_counter() - t_read:.1f} s")
     for group, (us, count) in sorted(groups.items(),
                                      key=lambda kv: -kv[1][0]):
         log(f"    {group}: {us / 1e3:.1f} ms over {count} launches "
             f"({us / device_us:.3f} of kernel time)")
 
 
-def group_kernel_time(events, items, labels) -> dict[str, list]:
-    """Device time and launches by group of ``items``, (CPU operator
-    event, kernel name, microseconds) triples, over the profiler's
-    ``events`` (see :func:`profile_training_step`)."""
-    from torch.autograd import DeviceType
+#: ``RecordScope.BACKWARD_FUNCTION``: an autograd node's range.
+BACKWARD_SCOPE = 1
 
-    def ancestors(e):
-        while e is not None:
-            yield e
-            e = e.cpu_parent
 
-    def backward_root(e):
-        return next((a for a in ancestors(e)
-                     if getattr(a, "scope", 0) == 1), None)
+def group_kernel_time(raw, labels, DeviceType):
+    """Device time and launches by group (see :func:`profile_training_step`)
+    from the profiler's raw events ``raw``
+    (``prof.profiler.kineto_results.events()``), read directly: building
+    ``prof.events()`` costs about 0.6 ms a kernel, 27 s for zamba2's
+    step. Returns the (start, end) ns of every kernel, copy and fill
+    (user annotations left out), the groups (label → [µs, launches]),
+    and the launches that stalled on a full queue.
 
-    def forward_label(e):
-        for a in ancestors(e):
-            if a.name in labels:
-                return a.name
-            if a.name in LOSS_OPS:
-                return "loss head"
-        return None
+    A kernel belongs to the CPU operator whose correlation id is its
+    linked one (a stalled launch is listed again under CUPTI's overhead
+    event: counted once, under the operator); an operator's ancestors
+    are the ranges of its thread that enclose it, found as
+    ``prof.events()`` finds them, by start and then longest first. Each
+    operator gets (the nearest enclosing backward node, the nearest
+    label, whether under the Function's backward) from its parent's."""
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    device, kernels, ops = [], [], {}
+    for e in raw:
+        kind = e.device_type()
+        if kind == cuda:
+            if e.is_user_annotation() or e.name().startswith("ProfilerStep"):
+                continue
+            device.append((e.start_ns(), e.end_ns()))
+            kernels.append(e)
+        elif (kind == cpu and not e.is_async()
+              and e.start_thread_id() == e.end_thread_id()):
+            ops.setdefault(e.start_thread_id(), []).append(e)
 
-    by_seq = {}
-    for e in events:
-        if (e.device_type == DeviceType.CPU
-                and getattr(e, "sequence_nr", -1) >= 0
-                and backward_root(e) is None):
-            label = forward_label(e)
-            if label:
-                by_seq[(e.sequence_nr, e.thread)] = label
+    info, launcher, stalled, by_seq = {}, {}, set(), {}
+    for thread_ops in ops.values():
+        thread_ops.sort(key=lambda e: (e.start_ns(), -e.end_ns()))
+        stack = []
+        for e in thread_ops:
+            while stack and (e.start_ns() >= stack[-1].end_ns()
+                             or e.end_ns() > stack[-1].end_ns()):
+                stack.pop()
+            up = info[id(stack[-1])] if stack else (None, None, False)
+            name = e.name()
+            info[id(e)] = mine = (
+                e if e.scope() == BACKWARD_SCOPE else up[0],
+                name if name in labels
+                else "loss head" if name in LOSS_OPS else up[1],
+                up[2] or "FlashAttentionBackward" in name)
+            stack.append(e)
+            if name in CUPTI_OVERHEAD:
+                stalled.add(e.correlation_id())
+            else:
+                launcher[e.correlation_id()] = e
+            if e.sequence_nr() >= 0 and mine[0] is None and mine[1]:
+                by_seq[(e.sequence_nr(), e.start_thread_id())] = mine[1]
 
-    def group_of(e, kernel):
-        if any("FlashAttentionBackward" in a.name for a in ancestors(e)):
+    def group_of(op, kernel):
+        root, label, under_fa_backward = info[id(op)]
+        if under_fa_backward:
             return "attention backward (plain PyTorch)"
-        label = forward_label(e)
-        root = backward_root(e)
         if label is None and root is not None:
-            label = by_seq.get((root.sequence_nr, root.fwd_thread))
+            label = by_seq.get((root.sequence_nr(), root.fwd_thread_id()))
         if label:
             return label
-        if any(w in kernel.lower() for w in ("gemm", "nvjet", "cutlass",
-                                             "xmma", "cublas")):
+        if any(w in kernel.lower() for w in GEMM_NAMES):
             return "dense products (torch.matmul)"
         return "rest (norms, rope, casts, residuals, elementwise)"
 
-    groups: dict[str, list] = {}
-    for e, kernel, us in items:
-        g = groups.setdefault(group_of(e, kernel), [0.0, 0])
+    groups: dict[str, list] = {
+        "K5 flash_attention (forward and recompute)": [0.0, 0]}
+    stalls = 0
+    for k in kernels:
+        kernel, us = k.name(), (k.end_ns() - k.start_ns()) / 1e3
+        op = launcher.get(k.linked_correlation_id())
+        stalls += k.linked_correlation_id() in stalled
+        if "flash_attention_kernel" in kernel:
+            g = groups["K5 flash_attention (forward and recompute)"]
+        elif op is None:
+            continue
+        else:
+            g = groups.setdefault(group_of(op, kernel), [0.0, 0])
         g[0] += us
         g[1] += 1
-    return groups
+    return device, groups, stalls
 
 
 def busy_and_span(spans) -> tuple[float, float]:
@@ -2248,8 +2092,9 @@ def routing(torch, moe, pin=None):
     expert choice (``topi``) and the smallest gap between a token's k-th
     and (k+1)-th router probability (``gap``). With ``pin`` (call index →
     the choice an earlier run made there), every call chooses as pinned,
-    its weights renormalised over this call's own probabilities, and
-    ``apart`` counts the tokens whose own top-k set differs: a near-tie
+    its weights renormalised over this call's own probabilities and its
+    aux loss counted over the pinned choice, and ``apart`` counts the
+    tokens whose own top-k set differs: a near-tie
     that rounding flips moves such a token by O(1), which no tolerance on
     rounding covers, so values are compared with the routing pinned and
     the flips are reported beside them."""
@@ -2272,6 +2117,10 @@ def routing(torch, moe, pin=None):
             topv = picked / torch.clamp(picked.sum(-1, keepdim=True),
                                         min=1e-9)
             topi = want
+            e = logits.shape[-1]
+            f_e = torch.bincount(want.reshape(-1), minlength=e).float()
+            aux = e * torch.sum(f_e / f_e.sum()
+                                * probs.reshape(-1, e).mean(dim=0))
         rec["topi"].append(topi)
         return topv, topi, aux
 
@@ -2768,6 +2617,426 @@ def families_phase(torch, np, dev, log, fail, compare, kernels, get_config):
     log(f"phase 11: {time.perf_counter() - t_phase:.1f} s; main path (c) "
         f"launches {total_counts}")
     return total_counts
+
+
+#: Phase 12's families: (a)'s cut (the smallest depth that holds the
+#: family's structure at full width: gemma2's one local and one global
+#: layer, zamba2's one group of six and its tail of three), (a)'s batch
+#: (b, s), and (b)'s global batch and sequence (None: (a) only), 4096
+#: tokens a row as ``train_4k`` (``models/config.py``).
+TRAIN_FAMILIES = {
+    "gemma2-9b": (dict(n_layers=2), (1, 4096), (2, 4096)),
+    "moonshot-v1-16b-a3b": (dict(n_layers=2), (1, 4096), (2, 4096)),
+    "qwen3-moe-235b-a22b": (dict(n_layers=2), (1, 4096), None),
+    "mamba2-130m": (dict(n_layers=2), (1, 4096), (2, 4096)),
+    "zamba2-7b": (dict(n_layers=9), (1, 4096), (2, 4096)),
+    "whisper-tiny": ({}, (8, 448), (2, 448)),
+    "qwen2-vl-7b": (dict(n_layers=2), (1, 4096), (2, 4096)),
+}
+
+#: Phase 12 (c)'s configs: each family's structure (MoE routing and
+#: shared expert, the SSD, the hybrid's group and tail, GQA, M-RoPE, the
+#: stub frontends) at a width whose checkpoints take seconds to write;
+#: whisper-tiny whole. K5's head dims stay its own (128, zamba2's 112).
+RESUME_CUTS = {
+    "gemma2-9b": dict(n_layers=2, d_model=512, n_heads=4, n_kv=2,
+                      d_head=128, d_ff=1024, vocab=4096),
+    "moonshot-v1-16b-a3b": dict(n_layers=2, d_model=512, n_heads=4, n_kv=4,
+                                d_head=128, d_ff=256, moe_d_ff=256,
+                                n_experts=8, top_k=2, vocab=4096),
+    "mamba2-130m": dict(n_layers=2, d_model=512, vocab=4096),
+    "zamba2-7b": dict(n_layers=9, d_model=512, n_heads=4, n_kv=4,
+                      d_head=112, d_ff=1024, vocab=4096),
+    "whisper-tiny": {},
+    "qwen2-vl-7b": dict(n_layers=2, d_model=512, n_heads=8, n_kv=2,
+                        d_head=128, d_ff=1024, vocab=4096, n_patches=64),
+}
+
+
+def k5_per_pass(cfg) -> int:
+    """K5 launches of one loss and backward (one microbatch) under remat:
+    every checkpointed scope runs its attention twice (forward and
+    recompute): a layer of the dense, MoE and VLM models, a group of the hybrid
+    (its tail has none), a decoder layer of whisper (self and cross
+    attention), whose encoder runs once; Mamba2 has none."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return 2 * (cfg.n_layers // cfg.hybrid_attn_every)
+    if cfg.family == "audio":
+        return (cfg.n_enc_layers or cfg.n_layers) + 4 * cfg.n_layers
+    return 2 * cfg.n_layers
+
+
+def max_abs(torch, x, y=None) -> float:
+    """max|x - y| (or max|x|) in fp32, 2^26 elements at a time, so that no
+    temporary of a whole expert tensor is made (qwen3-moe's weights and
+    three gradient sets leave a few GB of the card); inf where a value is
+    not finite."""
+    x = x.reshape(-1)
+    y = None if y is None else y.reshape(-1)
+    out = 0.0
+    for i in range(0, x.numel(), 1 << 26):
+        d = x[i:i + (1 << 26)].float()
+        if y is not None:
+            d = d - y[i:i + (1 << 26)].float()
+        lo, hi = (v.item() for v in torch.aminmax(d))
+        if not (abs(lo) < float("inf") and abs(hi) < float("inf")):
+            return float("inf")
+        out = max(out, -lo, hi)
+    return out
+
+
+def training_phase(torch, np, dev, log, fail, kernels, get_config):
+    """Phase 12: training of every family at full width.
+
+    (a) each family at the smallest depth that holds its structure
+    (:data:`TRAIN_FAMILIES`), 1 × 4096 tokens (whisper 8 × 448 over 8 ×
+    1500 seeded frames, qwen2-vl with 1024 seeded patch embeddings): the
+    training loss (K5 in the Function, remat) against the scoring loss
+    under ``no_grad`` bit for bit, K5's launches against
+    :func:`k5_per_pass`, and the loss and first-step gradients against
+    the same model through plain autograd over the twin (MoE routing
+    pinned to the first run's), a gradient beyond the bound held to an
+    fp32 run through the twin in fp32 (:data:`WITNESS_RATIO`); (b)
+    ``launch/train.py`` ``train_loop`` at the largest depth that fits
+    (the arithmetic printed: 16 B a parameter and (a)'s peak above its
+    weights), 2 × 4096 tokens a step
+    in 2 microbatches (whisper 2 × 448 over zero frames; qwen2-vl with
+    seeded patch embeddings in place of the loop's zeros), three steps
+    with K5's launches checked, and one more step of one microbatch
+    profiled by group; (c) checkpoint and resume at :data:`RESUME_CUTS`,
+    bit for bit against an uninterrupted run.
+
+    Returns each family's launch counts on the training path, (b)'s
+    loops."""
+    import tempfile
+    from unittest import mock
+
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import flops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import api, layers, mamba2, moe
+    from repro_torch.models.config import InputShape
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+
+    t_phase = time.perf_counter()
+    gib = 2**30
+
+    def twin_grad(q, k, v, *, causal, window, softcap, q_offset, chunk):
+        """Plain autograd through K5's twin, 1024 query rows at a time,
+        each slice under ``torch.utils.checkpoint``: attention rows are
+        independent, and a slice's twin skips only key blocks masked for
+        all its rows, which changes no value. The slices hold the twin's
+        per-block fp32 scores to one slice's at a time (qwen3-moe's 64
+        heads would otherwise keep about 26 GB a layer)."""
+        del chunk
+        return torch.cat([checkpoint(
+            fa.flash_attention_ref, q[:, r:r + 1024], k, v, causal=causal,
+            window=window, softcap=softcap, q_offset=q_offset + r,
+            use_reentrant=False) for r in range(0, q.shape[1], 1024)], dim=1)
+
+    def training_batch(cfg, seed, b, s):
+        batch = family_batch(torch, dev, cfg, seed, b, s)
+        labels = torch.roll(batch["tokens"], -1, 1)
+        labels[:, -1] = -1
+        batch["labels"] = labels
+        return batch
+
+    def meta_params(cfg) -> int:
+        return sum(p.numel() for p in api.init_params(
+            None, cfg, device="meta").parameters())
+
+    # (a) Each family's smallest full-width cut: K5 against the twin.
+    activations = {}
+    for seed, (name, (cut, (b, s), _)) in enumerate(TRAIN_FAMILIES.items()):
+        t_family = time.perf_counter()
+        cfg = get_config(name).scaled(**cut)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        live0 = torch.cuda.memory_allocated()
+        model = api.init_params(torch.Generator(dev).manual_seed(20 + seed),
+                                cfg, device=dev)
+        n = sum(p.numel() for p in model.parameters())
+        batch = training_batch(cfg, 800 + seed, b, s)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        patch, rec = routing(torch, moe)
+        with patch:
+            loss = api.loss_fn(model, batch, cfg)
+            loss.backward()
+        torch.cuda.synchronize()
+        k5 = kernels.launch_counts()["flash_attention"]
+        peak = torch.cuda.max_memory_allocated() - live0
+        # Above the weights: the gradients that exist at the peak are not
+        # known, so they count as activations; (b) adds them again in its
+        # 16 B a parameter, which leaves room for the allocator's slack.
+        activations[name] = peak - 4 * n
+        t_k5 = time.perf_counter() - t_family
+
+        # K5's gradients in bf16, so that qwen3-moe's weights and both
+        # gradient sets fit on the card together; the rounding moves a
+        # compared error by at most 2^-9 of max|g|.
+        g_k5 = {k: p.grad.to(torch.bfloat16)
+                for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            score = api.loss_fn(model, batch, cfg)
+        pin = rec["topi"].__getitem__
+        patch, pinned = routing(torch, moe, pin=pin)
+        t = time.perf_counter()
+        with patch, mock.patch.object(layers, "flash_attention_grad",
+                                      twin_grad):
+            twin_loss = api.loss_fn(model, batch, cfg)
+            twin_loss.backward()
+        torch.cuda.synchronize()
+        t_twin = time.perf_counter() - t
+        flips = (f"; routing pinned, {pinned['apart']} token choices "
+                 f"flipped, smallest gap {rec['gap']:.3e}"
+                 if cfg.family == "moe" else "")
+        log(f"phase 12 (a): {name}, {cfg.n_layers} layers at full width, "
+            f"{b} x {s} tokens, {n / 1e9:.3f} B float32 parameters: loss "
+            f"{loss.item()!r} training (K5 in the Function, remat), "
+            f"{score.item()!r} scoring (no_grad), {twin_loss.item()!r} "
+            f"through the twin's autograd; K5 launches {k5}; the step's "
+            f"peak {peak / gib:.2f} GiB above {live0 / gib:.2f} GiB live, "
+            f"{activations[name] / 1e9:.2f} GB of it beyond the weights"
+            f"{flips}")
+        if k5 != k5_per_pass(cfg):
+            fail(f"phase 12 (a): {name}: K5 launched {k5} times, not "
+                 f"{k5_per_pass(cfg)}")
+        if loss.item() != score.item() or not np.isfinite(loss.item()):
+            fail(f"phase 12 (a): {name}: the training loss differs from the "
+                 "scoring loss")
+        log(f"phase 12 (a): {name}: the loss and first-step gradients "
+            "through K5's Function against plain autograd through the twin")
+        worst, beyond = (0.0, ""), []
+        for pname, p in [("loss", None), *model.named_parameters()]:
+            got, want = ((loss.detach(), twin_loss.detach()) if p is None
+                         else (g_k5[pname], p.grad))
+            err, scale = max_abs(torch, got, want), max_abs(torch, want)
+            ok = err <= GRAD_REL * scale
+            worst = max(worst, (err / max(scale, 1e-30), pname))
+            log(f"  {name} d{pname}: max|err|={err:.3e} max|ref|="
+                f"{scale:.3e} tol={GRAD_REL:g}*max|ref| "
+                f"{'ok' if ok else 'beyond: to the fp32 witness'}")
+            if not ok:
+                beyond.append(pname)
+        log(f"phase 12 (a): {name}: at most {worst[0]:.3e}*max|ref| "
+            f"(d{worst[1]}); {time.perf_counter() - t_family:.1f} s (the K5 "
+            f"run with the weights drawn {t_k5:.1f} s, the twin's "
+            f"{t_twin:.1f} s)")
+        if beyond:
+            # The exact gradient (fp32 compute through the twin in fp32,
+            # the routing pinned likewise) decides each such leaf.
+            g_twin = {k: p.grad.to(torch.bfloat16)
+                      for k, p in model.named_parameters() if k in beyond}
+            model.zero_grad(set_to_none=True)
+            model.cfg = cfg.scaled(compute_dtype="float32")
+            patch, _ = routing(torch, moe, pin=pin)
+            with patch, mock.patch.object(layers, "flash_attention_grad",
+                                          twin_grad):
+                api.loss_fn(model, batch, model.cfg).backward()
+            model.cfg = cfg
+            exact = dict(model.named_parameters())
+            for pname in beyond:
+                if pname == "loss":
+                    fail(f"phase 12 (a): {name}: the loss through the "
+                         "Function is beyond 2e-2 of the twin's")
+                    continue
+                g32 = exact[pname].grad
+                s32 = max_abs(torch, g32)
+                e_fn = max_abs(torch, g_k5[pname], g32)
+                e_tw = max_abs(torch, g_twin[pname], g32)
+                ok = (max(e_fn, e_tw) > GRAD_REL * s32
+                      and e_fn <= max(WITNESS_RATIO * e_tw, GRAD_REL * s32))
+                log(f"  {name} d{pname} against fp32 (max|g32| {s32:.3e}): "
+                    f"K5 {e_fn / s32:.3e}*max|g32|, the twin "
+                    f"{e_tw / s32:.3e} {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"phase 12 (a): {name} d{pname}: K5 {e_fn} and the "
+                         f"twin {e_tw} from fp32, max|g32| {s32}")
+            del g_twin, exact
+        del model, g_k5, loss, score, twin_loss, batch, rec, pinned
+        del p, got, want
+        torch.cuda.empty_cache()
+
+    # (b) train_loop at the largest depth that fits.
+    profile_extra = {
+        "moe": [("expert products", moe, "_experts"),
+                ("expert products", layers, "mlp_block"),
+                ("dispatch/combine", moe, "_local_dispatch"),
+                ("dispatch/combine", moe, "_local_combine"),
+                ("router", moe, "router_topk")],
+        "ssm": [("SSD (einsums and recurrence)", mamba2, "ssd_scan")],
+        "hybrid": [("SSD (einsums and recurrence)", mamba2, "ssd_scan")],
+    }
+    real_make = train_launch.ts.make_train_step
+    counts = {}
+    microbatches, steps = 2, 3
+    ocfg = opt.OptConfig(warmup_steps=min(10, steps // 5 + 1),
+                         total_steps=steps)
+    kernels.reset_launch_counts()
+    for name, (_, _, geometry) in TRAIN_FAMILIES.items():
+        if geometry is None:
+            continue
+        t_family = time.perf_counter()
+        global_batch, seq = geometry
+        cfg = get_config(name)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        margin = 0.05 * total
+        room = free - margin - activations[name]
+        # Whole groups with the tail kept; gemma2's local/global pairs.
+        unit_d = (cfg.hybrid_attn_every if cfg.family == "hybrid"
+                  else 2 if cfg.local_global else 1)
+        tail = cfg.n_layers % unit_d
+        depths = range(cfg.n_layers, tail, -unit_d)
+        depth = next((d for d in depths
+                      if 16 * meta_params(cfg.scaled(n_layers=d)) <= room),
+                     None)
+        if depth is None:
+            fail(f"phase 12 (b): {name}: not even "
+                 f"{depths[-1]} layers fit in {room / 1e9:.2f} GB")
+        outer = meta_params(cfg.scaled(n_layers=tail))
+        unit = meta_params(cfg.scaled(n_layers=tail + unit_d)) - outer
+        n_full = meta_params(cfg)
+        log(f"phase 12 (b): {name}: depth {depth} of {cfg.n_layers}: free "
+            f"{free / 1e9:.2f} GB of {total / 1e9:.2f}, less a "
+            f"{margin / 1e9:.2f} GB margin, less (a)'s peak above its "
+            f"weights {activations[name] / 1e9:.2f} GB, leaves "
+            f"{room / 1e9:.2f} GB; 16 B a parameter (fp32 weight, "
+            f"gradient, two AdamW moments): {16 * outer / 1e9:.2f} GB "
+            "outside the repeated "
+            + ("groups (embedding, final norm, shared block, tail), "
+               if cfg.family == "hybrid" else "layers (embedding, norms), ")
+            + f"{16 * unit / 1e9:.2f} GB a "
+            + ("group of six" if cfg.family == "hybrid"
+               else "local/global pair" if unit_d == 2 else "layer")
+            + f"; the {cfg.n_layers} layers would take "
+            f"{16 * n_full / 1e9:.1f} GB"
+            + ("" if depth == cfg.n_layers else " (cut to fit)"))
+        cfgd = cfg.scaled(n_layers=depth)
+        records = []
+
+        def counted_make(*a, **kw):
+            step = real_make(*a, **kw)
+
+            def run(model, state, batch):
+                if "patch_embeds" in batch:
+                    # The loop's zero patch embeddings give non-finite
+                    # gradients at this depth, in both packages: a
+                    # position whose residual stream is zero at every
+                    # layer passes its gradient through each norm at
+                    # rsqrt(eps) = 1000 times (ROADMAP §3). Seeded ones
+                    # stand for the frontend's output, as in (a).
+                    g = torch.Generator(dev).manual_seed(900 + len(records))
+                    batch = dict(batch, patch_embeds=torch.randn(
+                        batch["patch_embeds"].shape, generator=g,
+                        device=dev))
+                torch.cuda.synchronize()
+                before = kernels.launch_counts()["flash_attention"]
+                t = time.perf_counter()
+                m = step(model, state, batch)
+                torch.cuda.synchronize()
+                records.append(((time.perf_counter() - t) * 1e3,
+                                {k: float(v) for k, v in m.items()},
+                                kernels.launch_counts()["flash_attention"]
+                                - before, (model, state, batch)))
+                return m
+            return run
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        before = kernels.launch_counts()
+        t = time.perf_counter()
+        with mock.patch.object(train_launch.ts, "make_train_step",
+                               counted_make):
+            model, losses = train_launch.train_loop(
+                cfgd, steps, global_batch, seq, microbatches=microbatches,
+                log_every=steps, device=dev)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+        after = kernels.launch_counts()
+        counts[name] = {k: after[k] - before[k] for k in after}
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"phase 12 (b): {name} at full width, {depth} layers, "
+            f"{n_params / 1e9:.3f} B float32 parameters, {global_batch} x "
+            f"{seq} tokens a step in {microbatches} microbatches, {ocfg}; "
+            f"train_loop {loop_s:.1f} s ({steps} steps, weights drawn on the "
+            "card)")
+        want_k5 = k5_per_pass(cfgd) * microbatches
+        for i, (ms, m, k5, _) in enumerate(records):
+            log(f"  step {i}: {ms:.1f} ms, loss {m['loss']!r}, grad_norm "
+                f"{m['grad_norm']!r}, lr {m['lr']!r}, K5 launches {k5}")
+            if k5 != want_k5:
+                fail(f"phase 12 (b): {name}: step {i} launched K5 {k5} "
+                     f"times, not {want_k5}")
+        if len(records) != steps or not all(np.isfinite(losses)):
+            fail(f"phase 12 (b): {name}: {len(records)} steps, losses "
+                 f"{losses}")
+        mf = flops.model_flops(cfgd, InputShape(name, seq, global_batch,
+                                                "train"))
+        steady = statistics.median(r[0] for r in records[1:])
+        log(f"phase 12 (b): {name}: step ms (first apart): first "
+            f"{records[0][0]:.1f}; then "
+            + ", ".join(f"{r[0]:.1f}" for r in records[1:])
+            + f"; peak device memory {peak / gib:.2f} GiB, "
+            f"{(peak - live) / gib:.2f} GiB above the {live / gib:.2f} GiB "
+            f"live before the loop; model_flops {mf / 1e12:.2f} TFLOP a "
+            f"step (launch/flops.py), {mf / steady / 1e9:.1f} TFLOP/s over "
+            f"the steady step, {mf / steady / 1e9 / 989:.3f} of 989 "
+            "TFLOP/s bf16")
+        # The profiled step is one microbatch of the batch: the trace of
+        # a whole step (up to 75,000 kernels for zamba2) takes up to 42 s
+        # to read, and a microbatch's kernels are the step's, halved.
+        _, _, _, (pmodel, pstate, pbatch) = records[-1]
+        pbatch = {k: v[:global_batch // microbatches]
+                  for k, v in pbatch.items()}
+        step = real_make(cfgd, ocfg, 1)
+        profile_training_step(
+            torch, log, f"{name} ({depth} layers) training step of one "
+            "microbatch", lambda: step(pmodel, pstate, pbatch),
+            profile_extra.get(cfgd.family, ()))
+        del model, pmodel, pstate, pbatch, records, step
+        torch.cuda.empty_cache()
+        log(f"phase 12 (b): {name}: {time.perf_counter() - t_family:.1f} s")
+
+    # (c) Checkpoint and resume at a reduced width.
+    for name, cut in RESUME_CUTS.items():
+        t = time.perf_counter()
+        small = get_config(name).scaled(**cut)
+        seq = 448 if small.family == "audio" else 512
+        kw = dict(global_batch=2, seq_len=seq, log_every=100, device=dev)
+        before = kernels.launch_counts()["flash_attention"]
+        with tempfile.TemporaryDirectory() as d:
+            _, first = train_launch.train_loop(small, 2, ckpt_dir=d, **kw)
+            resumed, rest = train_launch.train_loop(small, 3, ckpt_dir=d,
+                                                    resume=True, **kw)
+            saved = ckpt.available_steps(d)
+        whole, losses = train_launch.train_loop(small, 3, **kw)
+        k5_c = kernels.launch_counts()["flash_attention"] - before
+        dp = max((a - b).abs().max().item()
+                 for a, b in zip(resumed.parameters(), whole.parameters()))
+        log(f"phase 12 (c): {name} {cut or '(whole)'}, 2 x {seq} tokens: 2 "
+            f"steps {first} + resume {rest} against 3 steps {losses}; "
+            f"checkpoints {saved}; max |dparam| {dp!r}; K5 launches {k5_c}; "
+            f"{time.perf_counter() - t:.1f} s")
+        if saved != [2, 3] or first + rest != losses or dp != 0.0:
+            fail(f"phase 12 (c): {name}: the resumed run differs from the "
+                 "uninterrupted one")
+        del resumed, whole
+        torch.cuda.empty_cache()
+    log(f"phase 12: wall time {time.perf_counter() - t_phase:.1f} s; main "
+        f"path (b) launches {counts}")
+    return counts
 
 
 #: Kernel-name fragments of cuBLAS/CUTLASS products.

@@ -220,11 +220,19 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     query rows that may see it (chunks that the causal and window masks
     hide from every query are skipped): the scores in fp32, ``* 1/sqrt(D)``,
     the softcap ``c·tanh(s/c)``, ``P = exp(s - lse)`` zeroed where masked,
-    ``dV += Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS = P∘(dP - Δ)`` with
-    ``Δ = rowsum(dO∘O)``, ``dS ∘= 1 - tanh²`` through the softcap,
-    ``dQ += dS·K/sqrt(D)``, ``dK += dSᵀ·Q/sqrt(D)``. dK and dV are summed
-    over each GQA group; all three are cast to the inputs' type at the
-    end. The same function runs on the card and the CPU.
+    ``dV += Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS = P∘(dP - Δ)``, ``dS ∘= 1 -
+    tanh²`` through the softcap, ``dQ += dS·K/sqrt(D)``, ``dK +=
+    dSᵀ·Q/sqrt(D)``. dK and dV are summed over each GQA group; all three
+    are cast to the inputs' type at the end. The same function runs on
+    the card and the CPU.
+
+    ``Δ = rowsum(P∘dP)``, the softmax's own backward, where one chunk
+    holds every key; else ``rowsum(dO∘O)``, its value in exact
+    arithmetic, which needs no pass over the keys ahead of the loop but
+    reads the bf16 ``O``. Where attention is near uniform, ``dP - Δ``
+    cancels and that rounding of ``O`` grows to about 2% of max|dQ| and
+    max|dK| (whisper-tiny's 448-token decoder at random weights), which
+    the single-chunk case avoids for free.
     """
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -235,12 +243,13 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     def heads(t):                   # (b, s, h, d) -> (b, kv, g, s, d) fp32
         return t.float().reshape(b, -1, kv, g, d).permute(0, 2, 3, 1, 4)
 
-    qf, of, dof = heads(q), heads(o), heads(do)
+    qf, dof = heads(q), heads(do)
     kf = k.float().permute(0, 2, 1, 3).unsqueeze(2)   # (b, kv, 1, sk, d)
     vf = v.float().permute(0, 2, 1, 3).unsqueeze(2)
-    delta = (dof * of).sum(-1, keepdim=True)          # (b, kv, g, sq, 1)
+    one_chunk = sk <= chunk
+    if not one_chunk:                                 # (b, kv, g, sq, 1)
+        delta = (dof * heads(o)).sum(-1, keepdim=True)
     lse = lse.reshape(b, kv, g, sq, 1)
-    del of
     dq = torch.zeros((b, kv, g, sq, d), dtype=torch.float32, device=dev)
     dk = torch.zeros((b, kv, sk, d), dtype=torch.float32, device=dev)
     dv = torch.zeros((b, kv, sk, d), dtype=torch.float32, device=dev)
@@ -265,8 +274,9 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
             mask = mask & (kpos > qpos - window)
         p = s.sub_(lse[:, :, :, lo:hi]).exp_().masked_fill_(~mask, 0.0)
         dv[:, :, k0:k1] += (p.transpose(-1, -2) @ doc).sum(2)
-        ds = (doc @ vc.transpose(-1, -2)).sub_(delta[:, :, :, lo:hi])
-        ds.mul_(p)
+        ds = doc @ vc.transpose(-1, -2)
+        ds.sub_((p * ds).sum(-1, keepdim=True) if one_chunk
+                else delta[:, :, :, lo:hi]).mul_(p)
         del p
         if softcap:
             ds.mul_(t.square_().neg_().add_(1.0))

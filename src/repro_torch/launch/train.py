@@ -5,11 +5,13 @@
 
 The loop of ``repro.launch.train.train_loop``: weights drawn from a
 generator seeded with 0 on the device, ``OptConfig`` built as the
-reference builds it, batches from :mod:`repro_torch.train.data`, a
-resume from the newest valid checkpoint, and a save every ``save_every``
-steps and at the end, keeping the last 3. One card holds the step, so
-there is no mesh (``make_mesh_for`` is GSPMD placement, ROADMAP item
-13d). It runs on the card unless the caller passes ``device="cpu"``.
+reference builds it, batches from :mod:`repro_torch.train.data` (with
+zero ``frame_embeds`` for the audio family and zero ``patch_embeds`` for
+the VLM, fp32, as the reference adds them), a resume from the newest
+valid checkpoint, and a save every ``save_every`` steps and at the end,
+keeping the last 3. One card holds the step, so there is no mesh
+(``make_mesh_for`` is GSPMD placement, ROADMAP item 13d). It runs on the
+card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -53,11 +55,24 @@ def train_loop(cfg, steps: int, global_batch: int, seq_len: int,
             start_step = at
             print(f"[train] resumed from step {at}")
 
+    # The stubbed frontends' outputs, zero as the reference's loop makes
+    # them: whisper's frame embeddings, the VLM's patch embeddings.
+    extra = {}
+    if cfg.family == "audio":
+        extra["frame_embeds"] = torch.zeros(
+            (global_batch, cfg.n_audio_ctx, cfg.d_model),
+            dtype=torch.float32, device=dev)
+    if cfg.family == "vlm":
+        extra["patch_embeds"] = torch.zeros(
+            (global_batch, cfg.n_patches, cfg.d_model),
+            dtype=torch.float32, device=dev)
+
     step_fn = ts.make_train_step(cfg, ocfg, microbatches=microbatches)
     losses = []
     for s in range(start_step, steps):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in data_lib.global_batch(dcfg, s).items()}
+        batch.update(extra)
         t0 = time.perf_counter()
         metrics = step_fn(model, state, batch)
         loss = float(metrics["loss"])

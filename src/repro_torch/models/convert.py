@@ -4,7 +4,8 @@ The reference keeps a GNN's parameters as a list of per-layer dicts:
 ``[{"w": (d_in, d_out)}, ...]`` for GCN, plus ``"beta": ()`` per layer
 for AGNN; a language model's as one tree whose layer leaves are stacked
 over leading layer axes (``layers`` over ``n_layers``; the hybrid's
-``groups`` over groups and layers). These functions take such
+``groups`` over groups and layers), which :func:`param_layout` describes
+for every family. These functions take such
 trees as NumPy arrays (convert ``jax.Array`` leaves with ``np.asarray``
 first) and return the port's modules holding the same values, so both
 packages compute the same function. Like every entry point of the port
@@ -55,34 +56,61 @@ def _put(dst, src):
     dst.copy_(torch.from_numpy(np.array(src)))
 
 
-def _leaf(tree, name: str):
-    """The reference's leaf for a parameter's dotted name; a norm is a
-    ``{"scale"}`` dict in the reference and a bare parameter here."""
-    for part in name.split("."):
-        tree = tree[part]
-    return tree["scale"] if isinstance(tree, dict) else tree
+def param_layout(model) -> dict[tuple[str, ...], np.ndarray]:
+    """The reference's parameter tree of ``model``, any language-model
+    family: each leaf's path → the port's parameter names it holds, an
+    object array whose shape is the leaf's leading stacked axes (``()``
+    for a leaf that is not stacked).
+
+    One rule covers every family, read off the module tree: a parameter
+    named ``<container>.<i>[.<j>].<rest>`` lies at index ``(i[, j])`` of
+    the leaf ``(<container>, *<rest>)``; ``embedding`` is the reference's
+    ``("embed", "embedding")``; a norm (a name ending in ``norm``) is a
+    ``{"scale"}`` dict in the reference and a bare parameter here. So
+    ``layers`` (dense, VLM, MoE, SSM), ``enc_layers``/``dec_layers``
+    (audio) are stacked over the layers, the hybrid's ``groups`` over
+    ``(ngroups, every)`` and its ``tail`` over the tail's layers, and
+    ``shared_attn``, ``enc_norm``, ``final_norm`` stand alone. The
+    converters below and :mod:`repro_torch.train.checkpoint` both read it.
+    """
+    index: dict[tuple[str, ...], dict[tuple[int, ...], str]] = {}
+    for name, _ in model.named_parameters():
+        head, *rest = name.split(".")
+        idx = []
+        while rest and rest[0].isdigit():
+            idx.append(int(rest.pop(0)))
+        path = (head, *rest)
+        if path == ("embedding",):
+            path = ("embed", "embedding")
+        elif path[-1].endswith("norm"):
+            path += ("scale",)
+        index.setdefault(path, {})[tuple(idx)] = name
+    layout = {}
+    for path, names in index.items():
+        grid = np.empty(tuple(max(ix) + 1 for ix in zip(*names)),
+                        dtype=object)
+        for ix, name in names.items():
+            grid[ix] = name
+        layout[path] = grid
+    return layout
 
 
-def _put_module(module, tree, idx=()):
-    """Copy every parameter of ``module`` from ``tree``, each leaf indexed
-    by ``idx`` (the layer's place in a stacked tree)."""
-    for name, t in module.named_parameters():
-        _put(t, np.asarray(_leaf(tree, name))[idx])
+def ref_leaf(tree, path):
+    """The leaf of a nested-dict ``tree`` at ``path``."""
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
-def _put_outer(model, params):
-    """The embedding and the final norm."""
-    _put(model.embedding, params["embed"]["embedding"])
-    _put(model.final_norm, params["final_norm"]["scale"])
-
-
-def _load_stacked(model, params):
-    """Copy a tree whose ``layers`` leaves are stacked over the layers
-    into ``model`` (``embedding``, ``layers``, ``final_norm``)."""
+def _load_params(model, params):
+    """Copy the reference's tree ``params`` (array leaves) into ``model``
+    through :func:`param_layout`; returns ``model``."""
+    tensors = dict(model.named_parameters())
     with torch.no_grad():
-        _put_outer(model, params)
-        for i, lp in enumerate(model.layers):
-            _put_module(lp, params["layers"], i)
+        for path, names in param_layout(model).items():
+            leaf = np.asarray(ref_leaf(params, path))
+            for ix in np.ndindex(names.shape):
+                _put(tensors[names[ix]], leaf[ix])
     return model
 
 
@@ -97,7 +125,7 @@ def transformer_params_from_jax(params, cfg: ArchConfig,
     every ``layers`` leaf stacked over ``n_layers``.
     """
     model = Transformer(cfg, device=checked_device(device, "convert"))
-    return _load_stacked(model, params)
+    return _load_params(model, params)
 
 
 def moe_params_from_jax(params, cfg: ArchConfig,
@@ -110,7 +138,7 @@ def moe_params_from_jax(params, cfg: ArchConfig,
     over ``n_layers``.
     """
     model = MoETransformer(cfg, device=checked_device(device, "convert"))
-    return _load_stacked(model, params)
+    return _load_params(model, params)
 
 
 def mamba2_params_from_jax(params, cfg: ArchConfig,
@@ -121,7 +149,7 @@ def mamba2_params_from_jax(params, cfg: ArchConfig,
     ``a_log``, ``d_skip``, ``dt_bias``, ``gate_norm``, ``out_proj``, each
     stacked over ``n_layers``)."""
     model = Mamba2LM(cfg, device=checked_device(device, "convert"))
-    return _load_stacked(model, params)
+    return _load_params(model, params)
 
 
 def hybrid_params_from_jax(params, cfg: ArchConfig,
@@ -131,15 +159,7 @@ def hybrid_params_from_jax(params, cfg: ArchConfig,
     ``shared_attn`` (one attention + MLP block), ``tail`` (stacked over
     the tail's layers, when there is one), ``embed`` and ``final_norm``."""
     model = HybridLM(cfg, device=checked_device(device, "convert"))
-    with torch.no_grad():
-        _put_outer(model, params)
-        for g, group in enumerate(model.groups):
-            for j, lp in enumerate(group):
-                _put_module(lp, params["groups"], (g, j))
-        _put_module(model.shared_attn, params["shared_attn"])
-        for i, lp in enumerate(model.tail):
-            _put_module(lp, params["tail"], i)
-    return model
+    return _load_params(model, params)
 
 
 def whisper_params_from_jax(params, cfg: ArchConfig,
@@ -148,11 +168,4 @@ def whisper_params_from_jax(params, cfg: ArchConfig,
     ``enc_layers`` and ``dec_layers`` stacked over their layers,
     ``enc_norm``, ``embed`` and ``final_norm``."""
     model = Whisper(cfg, device=checked_device(device, "convert"))
-    with torch.no_grad():
-        _put_outer(model, params)
-        _put(model.enc_norm, params["enc_norm"]["scale"])
-        for i, lp in enumerate(model.enc_layers):
-            _put_module(lp, params["enc_layers"], i)
-        for i, lp in enumerate(model.dec_layers):
-            _put_module(lp, params["dec_layers"], i)
-    return model
+    return _load_params(model, params)

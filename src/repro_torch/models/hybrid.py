@@ -12,12 +12,17 @@ a sliding window, ``min(sliding_window, S + 1)``, and runs K5
 ``layers.decode_attention`` over a ring buffer of ``min(sliding_window,
 max_len)`` slots per application, which holds exactly the window's
 tokens, as the reference does. The residual stream stays in fp32, as in
-:mod:`repro_torch.models.mamba2`.
+:mod:`repro_torch.models.mamba2`. With ``cfg.remat`` and grad enabled
+each group (its Mamba2 layers, then the shared block) runs under
+``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` over a
+group; the tail runs without. The shared block's gradient sums over its
+applications.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import checked_device
 from repro_torch.models import layers as L
@@ -73,14 +78,24 @@ class HybridLM(nn.Module):
         h = L.rms_norm(x, sp.mlp_norm, cfg.norm_eps).to(cd)
         return x + L.mlp_block(sp.mlp, h, cfg)
 
+    def _group(self, group, x):
+        """A group's Mamba2 layers, then the shared block."""
+        for lp in group:
+            x = mamba2.apply_layer(lp, x, self.cfg)
+        return self._shared_attn_block(x)
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Prefill forward: logits (B, S, vocab) in fp32."""
         cfg = self.cfg
         x = L.embed(self.embedding, tokens, cfg).float()
+        remat = cfg.remat and torch.is_grad_enabled()
         for group in self.groups:
-            for lp in group:
-                x = mamba2.apply_layer(lp, x, cfg)
-            x = self._shared_attn_block(x)
+            if remat:
+                # The group draws no random numbers: no RNG state to keep.
+                x = checkpoint(self._group, group, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._group(group, x)
         for lp in self.tail:
             x = mamba2.apply_layer(lp, x, cfg)
         return mamba2.final_logits(self, x)

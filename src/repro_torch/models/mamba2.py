@@ -26,7 +26,11 @@ nothing changes.
 Each layer (:class:`Mamba2Layer`) holds the reference's leaves under
 their names: ``norm``, ``wz``, ``wx``, ``wb``, ``wc``, ``wdt``,
 ``conv_x``, ``conv_b``, ``conv_c``, ``a_log``, ``d_skip``, ``dt_bias``,
-``gate_norm``, ``out_proj``. Decoding (:meth:`Mamba2LM.decode_step`)
+``gate_norm``, ``out_proj``. With ``cfg.remat`` and grad enabled each
+layer of :meth:`Mamba2LM.forward` runs under ``torch.utils.checkpoint``
+(non-reentrant), the reference's per-layer ``jax.checkpoint(...,
+policy=nothing_saveable)``: the backward recomputes the layer's SSD from
+its input. Decoding (:meth:`Mamba2LM.decode_step`)
 carries an O(1) cache: each layer's recurrent state and the last
 ``ssm_conv - 1`` inputs of its causal convolutions, updated in place.
 """
@@ -37,6 +41,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import checked_device
 from repro_torch.models import layers as L
@@ -259,8 +264,14 @@ class Mamba2LM(nn.Module):
         """Prefill forward: logits (B, S, vocab) in fp32."""
         cfg = self.cfg
         x = L.embed(self.embedding, tokens, cfg).float()
+        remat = cfg.remat and torch.is_grad_enabled()
         for lp in self.layers:
-            x = apply_layer(lp, x, cfg)
+            if remat:
+                # The layer draws no random numbers: no RNG state to keep.
+                x = checkpoint(apply_layer, lp, x, cfg, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = apply_layer(lp, x, cfg)
         return final_logits(self, x)
 
     def decode_step(self, cache: dict, token: torch.Tensor, cache_len: int):

@@ -14,13 +14,19 @@ cache (``xk``/``xv``), as the reference does.
 
 Encoder layers are :class:`~repro_torch.models.transformer.Layer`
 (``attn_norm``, ``attn``, ``mlp_norm``, ``mlp``); decoder layers
-(:class:`DecoderLayer`) add ``xattn_norm`` and ``xattn``.
+(:class:`DecoderLayer`) add ``xattn_norm`` and ``xattn``. With
+``cfg.remat`` and grad enabled each decoder layer runs under
+``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` over a
+decoder layer: the cross attention is recomputed inside it, the cross
+K/V (``enc_kv``) stay outside as its inputs, and the encoder runs
+without.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import checked_device
 from repro_torch.models import layers as L
@@ -119,6 +125,17 @@ class Whisper(nn.Module):
         out = L.flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
         return out.reshape(b, s, -1) @ p["wo"].to(cd)
 
+    def _dec_layer(self, lp, ek, ev, x):
+        """One decoder layer: causal self-attention, cross attention over
+        the encoder's ``ek``, ``ev``, MLP."""
+        cfg, s = self.cfg, x.shape[1]
+        h = L.rms_norm(x, lp.attn_norm, cfg.norm_eps)
+        x = x + L.attention_block(lp.attn, h, cfg, layer_window=s + 1)
+        h = L.rms_norm(x, lp.xattn_norm, cfg.norm_eps)
+        x = x + self._cross_attention(lp.xattn, h, ek, ev)
+        h = L.rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+        return x + L.mlp_block(lp.mlp, h, cfg)
+
     def forward(self, tokens: torch.Tensor, *,
                 frame_embeds: torch.Tensor) -> torch.Tensor:
         """Teacher-forced forward: logits (B, Sd, vocab) in fp32 over the
@@ -126,14 +143,14 @@ class Whisper(nn.Module):
         cfg = self.cfg
         xk, xv = self.enc_kv(self.encode(frame_embeds))
         x = L.embed(self.embedding, tokens, cfg)
-        s = x.shape[1]
+        remat = cfg.remat and torch.is_grad_enabled()
         for lp, ek, ev in zip(self.dec_layers, xk, xv):
-            h = L.rms_norm(x, lp.attn_norm, cfg.norm_eps)
-            x = x + L.attention_block(lp.attn, h, cfg, layer_window=s + 1)
-            h = L.rms_norm(x, lp.xattn_norm, cfg.norm_eps)
-            x = x + self._cross_attention(lp.xattn, h, ek, ev)
-            h = L.rms_norm(x, lp.mlp_norm, cfg.norm_eps)
-            x = x + L.mlp_block(lp.mlp, h, cfg)
+            if remat:
+                # The layer draws no random numbers: no RNG state to keep.
+                x = checkpoint(self._dec_layer, lp, ek, ev, x,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = self._dec_layer(lp, ek, ev, x)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
         return L.unembed(self.embedding, x, cfg)
 

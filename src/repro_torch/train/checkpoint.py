@@ -17,10 +17,11 @@ The manifest's ``treedef`` is this module's own string (``repro_torch``
 and the tree with ``*`` for each leaf), not a ``jax`` treedef: the
 reference's restore reads only the leaves, in order, so each package
 restores the other's checkpoints. :func:`train_tree` and
-:func:`load_train_tree` carry a
-:class:`~repro_torch.models.transformer.Transformer` and its optimizer
-state to and from the reference's ``{"params": ..., "opt": ...}`` tree,
-whose ``layers`` leaves are stacked over a leading ``n_layers`` axis.
+:func:`load_train_tree` carry a model of any language-model family and
+its optimizer state to and from the reference's ``{"params": ...,
+"opt": ...}`` tree, whose leaves are stacked as
+:func:`repro_torch.models.convert.param_layout` describes (``layers``
+over ``n_layers``; the hybrid's ``groups`` over ``(ngroups, every)``).
 
 Guarantees: a crash mid-write leaves only a ``.tmp-*`` directory, which
 :func:`available_steps` ignores and :func:`clean_tmp` removes; a leaf
@@ -37,6 +38,8 @@ import uuid
 
 import numpy as np
 import torch
+
+from repro_torch.models.convert import param_layout, ref_leaf
 
 
 # ------------------------------------------------------------------ trees --
@@ -188,53 +191,40 @@ def keep_last(ckpt_dir: str, n: int = 3) -> None:
 
 
 # ------------------------------------------------- model and optimizer --
-#: The reference's dense parameter tree: path → the port's parameter
-#: name (``{i}``: a layer index; those leaves are stacked over layers).
-PARAM_PATHS = {
-    ("embed", "embedding"): "embedding",
-    ("final_norm", "scale"): "final_norm",
-    ("layers", "attn_norm", "scale"): "layers.{i}.attn_norm",
-    ("layers", "attn", "wq"): "layers.{i}.attn.wq",
-    ("layers", "attn", "wk"): "layers.{i}.attn.wk",
-    ("layers", "attn", "wv"): "layers.{i}.attn.wv",
-    ("layers", "attn", "wo"): "layers.{i}.attn.wo",
-    ("layers", "mlp_norm", "scale"): "layers.{i}.mlp_norm",
-    ("layers", "mlp", "wi_gate"): "layers.{i}.mlp.wi_gate",
-    ("layers", "mlp", "wi_up"): "layers.{i}.mlp.wi_up",
-    ("layers", "mlp", "wo"): "layers.{i}.mlp.wo",
-}
+def _param_tree(tensors: dict, layout: dict, leaf) -> dict:
+    def pick(names):
+        if isinstance(names, list):
+            return [pick(n) for n in names]
+        return tensors[names]
 
-
-def _param_tree(tensors: dict, n_layers: int, leaf) -> dict:
     tree: dict = {}
-    for path, name in PARAM_PATHS.items():
+    for path, names in layout.items():
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = leaf([tensors[name.format(i=i)]
-                               for i in range(n_layers)]
-                              if "{i}" in name else tensors[name])
+        node[path[-1]] = leaf(pick(names.tolist()))
     return tree
 
 
 def _stacked(ts):
     if isinstance(ts, list):
-        return np.stack([_to_numpy(t) for t in ts])
+        return np.stack([_stacked(t) for t in ts])
     return _to_numpy(ts)
 
 
 def train_tree(model, opt_state: dict, *, leaf=_stacked) -> dict:
     """The reference's ``{"params": ..., "opt": {"mu", "nu", "step"}}``
-    tree of ``model`` (a dense Transformer) and its optimizer state, with
-    host numpy leaves, each ``layers`` leaf stacked over the layers.
-    ``leaf`` maps a tensor, or a layer leaf's list of tensors, to the
-    tree's leaf (a structure-only tree for :func:`restore_latest`:
+    tree of ``model`` (any language-model family) and its optimizer
+    state, with host numpy leaves stacked as
+    :func:`~repro_torch.models.convert.param_layout` says. ``leaf`` maps
+    a tensor, or a stacked leaf's (nested) list of tensors, to the tree's
+    leaf (a structure-only tree for :func:`restore_latest`:
     ``leaf=lambda ts: None``)."""
-    n = len(model.layers)
+    layout = param_layout(model)
     params = dict(model.named_parameters())
-    return {"params": _param_tree(params, n, leaf),
-            "opt": {"mu": _param_tree(opt_state["mu"], n, leaf),
-                    "nu": _param_tree(opt_state["nu"], n, leaf),
+    return {"params": _param_tree(params, layout, leaf),
+            "opt": {"mu": _param_tree(opt_state["mu"], layout, leaf),
+                    "nu": _param_tree(opt_state["nu"], layout, leaf),
                     "step": leaf(opt_state["step"])}}
 
 
@@ -250,18 +240,13 @@ def load_train_tree(model, opt_state: dict, tree: dict) -> None:
                              f"fit {tuple(dst.shape)}")
         dst.copy_(src)
 
-    n = len(model.layers)
+    layout = param_layout(model)
     params = dict(model.named_parameters())
     for tensors, sub in ((params, tree["params"]),
                          (opt_state["mu"], tree["opt"]["mu"]),
                          (opt_state["nu"], tree["opt"]["nu"])):
-        for path, name in PARAM_PATHS.items():
-            src = sub
-            for key in path:
-                src = src[key]
-            if "{i}" in name:
-                for i in range(n):
-                    put(tensors[name.format(i=i)], src[i])
-            else:
-                put(tensors[name], src)
+        for path, names in layout.items():
+            src = ref_leaf(sub, path)
+            for ix in np.ndindex(names.shape):
+                put(tensors[names[ix]], src[ix])
     put(opt_state["step"], tree["opt"]["step"])

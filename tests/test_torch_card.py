@@ -1,5 +1,6 @@
 """Kernels on the card against their plain twins: K5 and the dense path
-(scoring, and training through K5's autograd Function), the MoE family
+(scoring, and training through K5's autograd Function, also at the
+other families' training shapes), the MoE family
 (scoring through K5, and its dispatch matrix through ``LibraSpMM``), the
 SSM, hybrid, audio and VLM families (scoring through K5 at full width,
 K5 at head dim 112 and at whisper's non-causal shapes),
@@ -261,6 +262,44 @@ def test_function_grads_match_twin_autograd(card, d, window, cap):
         ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
         grads.append(torch.autograd.grad(fn(*ins), ins, do))
     for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16
+        got, want = got.float(), want.float()
+        assert bool(torch.isfinite(got).all())
+        err = (got - want).abs().max().item()
+        assert err <= REL * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("case", [
+    # b, sq, sk, h, kv, d, causal, window
+    (8, 448, 1500, 6, 6, 64, False, 448 + 1500 + 1),
+    (8, 1500, 1500, 6, 6, 64, False, 1500 + 1500 + 1),
+    (1, 6144, 6144, 4, 4, 112, True, 4096),
+    (1, 2048, 2048, 28, 4, 128, True, 0),
+], ids=["whisper-cross", "whisper-encoder", "zamba2-d112-window",
+        "qwen2-vl-gqa-28-4"])
+def test_function_grads_at_family_shapes(card, case):
+    """The Function (K5 forward with its logsumexp, the chunked backward
+    over 1024-key chunks) against plain autograd through the twin at the
+    families' training shapes: whisper's non-causal cross attention (Sq
+    != Sk) and encoder (1500 = 23·64 + 28 keys) with the window
+    ``sk + sq + 1`` the layers pass for "none", zamba2's head dim 112
+    with its window (heads cut to 4 so the twin's autograd fits), and
+    qwen2-vl's seven query heads a KV head. Within 2e-2·max|ref|: the two
+    round P and dP to bf16 at different points."""
+    b, sq, sk, h, kv, d, causal, window = case
+    q, k, v = _qkv(card, b, sq, sk, h, kv, d, torch.bfloat16, seed=sq + d)
+    do = torch.randn(q.shape, generator=torch.Generator(card).manual_seed(7),
+                     device=card).to(torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    outs, grads = [], []
+    for fn in (lambda *t: fa.flash_attention_grad(*t, chunk=1024, **kw),
+               lambda *t: fa.flash_attention_ref(*t, **kw)):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*ins)
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, ins, do))
+        del ins, out
+    for got, want in zip((outs[0], *grads[0]), (outs[1], *grads[1])):
         assert got.dtype == torch.bfloat16
         got, want = got.float(), want.float()
         assert bool(torch.isfinite(got).all())

@@ -35,6 +35,15 @@ CASES = {
     "gemma2_like": (1, 70, 70, 4, 2, 16, True, 24, 50.0, 0, 16),
     "not_causal": (1, 30, 45, 2, 2, 8, False, None, 0.0, 0, 16),
     "q_offset": (1, 24, 56, 4, 2, 8, True, 40, 50.0, 32, 16),
+    # The families' shapes, small: whisper's cross attention (non-causal,
+    # Sq != Sk, a ragged last key block), zamba2's head dim 112 with its
+    # window, qwen2-vl's seven query heads a KV head (28/4).
+    "cross_d112": (2, 24, 75, 2, 2, 112, False, None, 0.0, 0, 32),
+    "window_d112": (1, 72, 72, 2, 2, 112, True, 24, 0.0, 0, 32),
+    "gqa_7": (1, 40, 40, 14, 2, 16, True, None, 0.0, 0, 16),
+    # One chunk holds every key: Δ from P and dP (whisper's decoder).
+    "one_chunk": (2, 48, 48, 4, 2, 16, True, None, 0.0, 0, 64),
+    "one_chunk_softcap": (1, 40, 40, 4, 2, 16, True, 24, 50.0, 0, 64),
 }
 REL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -171,3 +180,61 @@ def test_fused_under_grad_goes_through_the_function():
     out = fa.flash_attention_fused(q, k, v, causal=True, softcap=50.0)
     assert "FlashAttention" in str(type(out.grad_fn))
     assert torch.equal(out.detach(), want)
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (False, None, 0), (False, 20, 0), (True, None, 0), (True, 20, 0),
+    (True, 40, 32), (False, 33, 5)])
+def test_visible_rows_hold_every_row_that_sees_the_chunk(causal, window,
+                                                         q_offset):
+    """``_visible_rows`` against the mask itself: every query row with an
+    unmasked key in a chunk lies in the chunk's ``[lo, hi)``, and the
+    rows it leaves out see none. A non-causal call whose window is the
+    layers' ``sk + sq + 1`` (whisper's encoder and cross attention) keeps
+    every row of every chunk."""
+    sq, sk, chunk = 30, 75, 16
+    window = sk + sq + 1 if window is None else window
+    qpos = q_offset + np.arange(sq)[:, None]
+    kpos = np.arange(sk)[None, :]
+    mask = kpos > qpos - window
+    if causal:
+        mask &= kpos <= qpos
+    for k0 in range(0, sk, chunk):
+        k1 = min(k0 + chunk, sk)
+        lo, hi = fa._visible_rows(k0, k1, sq, causal=causal, window=window,
+                                  q_offset=q_offset)
+        rows = np.flatnonzero(mask[:, k0:k1].any(1))
+        assert all(lo <= r < hi for r in rows), (k0, lo, hi, rows)
+        if not causal and window == sk + sq + 1:
+            assert (lo, hi) == (0, sq)
+
+
+@pytest.mark.parametrize("chunk", [128, 96])
+def test_one_chunk_backward_holds_near_uniform_attention(chunk):
+    """Where one chunk holds every key, Δ is the softmax's own
+    ``rowsum(P∘dP)``. Values that share one large component (near-uniform
+    attention over similar values, as in whisper's decoder at random
+    weights) make ``dP - Δ`` cancel; ``rowsum(dO∘O)`` over the bf16 ``O``
+    then puts dQ and dK about 10% of max|ref| from the exact gradient
+    here, where this Δ keeps every gradient within 1e-2·max|ref| of
+    autograd through the twin in fp32 on the same bf16 values (0.23% the
+    worst measured, the final cast to bf16)."""
+    rng = np.random.default_rng(5)
+    b, s, h, d = 2, 96, 4, 32
+    q, k = (0.05 * rng.standard_normal((b, s, h, d)) for _ in range(2))
+    v = (4 * rng.standard_normal((1, 1, h, d))
+         + 0.1 * rng.standard_normal((b, s, h, d)))
+    ct = rng.standard_normal((b, s, h, d))
+    q, k, v, ct = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+                   for a in (q, k, v, ct))
+    exact = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_ref(*exact, causal=True),
+                               exact, ct.float())
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention_grad(*ins, causal=True,
+                                                      chunk=chunk), ins, ct)
+    for label, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16, label
+        torch.testing.assert_close(g.float(), w, rtol=0,
+                                   atol=1e-2 * w.abs().max().item(),
+                                   msg=label)

@@ -47,7 +47,10 @@ from repro_torch.launch import flops
 from repro_torch.launch.train import train_loop
 from repro_torch.models import api
 from repro_torch.models import config as tconfig
-from repro_torch.models.convert import transformer_params_from_jax
+from repro_torch.models.convert import (
+    param_layout,
+    transformer_params_from_jax,
+)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import data
 from repro_torch.train import optimizer as opt
@@ -87,11 +90,11 @@ def _batch(vocab, b, s, seed):
             "labels": labels.astype(np.int32)}
 
 
-def _port_leaf(tensors, name, stacked_n):
-    if "{i}" in name:
-        return np.stack([tensors[name.format(i=i)].detach().float().numpy()
-                         for i in range(stacked_n)])
-    return tensors[name].detach().float().numpy()
+def _port_leaf(tensors, names):
+    """The port's leaf stacked as ``param_layout`` names it."""
+    leaf = np.stack([tensors[n].detach().float().numpy()
+                     for n in names.flat])
+    return leaf.reshape(names.shape + leaf.shape[1:])
 
 
 def _ref_leaf(tree, path):
@@ -123,9 +126,11 @@ def test_loss_and_grads_match_jax(arch, compute_dtype):
     rel = 1e-4 if compute_dtype == "float32" else 3e-2
     np.testing.assert_allclose(loss, float(jloss),
                                rtol=1e-5 if rel == 1e-4 else 1e-3)
-    for path, name in ckpt.PARAM_PATHS.items():
+    layout = param_layout(model)
+    assert len(layout) == len(jax.tree.leaves(jgrads))
+    for path, names in layout.items():
         want = _ref_leaf(jgrads, path)
-        got = _port_leaf(grads, name, cfg.n_layers)
+        got = _port_leaf(grads, names)
         assert got.shape == want.shape, path
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=rel * np.abs(want).max(),
@@ -336,11 +341,11 @@ def test_reference_checkpoint_restores_into_port(tmp_path):
     assert step == 7
     ckpt.load_train_tree(model, state, tree)
     params = dict(model.named_parameters())
-    for path, name in ckpt.PARAM_PATHS.items():
+    for path, names in param_layout(model).items():
         for tensors, ref in ((params, jp), (state["mu"], jst["mu"]),
                              (state["nu"], jst["nu"])):
             np.testing.assert_array_equal(
-                _port_leaf(tensors, name, cfg.n_layers),
+                _port_leaf(tensors, names),
                 _ref_leaf(ref, path), err_msg=str(path))
     assert state["mu"]["embedding"].dtype == torch.bfloat16
     assert int(state["step"]) == int(jst["step"]) == 1
@@ -420,8 +425,8 @@ def test_step_matches_hand_composed_reference(microbatches):
     np.testing.assert_allclose(float(m["grad_norm"]),
                                float(jm["grad_norm"]), rtol=1e-4)
     params = dict(model.named_parameters())
-    for path, name in ckpt.PARAM_PATHS.items():
-        np.testing.assert_allclose(_port_leaf(params, name, cfg.n_layers),
+    for path, names in param_layout(model).items():
+        np.testing.assert_allclose(_port_leaf(params, names),
                                    _ref_leaf(jp2, path), rtol=2e-3,
                                    atol=2e-5, err_msg=str(path))
     assert all(p.grad is None for p in params.values())
