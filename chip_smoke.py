@@ -202,6 +202,31 @@ Phases:
     products, rest) with the idle share; (c) checkpoint and resume at a
     reduced width against an uninterrupted run, bit for bit (MoE too:
     the gathers' backward accumulates in a fixed order on the card).
+13. GSPMD placement on one card (``dist/sharding.py``,
+    ``launch/mesh.py``, the steps on a mesh, ``train/compress.py``,
+    ``train/elastic.py``), every mesh position on ``cuda:0``: (a)
+    ``param_shardings`` of gemma2-9b, moonshot-v1-16b-a3b,
+    qwen3-moe-235b-a22b and zamba2-7b at published shapes (``meta``) on
+    ``make_production_mesh()`` and ``multi_pod=True``: leaves sharded and
+    replicated, the largest position's parameter bytes against the whole
+    model's; (b) moonshot at full width, 2 layers, 2 × 4096 tokens on a
+    (2, 4) mesh (gd 2, gm 4, capacity 120): logits and one training
+    microbatch's gradients through the expert-parallel exchange against
+    the no-mesh functions composed over the 8 groups (routing pinned),
+    within 2e-2·max|ref|, a (1, 1) mesh against no mesh bit for bit, the
+    request timed both ways; (c) gemma2-9b, 2 layers, 1 × 8192 tokens on
+    a (1, 16) mesh: K and V repeated twice, K5 at 16/16 and D=256,
+    logits equal to those without a mesh bit for bit, K5 timed at 16/16
+    against 16/8; (d) on ``make_mesh_for(1)``, one training step equal
+    to ``mesh=None``'s bit for bit, ``generate`` equal to a hand loop
+    over ``decode_step``, mamba2-130m's serve step the argmax of its
+    logits; (e) the int8 cross-pod mean of (d)'s layer gradients over 4
+    members within 2·max|g|/127 of the fp32 mean, ``q·scale + err ==
+    g32`` exactly, one leaf on the card equal to the CPU bit for bit,
+    timed; (f) (d)'s parameters and AdamW state through ``remesh_live``
+    on (1, 1) → (2, 2) → (2, 2, 2) → (1, 1) bit for bit, every block a
+    view, and ``degrade_plan``'s three cases. Wall time and peak memory
+    printed.
 
 Phases 2 and 3 are the GNN inference path, phase 5's steps the GNN
 training path, phase 6's tuned operators the tuned path, phase 7's served
@@ -209,7 +234,9 @@ flushes the serving path, phase 8's sharded applies, requests, steps and
 flushes the sharded path, phase 10 (c)'s requests and ``generate`` the
 MoE path, phase 11 (c)'s requests and ``generate`` the
 SSM/hybrid/audio/VLM path, phase 12 (b)'s loops the training path of
-every family, and phase 4's (a) and (c) the dense main path:
+every family, phase 13's requests, microbatch, step and ``generate`` on
+their meshes the placement path, and phase 4's (a) and (c) the dense
+main path:
 every kernel's launch counter is set to 0 just before each path and read
 just after it; within phase 6, the counts
 of each part are read as it ends, and those of the Fig. 11 sweep and of
@@ -311,15 +338,17 @@ PEAK_OPS = {"tf32": 495e12, "fp32": 67e12, "bf16": 989e12}
 #   attention at random weights (whisper's decoder) makes dP − Δ cancel,
 #   and both bf16 gradients of its q and k projections then lie 2-5% of
 #   max|g32| from the exact one (fp32 compute through the twin in fp32).
-#   Where one chunk holds every key (whisper's 448-token decoder), the
-#   backward's Δ is rowsum(P∘dP), as autograd's softmax backward has it.
+#   The backward's Δ is rowsum(P∘dP) in fp32, as autograd's softmax
+#   backward has it: inside its loop where one chunk holds every key
+#   (whisper's 448-token decoder), else from a pass over the key chunks
+#   ahead of the loop.
 #   Phase 12 (a) lets the exact gradient decide a tensor beyond the
 #   bound, where rounding puts either bf16 gradient more than
 #   2e-2·max|g32| from it: K5's max|Δ| from g32 within 2e-2·max|g32|, or
 #   at most 1.5 times the twin's. Measured by tools/grad_spread.py over
 #   six seeds of whisper-tiny on an H100: 5 tensors beyond the bound (up
-#   to 3.1% of max|ref|; 20, up to 3.3%, with Δ = rowsum(dO∘O) over the
-#   bf16 O), K5's distance to g32 on them 0.62-1.46 times the twin's; in
+#   to 3.1% of max|ref|; 20, up to 3.3%, with the earlier Δ =
+#   rowsum(dO∘O) over the bf16 O), K5's distance to g32 on them 0.62-1.46 times the twin's; in
 #   L2, over every tensor, 0.84-1.25 times, and the two at most 1.9%
 #   apart;
 # - K5's logsumexp against the twin's: 1e-3 absolute (ex2.approx and
@@ -1070,6 +1099,10 @@ def main(argv=None) -> int:
     training_counts = training_phase(torch, np, dev, log, fail, kernels,
                                      get_config)
 
+    # ------------------------------------------------ phase 13: placement
+    placement_counts = placement_phase(torch, np, dev, log, fail, compare,
+                                       kernels, get_config, median_ms)
+
     # ------------------------------------------------ timing and bounds
     def rows_read(*ids):
         """Distinct rows that the index tensors ``ids`` name together: the
@@ -1114,7 +1147,8 @@ def main(argv=None) -> int:
         f"{moe_counts['flash_attention']}, SSM/hybrid/audio/VLM "
         f"{family_counts['flash_attention']}, training "
         + ", ".join(f"{arch} {c['flash_attention']}"
-                    for arch, c in training_counts.items()))
+                    for arch, c in training_counts.items())
+        + f", placement {placement_counts['flash_attention']}")
 
     def record(name, label, ms, plain_ms, library_ms, nb, ops):
         """Log one kernel's times and bound; at the kernel's shape in
@@ -1135,6 +1169,7 @@ def main(argv=None) -> int:
             "launches": (dense_counts[name] + moe_counts[name]
                          + family_counts[name]
                          + sum(c[name] for c in training_counts.values())
+                         + placement_counts[name]
                          if name == "flash_attention"
                          else gnn_counts[name]),
             "max_abs_err": twin_err[(name, label)], "ms": ms,
@@ -1855,9 +1890,9 @@ def function_phase(torch, dev, log, fail, compare, get_config, median_ms):
         fwd_ms = median_ms(lambda: fa.flash_attention_fused(q, k, v, **kw))
         fwd_lse_ms = median_ms(lambda: fa._forward(q, k, v, *args, True))
         bwd_ms = median_ms(lambda: fa.flash_attention_bwd_ref(
-            q, k, v, out, lse, do, chunk=cfg.attn_chunk, **kw), reps=5)
+            q, k, v, lse, do, chunk=cfg.attn_chunk, **kw), reps=5)
         bwd_launches = device_launches(torch, lambda: fa.flash_attention_bwd_ref(
-            q, k, v, out, lse, do, chunk=cfg.attn_chunk, **kw))
+            q, k, v, lse, do, chunk=cfg.attn_chunk, **kw))
         log(f"  {label}: K5 forward {fwd_ms:.4f} ms ({fwd_lse_ms:.4f} ms "
             f"with lse); backward (plain PyTorch, {cfg.attn_chunk}-key "
             f"chunks) {bwd_ms:.4f} ms over {bwd_launches} launches")
@@ -3000,7 +3035,7 @@ def training_phase(torch, np, dev, log, fail, kernels, get_config):
         _, _, _, (pmodel, pstate, pbatch) = records[-1]
         pbatch = {k: v[:global_batch // microbatches]
                   for k, v in pbatch.items()}
-        step = real_make(cfgd, ocfg, 1)
+        step = real_make(cfgd, ocfg, microbatches=1)
         profile_training_step(
             torch, log, f"{name} ({depth} layers) training step of one "
             "microbatch", lambda: step(pmodel, pstate, pbatch),
@@ -3036,6 +3071,437 @@ def training_phase(torch, np, dev, log, fail, kernels, get_config):
         torch.cuda.empty_cache()
     log(f"phase 12: wall time {time.perf_counter() - t_phase:.1f} s; main "
         f"path (b) launches {counts}")
+    return counts
+
+
+#: Phase 13 (a)'s models, at published width and depth, built on the
+#: ``meta`` device: shapes only.
+PLACEMENT_MODELS = ("gemma2-9b", "moonshot-v1-16b-a3b",
+                    "qwen3-moe-235b-a22b", "zamba2-7b")
+
+
+def placement_phase(torch, np, dev, log, fail, compare, kernels, get_config,
+                    median_ms):
+    """Phase 13: GSPMD placement on one card.
+
+    (a) ``param_shardings`` of :data:`PLACEMENT_MODELS` on
+    ``make_production_mesh()`` and ``multi_pod=True`` (256 and 512
+    positions, all on ``cuda:0``): the reference's leaves sharded and
+    replicated, and the largest per-position parameter bytes against the
+    whole model's; (b) moonshot-v1-16b-a3b at full width, 2 layers, 2 ×
+    4096 tokens on a ``(2, 4)`` mesh (gd 2, gm 4, 1024 tokens a group,
+    capacity 120): logits and one training microbatch's gradients
+    through the expert-parallel exchange against the no-mesh functions
+    composed by hand over the 8 groups (routing pinned), a ``(1, 1)``
+    mesh against no mesh bit for bit, and the request timed both ways;
+    (c) gemma2-9b at full width, 2 layers, 1 × 8192 tokens on a ``(1,
+    16)`` mesh: K and V repeated twice, K5 at 16/16 heads, logits equal
+    to those without a mesh bit for bit, K5 timed at 16/16 against
+    16/8; (d) on ``make_mesh_for(1)``: (c)'s model takes one training
+    step that equals the step with ``mesh=None`` bit for bit,
+    ``generate`` equals a hand loop over ``decode_step``, and
+    mamba2-130m's serve step returns the argmax of its logits; (e) the
+    cross-pod int8 mean of (d)'s layer gradients over a ``pod`` axis of
+    4 members against the fp32 mean, ``quantize_leaf``'s exact
+    decomposition, one leaf on the card against the CPU bit for bit;
+    (f) (d)'s parameters and AdamW state through ``remesh_live`` on (1,
+    1) → (2, 2) → (2, 2, 2) → (1, 1), bit for bit, and
+    ``degrade_plan``'s three cases.
+
+    Returns the launch counts of the paths it drives: (b)'s and (c)'s
+    requests and (b)'s microbatch on their meshes, (d)'s step and
+    ``generate``."""
+    import contextlib
+    import math
+    from unittest import mock
+
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.train import make_mesh_for
+    from repro_torch.models import api, layers, moe
+    from repro_torch.train import compress, elastic
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    t_phase = time.perf_counter()
+    gib = 2**30
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts = dict.fromkeys(kernels.launch_counts(), 0)
+
+    def driven(fn):
+        """A main-path call: the counts set to 0 just before, read and
+        added to the phase's just after."""
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        for k, v in got.items():
+            counts[k] += v
+        return out, got["flash_attention"]
+
+    # (a) The rules at deployment scale, from shapes alone.
+    for name in PLACEMENT_MODELS:
+        t = time.perf_counter()
+        model = api.init_params(None, get_config(name), device="meta")
+        params = dict(model.named_parameters())
+        whole = sum(p.numel() * p.element_size() for p in params.values())
+        for label, mesh in (("(16, 16)", mesh_lib.make_production_mesh()),
+                            ("(2, 16, 16)", mesh_lib.make_production_mesh(
+                                multi_pod=True))):
+            specs = sh.leaf_specs(mesh, params)
+            sharded = sum(any(e is not None for e in spec)
+                          for _, spec in specs.values())
+            per_pos = np.zeros(mesh.size)
+            index = {pos: i for i, pos in enumerate(mesh.positions())}
+            for pname, s in sh.param_shardings(mesh, params).items():
+                p = params[pname]
+                block = math.prod(s.shard_shape(p.shape)) * p.element_size()
+                held = [index[pos] for pos, idx in s.indices_map(
+                    p.shape).items() if idx is not None]
+                per_pos[held] += block
+            if not 0 < per_pos.max() <= whole:
+                fail(f"phase 13 (a): {name} on {label}: {per_pos.max()} "
+                     f"bytes a position of {whole}")
+            log(f"phase 13 (a): {name} on {label} ({mesh.size} positions "
+                f"on {sorted({str(d) for d in mesh.devices.flat})}): "
+                f"{sharded} of {len(specs)} leaves sharded, "
+                f"{len(specs) - sharded} replicated; largest position "
+                f"{per_pos.max() / gib:.3f} GiB of the whole "
+                f"{whole / gib:.2f} GiB ({per_pos.max() / whole:.4f}), "
+                f"smallest {per_pos.min() / gib:.3f} GiB")
+        log(f"phase 13 (a): {name}: {time.perf_counter() - t:.1f} s")
+        del model, params
+
+    # (b) The expert-parallel exchange at full width.
+    t = time.perf_counter()
+    cfg = get_config("moonshot-v1-16b-a3b").scaled(n_layers=2)
+    model = api.init_params(torch.Generator(dev).manual_seed(130), cfg,
+                            device=dev)
+    g = torch.Generator(dev).manual_seed(131)
+    toks = torch.randint(0, cfg.vocab, (2, 4096), generator=g, device=dev)
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+    mesh8 = sh.make_mesh((2, 4), ("data", "model"))
+    with sh.activation_context(mesh8):
+        gd, gm = sh.batch_shard_count(), sh.model_axis_size()
+    tg = (2 // gd) * (4096 // gm)
+    cap = max(4, min(int(cfg.capacity_factor * tg * cfg.top_k
+                         / cfg.n_experts), tg))
+    log(f"phase 13 (b): moonshot-v1-16b-a3b, 2 layers at full width, 2 x "
+        f"4096 tokens on {mesh8}: gd {gd}, gm {gm}, {tg} tokens a group, "
+        f"capacity {cap}, {cfg.n_experts // gm} experts a model rank")
+    if (gd, gm, tg, cap) != (2, 4, 1024, 120):
+        fail(f"phase 13 (b): groups {(gd, gm, tg, cap)}, not (2, 4, 1024, "
+             "120)")
+    real_block = moe.moe_block
+
+    def composed(p, x, cfg_):
+        """The no-mesh functions over the 8 groups by hand: each group's
+        dispatch at the group capacity, all experts, its combine."""
+        b, s, d = x.shape
+        e, k = cfg_.n_experts, cfg_.top_k
+        cd = layers.dtype_of(cfg_, "compute_dtype")
+        topv, topi, aux = moe.router_topk(x.float() @ p["router"], k)
+        bl, sl = b // gd, s // gm
+        rows = []
+        for di in range(gd):
+            cols = []
+            for mj in range(gm):
+                blk = (slice(di * bl, (di + 1) * bl),
+                       slice(mj * sl, (mj + 1) * sl))
+                buf, slot = moe._local_dispatch(
+                    x[blk].reshape(bl * sl, d), topi[blk].reshape(bl * sl, k),
+                    e, k, cap, cd)
+                cols.append(moe._local_combine(
+                    moe._experts(p, buf, cd), slot,
+                    topv[blk].reshape(bl * sl, k).to(cd)).reshape(bl, sl, d))
+            rows.append(torch.cat(cols, dim=1))
+        out = torch.cat(rows)
+        if cfg_.n_shared_experts:
+            out = out + layers.mlp_block(p["shared"], x, cfg_)
+        return out, aux
+
+    patch, rec = routing(torch, moe)
+    with torch.no_grad(), patch, sh.activation_context(mesh8):
+        (out_ep, _), k5_b = driven(lambda: api.forward_logits(
+            model, {"tokens": toks}, cfg))
+    patch, pinned = routing(torch, moe, pin=rec["topi"].__getitem__)
+    with torch.no_grad(), patch, mock.patch.object(moe, "moe_block",
+                                                   composed):
+        out_comp, _ = api.forward_logits(model, {"tokens": toks}, cfg)
+    log(f"phase 13 (b): logits through the exchange (K5 launches {k5_b}) "
+        f"against the composition, routing pinned ({pinned['apart']} of "
+        f"{2 * 2 * 4096} (token, layer) choices of the composition's own "
+        f"differ; smallest gap {rec['gap']:.3e})")
+    compare("phase 13 (b) logits, exchange against composition", out_ep,
+            out_comp, "bf16")
+    del out_comp
+    with torch.no_grad():
+        plain, _ = api.forward_logits(model, {"tokens": toks}, cfg)
+        with sh.activation_context(make_mesh_for(1)):
+            one, _ = api.forward_logits(model, {"tokens": toks}, cfg)
+    if not torch.equal(plain, one):
+        fail("phase 13 (b): the (1, 1) mesh's logits differ from no mesh's")
+    log("phase 13 (b): the (1, 1) mesh's logits equal no mesh's bit for "
+        "bit")
+    del plain, one, out_ep
+
+    def grads_of(*patches):
+        """One training microbatch's gradients under ``patches``."""
+        model.zero_grad(set_to_none=True)
+        with contextlib.ExitStack() as stack:
+            for cm in patches:
+                stack.enter_context(cm)
+            api.loss_fn(model, batch, cfg).backward()
+        out = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    patch, rec = routing(torch, moe)
+    g_ep, k5_bt = driven(lambda: grads_of(patch,
+                                          sh.activation_context(mesh8)))
+    patch, pinned = routing(torch, moe, pin=rec["topi"].__getitem__)
+    g_comp = grads_of(patch, mock.patch.object(moe, "moe_block", composed))
+    log(f"phase 13 (b): one training microbatch through the exchange (K5 "
+        f"launches {k5_bt}) against the composition's autograd, routing "
+        f"pinned ({pinned['apart']} choices apart)")
+    worst = max((compare(f"phase 13 (b) d{n}", g_ep[n], g_comp[n], "grad")
+                 / max(g_comp[n].abs().max().item(), 1e-30), n)
+                for n in g_comp)
+    log(f"phase 13 (b): gradients at most {worst[0]:.3e}*max|ref| apart "
+        f"({worst[1]})")
+    del g_ep, g_comp
+
+    def request(mesh):
+        def run():
+            with torch.no_grad():
+                if mesh is None:
+                    return api.forward_logits(model, {"tokens": toks}, cfg)
+                with sh.activation_context(mesh):
+                    return api.forward_logits(model, {"tokens": toks}, cfg)
+        return run
+
+    ep_ms = median_ms(request(mesh8), reps=3)
+    flat_ms = median_ms(request(None), reps=3)
+    log(f"phase 13 (b): a 2 x 4096 request {ep_ms:.1f} ms on the (2, 4) "
+        f"mesh (8 groups of capacity {cap}), {flat_ms:.1f} ms without one "
+        f"(one group of 8192 tokens, capacity "
+        f"{moe._capacity(cfg, 8192, 4)}); {time.perf_counter() - t:.1f} s")
+    del model, batch, toks, labels
+    torch.cuda.empty_cache()
+
+    # (c) K and V repeated under a model axis of 16.
+    t = time.perf_counter()
+    cfg = get_config("gemma2-9b").scaled(n_layers=2)
+    model = api.init_params(torch.Generator(dev).manual_seed(132), cfg,
+                            device=dev)
+    g = torch.Generator(dev).manual_seed(133)
+    toks = torch.randint(0, cfg.vocab, (1, 8192), generator=g, device=dev)
+    mesh16 = sh.make_mesh((1, 16), ("data", "model"))
+    shapes = []
+    real_fused = layers.flash_attention_fused
+
+    def seen(q, k, v, **kw):
+        shapes.append((q.shape[2], k.shape[2], q.shape[3]))
+        return real_fused(q, k, v, **kw)
+
+    with torch.no_grad(), mock.patch.object(layers, "flash_attention_fused",
+                                            seen):
+        with sh.activation_context(mesh16):
+            rep = sh.kv_repeat_for_tp(cfg.n_kv, cfg.n_heads)
+            (out16, _), k5_c = driven(lambda: api.forward_logits(
+                model, {"tokens": toks}, cfg))
+        out8, _ = api.forward_logits(model, {"tokens": toks}, cfg)
+    log(f"phase 13 (c): gemma2-9b, 2 layers at full width, 1 x 8192 tokens "
+        f"on {mesh16}: kv_repeat_for_tp({cfg.n_kv}, {cfg.n_heads}) = {rep}; "
+        f"K5 launched {k5_c} times at (heads, KV heads, D) {shapes[:k5_c]}, "
+        f"then {shapes[k5_c:]} without the mesh")
+    if rep != 2 or k5_c != 2 or shapes[:2] != [(16, 16, 256)] * 2 \
+            or shapes[2:] != [(16, 8, 256)] * 2:
+        fail(f"phase 13 (c): repeat {rep}, K5 at {shapes}")
+    if not torch.equal(out16, out8):
+        fail("phase 13 (c): the logits under the KV repeat differ from "
+             f"those without: max|d| {max_abs(torch, out16, out8)}")
+    log("phase 13 (c): logits under the repeat equal those without, bit for "
+        "bit")
+    del out16, out8
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((1, 8192, 16, 256), (1, 8192, 8, 256),
+                             (1, 8192, 8, 256)))
+    kr, vr = (t_.repeat_interleave(2, dim=2) for t_ in (k, v))
+    kw = dict(causal=True, softcap=50.0)
+    if not torch.equal(kernels.flash_attention_fused(q, kr, vr, **kw),
+                       kernels.flash_attention_fused(q, k, v, **kw)):
+        fail("phase 13 (c): K5 at 16/16 over repeated K, V differs from "
+             "16/8")
+    ms16 = median_ms(lambda: kernels.flash_attention_fused(q, kr, vr, **kw))
+    ms8 = median_ms(lambda: kernels.flash_attention_fused(q, k, v, **kw))
+    log(f"phase 13 (c): K5 at gemma2's global layer (1 x 8192, D=256, "
+        f"softcap 50): 16/16 over repeated K, V {ms16:.4f} ms, 16/8 "
+        f"{ms8:.4f} ms (equal outputs); {time.perf_counter() - t:.1f} s")
+    del q, k, v, kr, vr
+
+    # (d) The steps on make_mesh_for(1).
+    t = time.perf_counter()
+    mesh1 = make_mesh_for(1)
+    ocfg = opt.OptConfig(warmup_steps=1, total_steps=10)
+    g = torch.Generator(dev).manual_seed(134)
+    toks = torch.randint(0, cfg.vocab, (1, 4096), generator=g, device=dev)
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+    ref_model = api.init_params(torch.Generator(dev).manual_seed(132), cfg,
+                                device=dev)
+    state = opt.init_opt_state(dict(ref_model.named_parameters()), ocfg)
+    m_none = ts.make_train_step(cfg, ocfg)(ref_model, state, batch)
+    del state
+    state = opt.init_opt_state(dict(model.named_parameters()), ocfg)
+    m_one, k5_d = driven(lambda: ts.make_train_step(cfg, ocfg, mesh1)(
+        model, state, batch))
+    same = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 ref_model.parameters()))
+    log(f"phase 13 (d): gemma2-9b 2 layers, one step of 1 x 4096 on "
+        f"{mesh1} (K5 launches {k5_d}): loss {float(m_one['loss'])!r}, "
+        f"grad_norm {float(m_one['grad_norm'])!r}; mesh=None: loss "
+        f"{float(m_none['loss'])!r}, grad_norm "
+        f"{float(m_none['grad_norm'])!r}; parameters equal: {same}")
+    if not same or any(not torch.equal(m_one[k], m_none[k])
+                       for k in ("loss", "grad_norm", "lr")):
+        fail("phase 13 (d): the (1, 1) step differs from mesh=None's")
+    del ref_model
+    torch.cuda.empty_cache()
+    (toks_gen, _), _ = driven(lambda: generate(cfg, 4, 16, 16,
+                                                params=model, device=dev))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 16)).astype(np.int32)).to(dev)
+    cache = api.init_cache(cfg, 4, 32, dtype=torch.float32, device=dev)
+    hand = []
+    with torch.no_grad():
+        for i in range(31):
+            tok = prompt[:, i:i + 1] if i < 16 else hand[-1]
+            lg, cache = api.decode_step(model, cache, tok, i + 1, cfg)
+            if i >= 15:
+                hand.append(torch.argmax(lg[:, -1], dim=-1).to(
+                    torch.int32)[:, None])
+    hand = torch.cat(hand, dim=1).cpu().numpy()
+    log(f"phase 13 (d): generate(4, 16, 16) through make_serve_step on "
+        f"{mesh1}: tokens equal a hand loop over decode_step: "
+        f"{bool((hand == toks_gen).all())}")
+    if not (hand == toks_gen).all():
+        fail("phase 13 (d): generate's tokens differ from the hand loop's")
+    del cache
+    cfg_m = get_config("mamba2-130m")
+    mamba = api.init_params(torch.Generator(dev).manual_seed(135), cfg_m,
+                            device=dev)
+    tok = torch.randint(0, cfg_m.vocab, (4, 1), generator=g, device=dev)
+    with torch.no_grad():
+        got, _ = ts.make_serve_step(cfg_m, mesh1)(
+            mamba, api.init_cache(cfg_m, 4, 8, device=dev), tok, 1)
+        lg, _ = api.decode_step(mamba, api.init_cache(cfg_m, 4, 8,
+                                                      device=dev),
+                                tok, 1, cfg_m)
+    want = torch.argmax(lg, dim=-1).to(torch.int32)
+    log(f"phase 13 (d): mamba2-130m serve step (serve_sample) returns "
+        f"{got.dtype} {tuple(got.shape)}, the argmax of its logits: "
+        f"{torch.equal(got, want)}")
+    if got.dtype != torch.int32 or not torch.equal(got, want):
+        fail("phase 13 (d): mamba2-130m's serve step is not the argmax")
+    del mamba
+    log(f"phase 13 (d): {time.perf_counter() - t:.1f} s")
+
+    # (e) Cross-pod int8 mean of (d)'s layer gradients over 4 members.
+    t = time.perf_counter()
+    with sh.activation_context(mesh1):
+        api.loss_fn(model, batch, cfg).backward()
+    grads_all = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    grads = {n: gr for n, gr in grads_all.items() if n != "embedding"}
+    del grads_all
+    members = 4
+    errs = [{n: torch.randn(gr.shape, generator=g, device=dev)
+             .mul_(1e-2 * gr.abs().max()) for n, gr in grads.items()}
+            for _ in range(members)]
+    outs, new_errs = compress.crosspod_mean_compressed(
+        [grads] * members, errs, axis="pod")
+    worst = 0.0
+    for n, gr in grads.items():
+        g32 = [gr.float() + e[n] for e in errs]
+        mean = torch.stack(g32).mean(0)
+        bound = 2 * (max(x.abs().max().item() for x in g32) / 127.0 + 1e-6)
+        err = max((o[n] - mean).abs().max().item() for o in outs)
+        worst = max(worst, err / bound)
+        if err > bound or any(not torch.equal(o[n], outs[0][n])
+                              for o in outs):
+            fail(f"phase 13 (e): {n}: {err} from the fp32 mean, bound "
+                 f"{bound}")
+        q, scale, e2 = compress.quantize_leaf(gr, errs[0][n])
+        if not torch.equal(q.float() * scale + e2, g32[0]):
+            fail(f"phase 13 (e): {n}: q·scale + err != g32")
+    leaf = "layers.0.attn.wq"
+    cpu_out, cpu_err = compress.crosspod_mean_compressed(
+        [{leaf: grads[leaf].cpu()}] * members,
+        [{leaf: e[leaf].cpu()} for e in errs])
+    if not all(torch.equal(a[leaf].cpu(), b[leaf]) for a, b in
+               zip(outs + new_errs, cpu_out + cpu_err)):
+        fail(f"phase 13 (e): {leaf} on the card differs from the CPU")
+    del outs, new_errs
+    comp_ms = median_ms(lambda: compress.crosspod_mean_compressed(
+        [grads] * members, errs), reps=3)
+    numel = sum(gr.numel() for gr in grads.values())
+    log(f"phase 13 (e): {len(grads)} layer gradient leaves of gemma2-9b "
+        f"({numel / 1e6:.1f} M elements; the embedding's left out), "
+        f"{members} pod members: every leaf within "
+        f"{worst:.3f} of 2·max|g|/127 from the fp32 mean, g32 = q·scale + "
+        f"err exactly, {leaf} on the card equal to the CPU bit for bit; "
+        f"{comp_ms:.1f} ms a reduction; int8 payload {numel / 1e6:.1f} MB "
+        f"a member against {4 * numel / 1e6:.1f} MB in fp32; "
+        f"{time.perf_counter() - t:.1f} s")
+    del grads, errs
+
+    # (f) Elastic re-placement of (d)'s parameters and AdamW state.
+    t = time.perf_counter()
+    tree = {"params": {n: p.detach() for n, p in model.named_parameters()},
+            "opt": state}
+    flat = dict(sh._flat_names(tree))
+    live = torch.cuda.memory_allocated()
+    placed = sh.device_put(tree, sh.param_shardings(mesh1, tree))
+    path = [mesh1]
+    for shape, axes in (((2, 2), ("data", "model")),
+                        ((2, 2, 2), ("pod", "data", "model")),
+                        ((1, 1), ("data", "model"))):
+        mesh = sh.make_mesh(shape, axes)
+        placed = elastic.remesh_live(placed, mesh)
+        path.append(mesh)
+        back = dict(sh._flat_names(sh.gather(placed)))
+        views = all(blk.untyped_storage().data_ptr()
+                    == flat[n].untyped_storage().data_ptr()
+                    for n, pl in sh._flat_names(placed)
+                    for blk in pl.blocks.values())
+        if back.keys() != flat.keys() or not all(
+                torch.equal(back[n], flat[n]) for n in flat) or not views:
+            fail(f"phase 13 (f): {shape}: the state differs after "
+                 "remesh_live, or a block is not a view")
+        blocks = sum(len(pl.blocks) for _, pl in sh._flat_names(placed))
+        log(f"phase 13 (f): remesh_live to {shape}: {len(flat)} tensors in "
+            f"{blocks} blocks, all views; gathered state equal bit for bit; "
+            f"{(torch.cuda.memory_allocated() - live) / 2**20:.1f} MiB "
+            "allocated beyond the state")
+    cases = {(3, (16, 16)): (15, 16), (17, (16, 16)): (14, 16),
+             (1, (2, 16, 16)): (2, 15, 16)}
+    got = {c: elastic.degrade_plan(*c) for c in cases}
+    log(f"phase 13 (f): degrade_plan {got}; {time.perf_counter() - t:.1f} s")
+    if got != cases:
+        fail(f"phase 13 (f): degrade_plan {got} != {cases}")
+    del placed, tree, flat, model, state, batch
+    torch.cuda.empty_cache()
+    log(f"phase 13: wall time {time.perf_counter() - t_phase:.1f} s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / gib:.2f} GiB; "
+        f"main path launches {counts}; K5 at 16/16, D=256 under the KV "
+        f"repeat: {k5_c}")
     return counts
 
 

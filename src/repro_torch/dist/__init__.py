@@ -1,9 +1,7 @@
 """Window-sharded + batched hybrid sparse execution
 (:mod:`repro_torch.dist.partition` / :mod:`repro_torch.dist.sparse` /
-:mod:`repro_torch.dist.gnn`).
-
-The reference package's GSPMD rules for the dense models
-(``dist/sharding.py``) belong with the dense stack, ROADMAP item 13.
+:mod:`repro_torch.dist.gnn`), and the dense models' placement rules over
+an in-process named mesh (:mod:`repro_torch.dist.sharding`).
 
 Lazy exports (PEP 562) so ``import repro_torch.dist`` stays cheap.
 """
@@ -21,8 +19,20 @@ _LAZY = {
     "ShardedSpMM": "repro_torch.dist.sparse",
     "SpMMPartition": "repro_torch.dist.partition",
     "column_halo": "repro_torch.dist.partition",
+    "LayerSharding": "repro_torch.dist.sharding",
+    "Mesh": "repro_torch.dist.sharding",
+    "NamedSharding": "repro_torch.dist.sharding",
+    "PartitionSpec": "repro_torch.dist.sharding",
+    "Placed": "repro_torch.dist.sharding",
+    "activation_context": "repro_torch.dist.sharding",
+    "batch_shardings": "repro_torch.dist.sharding",
+    "cache_shardings": "repro_torch.dist.sharding",
+    "device_put": "repro_torch.dist.sharding",
+    "gather": "repro_torch.dist.sharding",
     "make_agnn_train_step": "repro_torch.dist.gnn",
     "make_gcn_train_step": "repro_torch.dist.gnn",
+    "make_mesh": "repro_torch.dist.sharding",
+    "param_shardings": "repro_torch.dist.sharding",
     "partition_sddmm": "repro_torch.dist.partition",
     "partition_spmm": "repro_torch.dist.partition",
     "sddmm_sharded": "repro_torch.dist.sparse",

@@ -210,29 +210,30 @@ def _visible_rows(k0, k1, sq, *, causal, window, q_offset):
     return lo, hi
 
 
-def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+def flash_attention_bwd_ref(q, k, v, lse, do, *, causal: bool = True,
                             window: int = 0, softcap: float = 0.0,
                             q_offset: int = 0, chunk: int = 1024):
     """dQ, dK, dV of the attention, plain PyTorch, ``chunk`` keys a step.
 
-    ``o`` and ``lse`` are the forward's output and its fp32 ``(B, H, Sq)``
-    logsumexp; ``do`` is the output's cotangent. Per key chunk, over the
-    query rows that may see it (chunks that the causal and window masks
-    hide from every query are skipped): the scores in fp32, ``* 1/sqrt(D)``,
-    the softcap ``c·tanh(s/c)``, ``P = exp(s - lse)`` zeroed where masked,
-    ``dV += Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS = P∘(dP - Δ)``, ``dS ∘= 1 -
-    tanh²`` through the softcap, ``dQ += dS·K/sqrt(D)``, ``dK +=
-    dSᵀ·Q/sqrt(D)``. dK and dV are summed over each GQA group; all three
-    are cast to the inputs' type at the end. The same function runs on
-    the card and the CPU.
+    ``lse`` is the forward's fp32 ``(B, H, Sq)`` logsumexp; ``do`` is the
+    output's cotangent. Per key chunk, over the query rows that may see
+    it (chunks that the causal and window masks hide from every query are
+    skipped): the scores in fp32, ``* 1/sqrt(D)``, the softcap
+    ``c·tanh(s/c)``, ``P = exp(s - lse)`` zeroed where masked, ``dV +=
+    Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS = P∘(dP - Δ)``, ``dS ∘= 1 - tanh²``
+    through the softcap, ``dQ += dS·K/sqrt(D)``, ``dK += dSᵀ·Q/sqrt(D)``.
+    dK and dV are summed over each GQA group; all three are cast to the
+    inputs' type at the end. The same function runs on the card and the
+    CPU.
 
-    ``Δ = rowsum(P∘dP)``, the softmax's own backward, where one chunk
-    holds every key; else ``rowsum(dO∘O)``, its value in exact
-    arithmetic, which needs no pass over the keys ahead of the loop but
-    reads the bf16 ``O``. Where attention is near uniform, ``dP - Δ``
-    cancels and that rounding of ``O`` grows to about 2% of max|dQ| and
-    max|dK| (whisper-tiny's 448-token decoder at random weights), which
-    the single-chunk case avoids for free.
+    ``Δ = rowsum(P∘dP)``, the softmax's own backward, in fp32 on every
+    path: inside the loop where one chunk holds every key, else from a
+    pass over the chunks ahead of the loop (one more QKᵀ and dO·Vᵀ a
+    chunk). Its value in exact arithmetic, ``rowsum(dO∘O)``, is no
+    substitute: where attention is near uniform ``dP - Δ`` cancels, and
+    the rounding of O (the kernel's bf16 O, or an fp32 O summed over
+    bf16 P) then puts dQ and dK beyond 1e-2·max|ref| of autograd
+    (``tests/test_torch_flash_backward.py``).
     """
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -246,22 +247,19 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     qf, dof = heads(q), heads(do)
     kf = k.float().permute(0, 2, 1, 3).unsqueeze(2)   # (b, kv, 1, sk, d)
     vf = v.float().permute(0, 2, 1, 3).unsqueeze(2)
-    one_chunk = sk <= chunk
-    if not one_chunk:                                 # (b, kv, g, sq, 1)
-        delta = (dof * heads(o)).sum(-1, keepdim=True)
     lse = lse.reshape(b, kv, g, sq, 1)
-    dq = torch.zeros((b, kv, g, sq, d), dtype=torch.float32, device=dev)
-    dk = torch.zeros((b, kv, sk, d), dtype=torch.float32, device=dev)
-    dv = torch.zeros((b, kv, sk, d), dtype=torch.float32, device=dev)
-    for k0 in range(0, sk, chunk):
-        k1 = min(k0 + chunk, sk)
+
+    def probs(k0, k1):
+        """The rows ``[lo, hi)`` that may see keys ``[k0, k1)``, their P
+        (b, kv, g, n, c) and, with a softcap, ``tanh(s/c)``; None when no
+        row sees the chunk."""
         lo, hi = _visible_rows(k0, k1, sq, causal=causal, window=window,
                                q_offset=q_offset)
         if lo >= hi:
-            continue
-        qc, doc = qf[:, :, :, lo:hi], dof[:, :, :, lo:hi]
-        kc, vc = kf[:, :, :, k0:k1], vf[:, :, :, k0:k1]
-        s = (qc @ kc.transpose(-1, -2)).mul_(scale)   # (b, kv, g, n, c)
+            return None
+        s = (qf[:, :, :, lo:hi] @ kf[:, :, :, k0:k1].transpose(-1, -2))
+        s.mul_(scale)
+        t = None
         if softcap:
             t = s.div_(softcap).tanh_()
             s = t * softcap
@@ -273,6 +271,31 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
         if window > 0:
             mask = mask & (kpos > qpos - window)
         p = s.sub_(lse[:, :, :, lo:hi]).exp_().masked_fill_(~mask, 0.0)
+        return lo, hi, p, t
+
+    chunks = [(k0, min(k0 + chunk, sk)) for k0 in range(0, sk, chunk)]
+    one_chunk = len(chunks) <= 1
+    if not one_chunk:                                 # (b, kv, g, sq, 1)
+        delta = torch.zeros((b, kv, g, sq, 1), dtype=torch.float32,
+                            device=dev)
+        for k0, k1 in chunks:
+            got = probs(k0, k1)
+            if got is None:
+                continue
+            lo, hi, p, _ = got
+            dp = dof[:, :, :, lo:hi] @ vf[:, :, :, k0:k1].transpose(-1, -2)
+            delta[:, :, :, lo:hi] += (p.mul_(dp)).sum(-1, keepdim=True)
+            del p, dp
+    dq = torch.zeros((b, kv, g, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, kv, sk, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, kv, sk, d), dtype=torch.float32, device=dev)
+    for k0, k1 in chunks:
+        got = probs(k0, k1)
+        if got is None:
+            continue
+        lo, hi, p, t = got
+        qc, doc = qf[:, :, :, lo:hi], dof[:, :, :, lo:hi]
+        kc, vc = kf[:, :, :, k0:k1], vf[:, :, :, k0:k1]
         dv[:, :, k0:k1] += (p.transpose(-1, -2) @ doc).sum(2)
         ds = doc @ vc.transpose(-1, -2)
         ds.sub_((p * ds).sum(-1, keepdim=True) if one_chunk
@@ -290,22 +313,22 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
 
 class FlashAttention(torch.autograd.Function):
     """Attention with K5's forward (the twin on CPU tensors) and
-    :func:`flash_attention_bwd_ref` as its backward. Saves Q, K, V, O and
+    :func:`flash_attention_bwd_ref` as its backward. Saves Q, K, V and
     the fp32 logsumexp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_offset, chunk):
         out, lse = _forward(q, k, v, causal, window, softcap, q_offset,
                             True)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.args = dict(causal=causal, window=window, softcap=softcap,
                         q_offset=q_offset, chunk=chunk)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do,
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_ref(q, k, v, lse, do,
                                              **ctx.args)
         return dq, dk, dv, None, None, None, None, None
 

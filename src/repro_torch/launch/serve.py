@@ -1,4 +1,4 @@
-"""Serving launcher: batched autoregressive greedy decode on one card.
+"""Serving launcher: batched autoregressive greedy decode on a mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
         --batch 4 --prompt-len 16 --gen 16
@@ -8,7 +8,10 @@ from ``seed``, prefill through teacher-forced decode steps, then greedy
 argmax (always argmax for a config with ``serve_sample``, whose serve
 step returns the argmax tokens in the reference). The audio family
 first encodes zero frames and puts each decoder layer's cross K/V in the
-cache. One card holds the whole model, so there is no mesh.
+cache. Every step goes through ``train_step.make_serve_step`` on
+``make_mesh_for`` the card count (``(1, 1)`` with one card or on the
+CPU), as the reference's loop does, every position on the model's
+device (``launch.train.mesh_on``).
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ import torch
 
 from repro_torch.api import checked_device
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch.train import mesh_on
 from repro_torch.models import api
+from repro_torch.train import train_step as ts
 
 
 def generate(cfg, batch: int, prompt_len: int, gen: int, max_len: int = 0,
@@ -50,6 +55,7 @@ def generate(cfg, batch: int, prompt_len: int, gen: int, max_len: int = 0,
             xk, xv = params.enc_kv(params.encode(frame))
         cache["xk"] = xk.to(cache["xk"].dtype)
         cache["xv"] = xv.to(cache["xv"].dtype)
+    serve_step = ts.make_serve_step(cfg, mesh_on(dev))
     toks = torch.from_numpy(prompt).to(dev)
     out_tokens = []
     if dev.type == "cuda":
@@ -58,9 +64,11 @@ def generate(cfg, batch: int, prompt_len: int, gen: int, max_len: int = 0,
     with torch.no_grad():
         for t in range(prompt_len + gen - 1):
             tok = toks[:, t:t + 1] if t < prompt_len else out_tokens[-1]
-            lg, cache = api.decode_step(params, cache, tok, t + 1, cfg)
+            lg, cache = serve_step(params, cache, tok, t + 1)
             if t >= prompt_len - 1:
-                if greedy or cfg.serve_sample:
+                if cfg.serve_sample:
+                    nxt = lg  # the serve step returned the argmax tokens
+                elif greedy:
                     nxt = torch.argmax(lg[:, -1], dim=-1).to(
                         torch.int32)[:, None]
                 else:

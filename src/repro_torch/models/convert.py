@@ -71,15 +71,27 @@ def param_layout(model) -> dict[tuple[str, ...], np.ndarray]:
     (audio) are stacked over the layers, the hybrid's ``groups`` over
     ``(ngroups, every)`` and its ``tail`` over the tail's layers, and
     ``shared_attn``, ``enc_norm``, ``final_norm`` stand alone. The
-    converters below and :mod:`repro_torch.train.checkpoint` both read it.
+    converters below, :mod:`repro_torch.train.checkpoint` and
+    :mod:`repro_torch.dist.sharding` read it.
     """
+    return layout_of(name for name, _ in model.named_parameters())
+
+
+def layout_of(names) -> dict[tuple[str, ...], np.ndarray]:
+    """:func:`param_layout` from parameter names alone (any iterable of
+    dotted names, such as the keys of ``dict(model.named_parameters())``
+    or of the AdamW moments). The first run of integer parts indexes the
+    leaf wherever it starts, so names under a prefix (``mu.layers.0.wq``)
+    stack as the names without it do."""
     index: dict[tuple[str, ...], dict[tuple[int, ...], str]] = {}
-    for name, _ in model.named_parameters():
-        head, *rest = name.split(".")
+    for name in names:
+        parts = name.split(".")
+        i = next((j for j, x in enumerate(parts) if x.isdigit()),
+                 len(parts))
         idx = []
-        while rest and rest[0].isdigit():
-            idx.append(int(rest.pop(0)))
-        path = (head, *rest)
+        while i < len(parts) and parts[i].isdigit():
+            idx.append(int(parts.pop(i)))
+        path = tuple(parts)
         if path == ("embedding",):
             path = ("embed", "embedding")
         elif path[-1].endswith("norm"):

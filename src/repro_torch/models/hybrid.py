@@ -25,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import checked_device
+from repro_torch.dist import sharding as sh
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
 from repro_torch.models.config import ArchConfig
@@ -93,7 +94,8 @@ class HybridLM(nn.Module):
             if remat:
                 # The group draws no random numbers: no RNG state to keep.
                 x = checkpoint(self._group, group, x, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False,
+                               context_fn=sh.remat_context)
             else:
                 x = self._group(group, x)
         for lp in self.tail:

@@ -9,8 +9,13 @@ are mappings of tensors (the ``nn.ParameterDict``s of
 explicit :class:`torch.Generator` on that generator's device and places
 the result on ``device``.
 
-One card has no sharding, so the reference's ``sh.constrain`` and
-``sh.kv_repeat_for_tp`` (identities outside a mesh) are dropped.
+Inside :func:`repro_torch.dist.sharding.activation_context`,
+:func:`flash_attention` repeats K and V as the reference does
+(``sh.kv_repeat_for_tp``) when the model axis does not divide the KV
+heads, so K5 runs at the repeated head count (gemma2-9b's 16/8 at 16/16
+on a model axis of 16); outside a context nothing changes. The
+reference's ``sh.constrain`` calls place tensors and change no value;
+one process computes on whole tensors, so they are left out.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as sh
 from repro_torch.kernels.flash_attention import (
     flash_attention_fused,
     flash_attention_grad,
@@ -106,9 +112,15 @@ def flash_attention(q, k, v, *, causal: bool, window=None,
     reference's scan does); otherwise K5 runs alone. ``remat_chunks``
     decides whether the reference's backward stores or recomputes each
     chunk's scores; the Function always recomputes them from the saved
-    logsumexp, so it has no effect here.
+    logsumexp, so it has no effect here. Inside a sharding context whose
+    model axis does not divide the KV heads, K and V are repeated first
+    (``sh.kv_repeat_for_tp``), as the reference repeats them.
     """
     del remat_chunks
+    rep = sh.kv_repeat_for_tp(k.shape[2], q.shape[2])
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
     sq, sk = q.shape[1], k.shape[1]
     window = sk + sq + 1 if window is None else int(window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

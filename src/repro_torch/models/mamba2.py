@@ -44,6 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import checked_device
+from repro_torch.dist import sharding as sh
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
@@ -269,7 +270,8 @@ class Mamba2LM(nn.Module):
             if remat:
                 # The layer draws no random numbers: no RNG state to keep.
                 x = checkpoint(apply_layer, lp, x, cfg, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False,
+                               context_fn=sh.remat_context)
             else:
                 x = apply_layer(lp, x, cfg)
         return final_logits(self, x)

@@ -17,10 +17,22 @@ weights cast to ``compute_dtype`` per use. Each layer's attention runs K5
 ``layers.decode_attention`` with no window and no softcap over the dense
 family's cache (``transformer.init_cache``), as the reference does.
 
-One card has no mesh, so this is the reference's no-mesh branch
-(``moe_block`` with one token group): the expert-parallel all-to-all
-(``_moe_ep_shardmap``) and the sharding constraints, identities outside a
-mesh, belong to ROADMAP queue 1 item 13d.
+Inside :func:`repro_torch.dist.sharding.activation_context`,
+``moe_block`` groups tokens as the reference does: gd =
+``batch_shard_count()`` groups over the batch and gm =
+``model_axis_size()`` over the sequence, each reset to 1 where it does
+not divide, with the capacity of one group's tg = (B/gd)·(S/gm) tokens.
+Where gm > 1, :func:`_moe_ep` is the counterpart of the reference's
+``_moe_ep_shardmap``: each of the gd·gm groups dispatches locally, one
+tiled exchange over ``model`` hands each model rank its e/gm experts'
+slots from all gm groups, the rank runs those experts, and the mirror
+exchange brings the results back before the combine. In one process the
+exchange is a split and a cat across the mesh's positions (each on its
+position's device), so autograd gives the mirrored exchange in backward,
+as the reference's ``all_to_all`` does. Where gm = 1 but gd > 1, all B·S
+tokens dispatch as one group at the per-group capacity, as in the
+reference (decode included). The reference's sharding constraints change
+no value and are left out.
 
 The module tree follows :class:`~repro_torch.models.transformer.Transformer`:
 ``embedding``, ``layers`` (each with ``attn_norm``, ``attn.{wq,wk,wv,wo}``,
@@ -43,6 +55,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import checked_device
+from repro_torch.dist import sharding as sh
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
@@ -127,11 +140,16 @@ def _local_combine(y, slot_of_assign, topv):
     return (picked * topv[..., None].to(y.dtype)).sum(dim=1)
 
 
-def _experts(p, buf, cd):
-    """The expert FFNs on the dispatch buffer: (e, cap, d) → (e, cap, d)."""
-    gate = F.silu(torch.bmm(buf, p["wi_gate"].to(cd)))
-    up = torch.bmm(buf, p["wi_up"].to(cd))
-    return torch.bmm(gate * up, p["wo"].to(cd))
+def _experts(p, buf, cd, experts=slice(None)):
+    """The FFNs of ``experts`` on their dispatch buffer: (e', cap, d) →
+    (e', cap, d), with the experts' weights brought to the buffer's
+    device (a mesh position's, in :func:`_moe_ep`)."""
+    def w(name):
+        return p[name][experts].to(buf.device, cd)
+
+    gate = F.silu(torch.bmm(buf, w("wi_gate")))
+    up = torch.bmm(buf, w("wi_up"))
+    return torch.bmm(gate * up, w("wo"))
 
 
 def _capacity(cfg: ArchConfig, t: int, floor: int) -> int:
@@ -154,23 +172,107 @@ def moe_block_global_sort(p, x, cfg: ArchConfig):
     return out.reshape(b, s, d), aux
 
 
+def _group_positions(mesh, ba, gd, gm):
+    """The mesh position of each token group (di, mj): data coordinates
+    from di over the batch axes ``ba`` (row-major, the first axis major),
+    model coordinate mj. Axes outside ``ba`` and ``model`` are 0."""
+    names = mesh.axis_names
+    sizes = [mesh.shape[n] for n in ba]
+    out = {}
+    for di in range(gd):
+        coords = dict.fromkeys(names, 0)
+        rest = di
+        for n, size in zip(reversed(ba), reversed(sizes)):
+            coords[n], rest = rest % size, rest // size
+        for mj in range(gm):
+            coords[sh.MODEL_AXIS] = mj
+            out[di, mj] = tuple(coords[n] for n in names)
+    return out
+
+
+def _moe_ep(p, x, topi, topv, cfg, cap, cd, mesh, ba, gd, gm):
+    """Expert parallelism over the ``model`` axis (the reference's
+    ``_moe_ep_shardmap``), in one process.
+
+    Tokens split ``P(batch, "model", None)``: group (di, mj) holds batch
+    block di and sequence block mj, on its mesh position's device, and
+    dispatches its tg tokens locally into (e, cap, d). The exchange
+    gives model rank r the slots of its experts ``[r·e/gm, (r+1)·e/gm)``
+    from every peer group of its batch block, concatenated over the peers
+    in order, (e/gm, gm·cap, d); the rank runs those experts on its slice
+    of the weights; the mirror exchange hands each peer its cap rows of
+    every rank's output, concatenated over the ranks, (e, cap, d), for
+    the local combine. Split and cat are differentiable, so the backward
+    is the mirrored exchange.
+    """
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    bl, sl, el = b // gd, s // gm, e // gm
+    pos = _group_positions(mesh, ba, gd, gm)
+    rows = []
+    for di in range(gd):
+        bufs, slots, vals = [], [], []
+        for mj in range(gm):
+            dev = mesh.device(pos[di, mj])
+            blk = (slice(di * bl, (di + 1) * bl),
+                   slice(mj * sl, (mj + 1) * sl))
+            buf, slot = _local_dispatch(
+                x[blk].reshape(bl * sl, d).to(dev),
+                topi[blk].reshape(bl * sl, k).to(dev), e, k, cap, cd)
+            bufs.append(buf)
+            slots.append(slot)
+            vals.append(topv[blk].reshape(bl * sl, k).to(dev))
+        # EP exchange: (e, cap, d) a peer → (e/gm, gm·cap, d) a rank.
+        ys = []
+        for r in range(gm):
+            dev = mesh.device(pos[di, r])
+            experts = slice(r * el, (r + 1) * el)
+            recv = torch.cat([bf[experts].to(dev) for bf in bufs], dim=1)
+            ys.append(_experts(p, recv, cd, experts))
+        # Mirror exchange: (e/gm, gm·cap, d) a rank → (e, cap, d) a peer.
+        cols = []
+        for mj in range(gm):
+            dev = mesh.device(pos[di, mj])
+            back = torch.cat([y[:, mj * cap:(mj + 1) * cap].to(dev)
+                              for y in ys], dim=0)
+            cols.append(_local_combine(back, slots[mj], vals[mj])
+                        .reshape(bl, sl, d).to(x.device))
+        rows.append(torch.cat(cols, dim=1))
+    return torch.cat(rows, dim=0)
+
+
 def moe_block(p, x, cfg: ArchConfig):
     """x: (B, S, D) → (B, S, D), plus the aux loss.
 
-    ``moe_dispatch="local"`` with one token group (no mesh): capacity
-    ``max(4, min(int(capacity_factor·t·k/e), t))`` over the t = B·S
-    tokens of the call.
+    ``moe_dispatch="local"``: gd = ``batch_shard_count()`` and gm =
+    ``model_axis_size()`` of the sharding context (1 outside one), each
+    reset to 1 where it does not divide; capacity ``max(4,
+    min(int(capacity_factor·tg·k/e), tg))`` over one group's tg =
+    (B/gd)·(S/gm) tokens. With a mesh and gm > 1, :func:`_moe_ep`;
+    otherwise all B·S tokens dispatch as one group at that capacity.
     """
     if cfg.moe_dispatch == "global_sort":
         return moe_block_global_sort(p, x, cfg)
     b, s, d = x.shape
     e, k, t = cfg.n_experts, cfg.top_k, b * s
+    gd, gm = sh.batch_shard_count(), sh.model_axis_size()
+    if b % gd:
+        gd = 1
+    if s % gm or e % gm:
+        gm = 1
+    tg = (b // gd) * (s // gm)
+    cap = _capacity(cfg, tg, 4)
     cd = L.dtype_of(cfg, "compute_dtype")
     topv, topi, aux = router_topk(x.float() @ p["router"], k)
-    topv = topv.reshape(t, k).to(cd)
-    buf, slots = _local_dispatch(x.reshape(t, d), topi.reshape(t, k), e, k,
-                                 _capacity(cfg, t, 4), cd)
-    out = _local_combine(_experts(p, buf, cd), slots, topv).reshape(b, s, d)
+    topv = topv.to(cd)
+    mesh, ba = sh.current_mesh_info()
+    if mesh is not None and gm > 1:
+        out = _moe_ep(p, x, topi, topv, cfg, cap, cd, mesh, ba, gd, gm)
+    else:
+        buf, slots = _local_dispatch(x.reshape(t, d), topi.reshape(t, k), e,
+                                     k, cap, cd)
+        out = _local_combine(_experts(p, buf, cd), slots,
+                             topv.reshape(t, k)).reshape(b, s, d)
     if cfg.n_shared_experts:
         out = out + L.mlp_block(p["shared"], x, cfg)
     return out, aux
@@ -240,7 +342,8 @@ class MoETransformer(nn.Module):
                 # The layer draws no random numbers: no RNG state to keep.
                 x, aux = checkpoint(self._layer, lp, x, positions,
                                     use_reentrant=False,
-                                    preserve_rng_state=False)
+                                    preserve_rng_state=False,
+                                    context_fn=sh.remat_context)
             else:
                 x, aux = self._layer(lp, x, positions)
             auxs.append(aux)

@@ -31,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import checked_device
+from repro_torch.dist import sharding as sh
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
@@ -118,7 +119,8 @@ class Transformer(nn.Module):
                 # The layer draws no random numbers: no RNG state to keep.
                 x = checkpoint(self._layer, lp, x, window, positions,
                                positions3, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False,
+                               context_fn=sh.remat_context)
             else:
                 x = self._layer(lp, x, window, positions, positions3)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)

@@ -29,6 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import checked_device
+from repro_torch.dist import sharding as sh
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import Layer
@@ -148,7 +149,8 @@ class Whisper(nn.Module):
             if remat:
                 # The layer draws no random numbers: no RNG state to keep.
                 x = checkpoint(self._dec_layer, lp, ek, ev, x,
-                               use_reentrant=False, preserve_rng_state=False)
+                               use_reentrant=False, preserve_rng_state=False,
+                               context_fn=sh.remat_context)
             else:
                 x = self._dec_layer(lp, ek, ev, x)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)

@@ -5,7 +5,8 @@ to tensor (``dict(model.named_parameters())``), and the state is
 ``{"mu", "nu", "step"}`` with ``mu`` and ``nu`` keyed like the
 parameters and ``step`` an int32 scalar tensor. The update keeps the
 reference's order: the global-norm clip, the bias-corrected step, the
-decoupled weight decay added to the update on matrices only, and the
+decoupled weight decay added to the update on the reference's matrices
+only (layer-stacked vectors included), and the
 learning rate ``lr_at(step)`` taken before the step's increment.
 ``moment_dtype="bfloat16"`` halves the moments' memory.
 
@@ -85,7 +86,16 @@ def apply_updates(params: Mapping[str, torch.Tensor],
                   grads: Mapping[str, torch.Tensor], state: dict,
                   cfg: OptConfig) -> dict:
     """One AdamW step, in place on ``params`` and ``state``; returns the
-    metrics ``{"grad_norm", "lr"}`` (float32 scalar tensors)."""
+    metrics ``{"grad_norm", "lr"}`` (float32 scalar tensors).
+
+    The decay goes on every tensor whose leaf in the reference's tree has
+    two dims or more: a layer's 1-D norm scale is a row of the
+    reference's ``(n_layers, d)`` leaf, so it decays as that leaf does
+    (:func:`repro_torch.models.convert.layout_of` stacks the names)."""
+    from repro_torch.models.convert import layout_of
+
+    leaf_ndim = {name: grid.ndim for grid in layout_of(params).values()
+                 for name in grid.flat}
     step = state["step"] + 1
     gnorm = global_norm(grads[n] for n in params)
     scale = torch.minimum(torch.ones_like(gnorm),
@@ -95,7 +105,8 @@ def apply_updates(params: Mapping[str, torch.Tensor],
     bc1 = 1 - torch.pow(cfg.b1, stepf)
     bc2 = 1 - torch.pow(cfg.b2, stepf)
     for name, p in params.items():
-        decay = p.ndim >= 2  # decoupled weight decay on matrices only
+        # Decoupled weight decay on the reference's matrices only.
+        decay = p.ndim + leaf_ndim[name] >= 2
         for ps, gs, ms, vs in zip(_slices(p), _slices(grads[name].detach()),
                                   _slices(state["mu"][name]),
                                   _slices(state["nu"][name])):

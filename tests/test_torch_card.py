@@ -8,7 +8,10 @@ the two CUDA-core streams K2 (``spmm_vpu``) and K4 (``sddmm_vpu``), the
 two Tensor Core streams K1 (``spmm_mxu``) and K3 (``sddmm_mxu``), and
 GNN training through all four (``GraphOps`` forward and backward, with
 row reordering off and on, against the plain ``backend="torch"`` path),
-and the tuner's search timing its candidates through them.
+the tuner's search timing its candidates through them, the attention
+backward over several key chunks, and placement on a mesh of ``cuda:0``
+positions (the MoE expert-parallel exchange, K5 through a KV repeat,
+int8 gradient compression against the CPU).
 
 These tests need an NVIDIA GPU (Hopper, ``sm_90a``) and ``nvcc``; they
 are marked ``cuda`` and skip without a card. On the card:
@@ -338,7 +341,7 @@ def test_gemma2_training_step_matches_cpu(card):
     for model, b in ((gpu, on_card), (cpu, batch)):
         state = opt.init_opt_state(dict(model.named_parameters()), ocfg)
         kernels.reset_launch_counts()
-        metrics.append(make_train_step(cfg, ocfg, 2)(model, state, b))
+        metrics.append(make_train_step(cfg, ocfg, microbatches=2)(model, state, b))
         if model is gpu:
             assert kernels.launch_counts()["flash_attention"] == \
                 2 * cfg.n_layers * 2
@@ -1335,3 +1338,190 @@ def test_dist_graphops_training_step_matches_plain(card):
     _agree_tf32(loss, want, False)
     for p, q in zip(*(mdl.parameters() for mdl in models)):
         _agree_tf32(p.grad, q.grad, False)
+
+
+# ----------------------------------------------- the attention backward --
+@pytest.mark.parametrize("chunk", [128, 1024])
+def test_backward_holds_near_uniform_attention_on_the_card(card, chunk):
+    """K5's Function on the card, keys over four chunks (Δ from the pass
+    ahead of the loop) and in one: every gradient within 1e-2·max|ref| of
+    autograd through the twin in fp32 on the same bf16 values, on
+    near-uniform attention over values that share one large component
+    (where ``rowsum(dO∘O)`` over the bf16 O lands about 10% away)."""
+    g = torch.Generator(card).manual_seed(5)
+    b, s, h, d = 2, 512, 4, 64
+    q, k = (0.05 * torch.randn((b, s, h, d), generator=g, device=card)
+            for _ in range(2))
+    v = (4 * torch.randn((1, 1, h, d), generator=g, device=card)
+         + 0.1 * torch.randn((b, s, h, d), generator=g, device=card))
+    ct = torch.randn((b, s, h, d), generator=g, device=card)
+    q, k, v, ct = (t.to(torch.bfloat16) for t in (q, k, v, ct))
+    exact = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_ref(*exact, causal=True),
+                               exact, ct.float())
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    got = torch.autograd.grad(fa.flash_attention_grad(*ins, causal=True,
+                                                      chunk=chunk), ins, ct)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    for label, a, w in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16, label
+        err = (a.float() - w).abs().max().item()
+        assert err <= 1e-2 * w.abs().max().item(), (label, err)
+
+
+# ------------------------------------------------- placement on a mesh --
+def _per_group(p, x, cfg, gd, gm):
+    """The no-mesh MoE functions composed by hand over gd × gm token
+    groups at the group's capacity."""
+    from repro_torch.models import moe
+
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cd = layers.dtype_of(cfg, "compute_dtype")
+    bl, sl = b // gd, s // gm
+    tg = bl * sl
+    cap = max(4, min(int(cfg.capacity_factor * tg * k / e), tg))
+    topv, topi, _ = moe.router_topk(x.float() @ p["router"], k)
+    rows = []
+    for di in range(gd):
+        cols = []
+        for mj in range(gm):
+            blk = (slice(di * bl, (di + 1) * bl),
+                   slice(mj * sl, (mj + 1) * sl))
+            buf, slot = moe._local_dispatch(
+                x[blk].reshape(tg, d), topi[blk].reshape(tg, k), e, k, cap,
+                cd)
+            cols.append(moe._local_combine(
+                moe._experts(p, buf, cd), slot,
+                topv[blk].reshape(tg, k).to(cd)).reshape(bl, sl, d))
+        rows.append(torch.cat(cols, dim=1))
+    return torch.cat(rows) + layers.mlp_block(p["shared"], x, cfg)
+
+
+def test_expert_parallel_exchange_matches_per_group_composition(card):
+    """moonshot's MoE block on a (2, 4) mesh of ``cuda:0`` positions
+    against the no-mesh functions over the 8 groups, forward and
+    backward (the exchange's backward is the mirrored exchange), both in
+    bf16 within 2e-2·max|ref|; a (1, 1) mesh equals no mesh bit for
+    bit."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config("moonshot_v1_16b_a3b").scaled(n_layers=1)
+    model = api.init_params(torch.Generator(card).manual_seed(0), cfg,
+                            device=card)
+    p = model.layers[0].moe
+    g = torch.Generator(card).manual_seed(1)
+    x = torch.randn((4, 64, cfg.d_model), generator=g, device=card).to(
+        torch.bfloat16).requires_grad_(True)
+    with sh.activation_context(sh.make_mesh((2, 4), ("data", "model"))):
+        out, _ = moe.moe_block(p, x, cfg)
+    want = _per_group(p, x, cfg, 2, 4)
+    _close(out, want)
+    ct = torch.randn(out.shape, generator=g, device=card).to(out.dtype)
+    wrt = [x, p["wi_gate"], p["wo"]]
+    for a, b in zip(torch.autograd.grad(out, wrt, ct),
+                    torch.autograd.grad(want, wrt, ct)):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= REL * b.float().abs().max().item(), err
+    with torch.no_grad():
+        plain, _ = moe.moe_block(p, x, cfg)
+        with sh.activation_context(sh.make_mesh((1, 1), ("data", "model"))):
+            one, _ = moe.moe_block(p, x, cfg)
+    assert torch.equal(plain, one)
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs two cards")
+def test_expert_parallel_exchange_over_two_cards(card):
+    """moonshot's MoE block on a round-robin (1, 2) mesh, its positions on
+    ``cuda:0`` and ``cuda:1`` (each rank's experts run on its own card
+    from weights brought there), equals the same mesh with both positions
+    on ``cuda:0``, forward and backward; the launchers' mesh keeps every
+    position on the model's card."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.train import mesh_on
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config("moonshot_v1_16b_a3b").scaled(n_layers=1)
+    model = api.init_params(torch.Generator(card).manual_seed(0), cfg,
+                            device=card)
+    p = model.layers[0].moe
+    g = torch.Generator(card).manual_seed(1)
+    x = torch.randn((2, 64, cfg.d_model), generator=g, device=card).to(
+        torch.bfloat16).requires_grad_(True)
+    ct = torch.randn((2, 64, cfg.d_model), generator=g, device=card).to(
+        torch.bfloat16)
+    outs, grads = [], []
+    for mesh in (sh.Mesh((1, 2), ("data", "model"), ["cuda:0", "cuda:1"]),
+                 sh.Mesh((1, 2), ("data", "model"), "cuda:0")):
+        with sh.activation_context(mesh):
+            out, _ = moe.moe_block(p, x, cfg)
+        outs.append(out)
+        grads.append(torch.autograd.grad(out, [x, p["wi_gate"], p["wo"]],
+                                         ct))
+    assert outs[0].device == x.device
+    assert torch.equal(outs[0], outs[1])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    launch = mesh_on(card)
+    assert launch.shape["model"] * launch.shape["data"] == \
+        torch.cuda.device_count()
+    assert {d for d in launch.devices.flat} == {
+        torch.device("cuda", torch.cuda.current_device())}
+
+
+def test_k5_through_a_kv_repeat_equals_no_repeat(card):
+    """gemma2's 16/8 heads at D=256 under a model axis of 16: K and V are
+    repeated twice and K5 runs at 16/16, giving the 16/8 output bit for
+    bit."""
+    from repro_torch.dist import sharding as sh
+
+    q, k, v = _qkv(card, 1, 640, 640, 16, 8, 256, torch.bfloat16, seed=3)
+    kw = dict(causal=True, window=4096, softcap_val=50.0)
+    seen = []
+    real = layers.flash_attention_fused
+
+    def spy(q_, k_, v_, **kw_):
+        seen.append(k_.shape[2])
+        return real(q_, k_, v_, **kw_)
+
+    kernels.reset_launch_counts()
+    with mock.patch.object(layers, "flash_attention_fused", spy):
+        with sh.activation_context(sh.make_mesh((1, 16), ("data",
+                                                          "model"))):
+            got = layers.flash_attention(q, k, v, **kw)
+        want = layers.flash_attention(q, k, v, **kw)
+    assert seen == [16, 8]
+    assert kernels.launch_counts()["flash_attention"] == 2
+    assert torch.equal(got, want)
+
+
+def test_crosspod_compression_on_the_card_equals_the_cpu(card):
+    """``compress_tree`` and ``crosspod_mean_compressed`` over 4 members:
+    the card's quantized payloads, scales, means and errors equal the
+    CPU's bit for bit."""
+    from repro_torch.train import compress
+
+    g = torch.Generator(card).manual_seed(7)
+    trees = [{"a": torch.randn((64, 48), generator=g, device=card),
+              "b": {"c": 3 * torch.randn((1000,), generator=g,
+                                         device=card)}}
+             for _ in range(4)]
+    errs = [compress.init_error_state(t) for t in trees]
+    errs[1]["a"] += 1e-3
+    cpu = lambda tree: {k: cpu(v) if isinstance(v, dict) else v.cpu()
+                        for k, v in tree.items()}
+    for got, want in zip(
+            compress.compress_tree(trees[0], errs[1]),
+            compress.compress_tree(cpu(trees[0]), cpu(errs[1]))):
+        assert torch.equal(got["a"].cpu(), want["a"])
+        assert torch.equal(got["b"]["c"].cpu(), want["b"]["c"])
+    outs, new = compress.crosspod_mean_compressed(trees, errs)
+    outs_c, new_c = compress.crosspod_mean_compressed(
+        [cpu(t) for t in trees], [cpu(e) for e in errs])
+    for got, want in zip(outs + new, outs_c + new_c):
+        assert got["a"].device.type == "cuda"
+        assert torch.equal(got["a"].cpu(), want["a"])
+        assert torch.equal(got["b"]["c"].cpu(), want["b"]["c"])

@@ -15,6 +15,8 @@ fp32 throughout). The Function is also held to plain autograd through
 the twin (1e-5·max|ref|, fp32), and the logsumexp to a float64 one of
 the masked, softcapped scores.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -162,8 +164,7 @@ def test_rows_without_visible_keys():
     _, lse = fa.flash_attention_ref(q, k, v, causal=True, q_offset=-8,
                                     return_lse=True)
     assert bool(torch.isinf(lse).all()) and bool((lse > 0).all())
-    o = torch.zeros_like(q)
-    grads = fa.flash_attention_bwd_ref(q, k, v, o, lse, ct, causal=True,
+    grads = fa.flash_attention_bwd_ref(q, k, v, lse, ct, causal=True,
                                        q_offset=-8, chunk=16)
     for g in grads:
         assert bool(torch.isfinite(g).all()) and not bool(g.any())
@@ -209,16 +210,18 @@ def test_visible_rows_hold_every_row_that_sees_the_chunk(causal, window,
             assert (lo, hi) == (0, sq)
 
 
-@pytest.mark.parametrize("chunk", [128, 96])
+@pytest.mark.parametrize("chunk", [128, 96, 48, 32, 16])
 def test_one_chunk_backward_holds_near_uniform_attention(chunk):
-    """Where one chunk holds every key, Δ is the softmax's own
-    ``rowsum(P∘dP)``. Values that share one large component (near-uniform
-    attention over similar values, as in whisper's decoder at random
-    weights) make ``dP - Δ`` cancel; ``rowsum(dO∘O)`` over the bf16 ``O``
-    then puts dQ and dK about 10% of max|ref| from the exact gradient
-    here, where this Δ keeps every gradient within 1e-2·max|ref| of
-    autograd through the twin in fp32 on the same bf16 values (0.23% the
-    worst measured, the final cast to bf16)."""
+    """Δ is the softmax's own ``rowsum(P∘dP)`` in fp32, whether one chunk
+    holds every key (128, 96) or the keys span several (48, 32, 16).
+    Values that share one large component (near-uniform attention over
+    similar values, as in whisper's decoder at random weights) make
+    ``dP - Δ`` cancel; ``rowsum(dO∘O)`` over the bf16 ``O`` then puts dQ
+    and dK about 10% of max|ref| from the exact gradient here (an fp32 O
+    summed from bf16 P still lands beyond the bound), where this Δ keeps
+    every gradient within 1e-2·max|ref| of autograd through the twin in
+    fp32 on the same bf16 values (0.23% the worst measured, the final
+    cast to bf16)."""
     rng = np.random.default_rng(5)
     b, s, h, d = 2, 96, 4, 32
     q, k = (0.05 * rng.standard_normal((b, s, h, d)) for _ in range(2))
@@ -238,3 +241,60 @@ def test_one_chunk_backward_holds_near_uniform_attention(chunk):
         torch.testing.assert_close(g.float(), w, rtol=0,
                                    atol=1e-2 * w.abs().max().item(),
                                    msg=label)
+
+
+@pytest.mark.parametrize("s", [96, 512])
+def test_delta_from_an_fp32_o_over_bf16_p_misses_the_bound(s):
+    """Why the backward takes Δ = rowsum(P∘dP) in a pass over the keys
+    and not rowsum(dO∘O) from an fp32 O written by the forward.
+
+    On the near-uniform attention of the test above, K5's fp32 O (the
+    twin's accumulator over bf16 P, divided by the row sum of the fp32 P)
+    gives a Δ that puts dQ or dK beyond 1e-2·max|ref| of autograd through
+    the twin in fp32, at every length: the bf16 rounding of P does not
+    cancel against the fp32 sum it is divided by. The backward's own Δ
+    (chunks of 32 keys, so the pass ahead of the loop) stays within. The
+    same accumulator divided by the row sum of the bf16 P it summed lands
+    within as well: a forward that wrote that O could give the backward
+    its Δ without the pass."""
+    rng = np.random.default_rng(5)
+    b, h, d = 2, 4, 32
+    q, k = (0.05 * rng.standard_normal((b, s, h, d)) for _ in range(2))
+    v = (4 * rng.standard_normal((1, 1, h, d))
+         + 0.1 * rng.standard_normal((b, s, h, d)))
+    ct = rng.standard_normal((b, s, h, d))
+    q, k, v, ct = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+                   for a in (q, k, v, ct))
+    exact = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_ref(*exact, causal=True),
+                               exact, ct.float())
+
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, ct))
+    scores = (qf @ kf.transpose(-1, -2)) / math.sqrt(d)
+    scores = scores.masked_fill(
+        ~torch.ones(s, s, dtype=torch.bool).tril(), -math.inf)
+    p = torch.softmax(scores, -1)
+    dp = dof @ vf.transpose(-1, -2)
+
+    def worst(delta):
+        """max|Δ| of dQ and dK over max|ref|, with this Δ."""
+        ds = p * (dp - delta)
+        dq = (ds @ kf / math.sqrt(d)).transpose(1, 2)
+        dk = (ds.transpose(-1, -2) @ qf / math.sqrt(d)).transpose(1, 2)
+        return max(((g - w).abs().max() / w.abs().max()).item()
+                   for g, w in ((dq, want[0]), (dk, want[1])))
+
+    # K5's arithmetic: P·V over bf16 P in fp32, the twin with fp32 Q, K.
+    o32 = fa.flash_attention_ref(q.float(), k.float(), v, causal=True)
+    assert o32.dtype == torch.float32
+    assert worst((dof * o32.transpose(1, 2)).sum(-1, keepdim=True)) > 1e-2
+    p16 = torch.exp(scores - scores.amax(-1, keepdim=True)).to(
+        torch.bfloat16).float()
+    o_used = (p16 @ vf) / p16.sum(-1, keepdim=True)
+    assert worst((dof * o_used).sum(-1, keepdim=True)) < 1e-2
+
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention_grad(*ins, causal=True,
+                                                      chunk=32), ins, ct)
+    for label, g, w in zip("qk", got, want):
+        assert (g.float() - w).abs().max() <= 1e-2 * w.abs().max(), label

@@ -417,7 +417,7 @@ def test_step_matches_hand_composed_reference(microbatches):
     cfg, model = _model("minitron-8b", "float32")
     state = opt.init_opt_state(dict(model.named_parameters()),
                                opt.OptConfig(**kw))
-    step = make_train_step(cfg, opt.OptConfig(**kw), microbatches)
+    step = make_train_step(cfg, opt.OptConfig(**kw), microbatches=microbatches)
     m = step(model, state, {k: torch.from_numpy(v)
                             for k, v in _step_inputs().items()})
     assert set(m) == {"loss", "grad_norm", "lr"}
@@ -440,7 +440,7 @@ def test_microbatch_equivalence():
         cfg, model = _model("minitron-8b", "float32")
         state = opt.init_opt_state(dict(model.named_parameters()),
                                    opt.OptConfig(**kw))
-        m = make_train_step(cfg, opt.OptConfig(**kw), microbatches)(
+        m = make_train_step(cfg, opt.OptConfig(**kw), microbatches=microbatches)(
             model, state, {k: torch.from_numpy(v)
                            for k, v in _step_inputs().items()})
         out.append((float(m["loss"]), list(model.parameters())))

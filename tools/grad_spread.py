@@ -13,10 +13,11 @@ embeddings from seed ``800 + i`` (``chip_smoke.py`` phase 12 (a) draws
 whisper's at ``i = 5``, its place in ``TRAIN_FAMILIES``), and takes the
 first-step gradients of ``api.loss_fn``:
 
-- through K5's Function as the port runs it (the backward's Δ from P
-  and dP where one 1024-key chunk holds every key);
-- the same with the backward's other Δ, rowsum(dO∘O) over the bf16 O,
-  forced by a chunk of one key fewer than the call has;
+- through K5's Function as the port runs it (the backward's Δ is
+  rowsum(P∘dP) in fp32, inside the loop where one 1024-key chunk holds
+  every key, else from a pass ahead of it);
+- the same with a chunk of one key fewer than the call has, which takes
+  Δ from that pass;
 - through plain autograd over the twin (``flash_attention_ref``);
 - through the twin with fp32 compute (``g32``).
 
@@ -58,8 +59,8 @@ def main(argv=None) -> int:
     cfg = get_config("whisper-tiny")
     port_bwd = fa.flash_attention_bwd_ref
 
-    def rowsum_do_o(q, k, v, o, lse, do, *, chunk, **kw):
-        return port_bwd(q, k, v, o, lse, do,
+    def two_pass(q, k, v, lse, do, *, chunk, **kw):
+        return port_bwd(q, k, v, lse, do,
                         chunk=min(chunk, k.shape[1] - 1), **kw)
 
     def twin_grad(q, k, v, *, chunk, **kw):
@@ -84,8 +85,8 @@ def main(argv=None) -> int:
 
         runs = {
             "K5": grads(cfg),
-            "K5, Δ = rowsum(dO∘O)": grads(cfg, mock.patch.object(
-                fa, "flash_attention_bwd_ref", rowsum_do_o)),
+            "K5, Δ ahead of the loop": grads(cfg, mock.patch.object(
+                fa, "flash_attention_bwd_ref", two_pass)),
             "twin": grads(cfg, mock.patch.object(
                 layers, "flash_attention_grad", twin_grad)),
             "fp32": grads(cfg.scaled(compute_dtype="float32"),
@@ -93,7 +94,7 @@ def main(argv=None) -> int:
                                             twin_grad)),
         }
         l2_apart, l2_ratio = 0.0, []
-        for label in ("K5", "K5, Δ = rowsum(dO∘O)"):
+        for label in ("K5", "K5, Δ ahead of the loop"):
             beyond = []
             for name, g32 in runs["fp32"].items():
                 s32 = cs.max_abs(torch, g32)
