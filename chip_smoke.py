@@ -227,6 +227,24 @@ Phases:
     on (1, 1) → (2, 2) → (2, 2, 2) → (1, 1) bit for bit, every block a
     view, and ``degrade_plan``'s three cases. Wall time and peak memory
     printed.
+14. The reports (``launch/{hlo_analysis,dryrun,report}.py``): (a) the
+    dry run on ``meta`` of gemma2-9b ``train_4k``, qwen3-moe-235b-a22b
+    ``train_4k``, zamba2-7b ``long_500k`` and moonshot-v1-16b-a3b
+    ``decode_32k`` at published size on the (16, 16) production mesh,
+    each in its own ``python -m repro_torch.launch.dryrun`` process
+    started in phase 0 (no card; they run beside phases 1-13), each
+    ``ok``, with the roofline, dry-run and fused-attention tables and
+    each trace's seconds; (b) gemma2-9b (one local and one global layer),
+    moonshot-v1-16b-a3b (2 layers) at full width and mamba2-130m whole,
+    weights drawn from a seed: a 1 × 4096 training step, a 1 × 8192
+    prefill and a decode step over an 8192-slot cache, each the dry run's
+    own program on the (16, 16) production mesh, run on the card under
+    ``OpCounter`` and traced on ``meta``: flops, bytes and op
+    counts equal exactly, K5's counted calls equal to its launches, the
+    counted peak within 5% of ``torch.cuda.max_memory_allocated()``
+    above the arguments (the largest live storages it never counted
+    printed if not); each timed beside its roofline terms. Wall time
+    printed.
 
 Phases 2 and 3 are the GNN inference path, phase 5's steps the GNN
 training path, phase 6's tuned operators the tuned path, phase 7's served
@@ -235,8 +253,8 @@ flushes the sharded path, phase 10 (c)'s requests and ``generate`` the
 MoE path, phase 11 (c)'s requests and ``generate`` the
 SSM/hybrid/audio/VLM path, phase 12 (b)'s loops the training path of
 every family, phase 13's requests, microbatch, step and ``generate`` on
-their meshes the placement path, and phase 4's (a) and (c) the dense
-main path:
+their meshes the placement path, phase 14 (b)'s counted steps the
+reports' path, and phase 4's (a) and (c) the dense main path:
 every kernel's launch counter is set to 0 just before each path and read
 just after it; within phase 6, the counts
 of each part are read as it ends, and those of the Fig. 11 sweep and of
@@ -297,10 +315,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense): HBM bandwidth, TF32 Tensor Core,
-# FP32 CUDA core.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"tf32": 495e12, "fp32": 67e12, "bf16": 989e12}
+#: ``bound``'s kinds of operation → ``Hardware.peak_for``'s dtype names.
+PEAK_DTYPE = {"tf32": "tf32", "fp32": "float32", "bf16": "bfloat16"}
 
 # Tolerances, each with its reason:
 # - integer-valued data in [-4, 4]: every kernel equals its twin exactly
@@ -426,7 +442,11 @@ def main(argv=None) -> int:
     from repro_torch.core.spmm import LibraSpMM
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_ref,
+        visible_pairs,
+    )
+    from repro_torch.launch.hlo_analysis import Hardware
     from repro_torch.launch.serve import generate
     from repro_torch.models import api as model_api
     from repro_torch.models.gnn import (
@@ -439,6 +459,9 @@ def main(argv=None) -> int:
     from repro_torch.sparse import mixed_csr, power_law_csr
     from repro_torch.tune.model import TuneConfig
 
+    # H100 SXM data-sheet peaks (dense), which the dry run's roofline
+    # reads too.
+    hw = Hardware()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -462,6 +485,9 @@ def main(argv=None) -> int:
             log("  ptxas: " + line.strip())
     for inst, info in kernel_ptxas(_build.last_build_log).items():
         log(f"  ptxas {inst}: {info}")
+    # Phase 14 (a)'s dry runs need no card: they trace on meta in their own
+    # processes while the card runs phases 1-13.
+    report_cells = start_report_cells()
 
     # ------------------------------------------------ host: matrices, plans
     def timed(label, fn):
@@ -1103,6 +1129,10 @@ def main(argv=None) -> int:
     placement_counts = placement_phase(torch, np, dev, log, fail, compare,
                                        kernels, get_config, median_ms)
 
+    # ------------------------------------------------ phase 14: reports
+    report_counts = reports_phase(torch, np, dev, log, fail, kernels,
+                                  get_config, report_cells)
+
     # ------------------------------------------------ timing and bounds
     def rows_read(*ids):
         """Distinct rows that the index tensors ``ids`` name together: the
@@ -1125,8 +1155,8 @@ def main(argv=None) -> int:
             size=(a.m, a.k))
 
     def bound(nbytes, ops, kind):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS[kind] * 1e3
+        t_bytes = nbytes / hw.hbm_bw * 1e3
+        t_ops = ops / hw.peak_for(PEAK_DTYPE[kind]) * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     def nbytes(*ts):
@@ -1148,7 +1178,8 @@ def main(argv=None) -> int:
         f"{family_counts['flash_attention']}, training "
         + ", ".join(f"{arch} {c['flash_attention']}"
                     for arch, c in training_counts.items())
-        + f", placement {placement_counts['flash_attention']}")
+        + f", placement {placement_counts['flash_attention']}, reports "
+        f"{report_counts['flash_attention']}")
 
     def record(name, label, ms, plain_ms, library_ms, nb, ops):
         """Log one kernel's times and bound; at the kernel's shape in
@@ -1169,7 +1200,7 @@ def main(argv=None) -> int:
             "launches": (dense_counts[name] + moe_counts[name]
                          + family_counts[name]
                          + sum(c[name] for c in training_counts.values())
-                         + placement_counts[name]
+                         + placement_counts[name] + report_counts[name]
                          if name == "flash_attention"
                          else gnn_counts[name]),
             "max_abs_err": twin_err[(name, label)], "ms": ms,
@@ -1389,11 +1420,9 @@ def main(argv=None) -> int:
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
     def k5_pairs(b, sq, sk, h, causal=True, window=0, **_):
-        """Unmasked (query, key) pairs: the work these inputs need."""
-        qpos = np.arange(sq, dtype=np.int64)
-        hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
-        lo = np.maximum(qpos - window + 1, 0) if window > 0 else 0
-        return int(np.maximum(hi - lo, 0).sum()) * b * h
+        """Unmasked (query, key) pairs: the work these inputs need, by the
+        formula that K5's wrapper reports to the op counter."""
+        return visible_pairs(b, sq, sk, h, causal=causal, window=window)
 
     b, sq, sk, h, kv, d = shape
     pairs = k5_pairs(b, sq, sk, h, **kw)
@@ -2753,6 +2782,7 @@ def training_phase(torch, np, dev, log, fail, kernels, get_config):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import flops
     from repro_torch.launch import train as train_launch
+    from repro_torch.launch.hlo_analysis import Hardware
     from repro_torch.models import api, layers, mamba2, moe
     from repro_torch.models.config import InputShape
     from repro_torch.train import checkpoint as ckpt
@@ -2760,6 +2790,7 @@ def training_phase(torch, np, dev, log, fail, kernels, get_config):
 
     t_phase = time.perf_counter()
     gib = 2**30
+    bf16_peak = Hardware().peak_for("bfloat16")
 
     def twin_grad(q, k, v, *, causal, window, softcap, q_offset, chunk):
         """Plain autograd through K5's twin, 1024 query rows at a time,
@@ -3027,8 +3058,8 @@ def training_phase(torch, np, dev, log, fail, kernels, get_config):
             f"{(peak - live) / gib:.2f} GiB above the {live / gib:.2f} GiB "
             f"live before the loop; model_flops {mf / 1e12:.2f} TFLOP a "
             f"step (launch/flops.py), {mf / steady / 1e9:.1f} TFLOP/s over "
-            f"the steady step, {mf / steady / 1e9 / 989:.3f} of 989 "
-            "TFLOP/s bf16")
+            f"the steady step, {mf / steady / bf16_peak * 1e3:.3f} "
+            f"of {bf16_peak / 1e12:.0f} TFLOP/s bf16")
         # The profiled step is one microbatch of the batch: the trace of
         # a whole step (up to 75,000 kernels for zamba2) takes up to 42 s
         # to read, and a microbatch's kernels are the step's, halved.
@@ -3503,6 +3534,206 @@ def placement_phase(torch, np, dev, log, fail, compare, kernels, get_config,
         f"main path launches {counts}; K5 at 16/16, D=256 under the KV "
         f"repeat: {k5_c}")
     return counts
+
+
+#: Phase 14 (a)'s cells: (arch, shape), traced on ``meta`` at published
+#: size on the (16, 16) production mesh.
+REPORT_CELLS = (("gemma2-9b", "train_4k"), ("qwen3-moe-235b-a22b", "train_4k"),
+                ("zamba2-7b", "long_500k"), ("moonshot-v1-16b-a3b", "decode_32k"))
+#: Phase 14 (b)'s programs: arch → layers at full width (None: whole),
+#: each run at the ``InputShape`` fields (name, seq_len, global_batch,
+#: kind) below: a decode cell's cache holds seq_len slots, seq_len - 1
+#: of them filled.
+COUNTED_MODELS = {"gemma2-9b": 2, "moonshot-v1-16b-a3b": 2,
+                  "mamba2-130m": None}
+COUNTED_SHAPES = (("train 1 x 4096", 4096, 1, "train"),
+                  ("prefill 1 x 8192", 8192, 1, "prefill"),
+                  ("decode at 8191", 8192, 1, "decode"))
+#: How far the counted peak may lie from the card's
+#: ``max_memory_allocated`` above the arguments: the caching allocator
+#: rounds each block to 512 bytes and ops keep internal scratch (sorts,
+#: cuBLAS workspaces) that no dispatch mode sees.
+PEAK_REL = 5e-2
+
+
+def start_report_cells():
+    """Start phase 14 (a)'s dry runs, one ``python -m
+    repro_torch.launch.dryrun`` process a cell, all at once; they are
+    killed at exit if still running. Returns ``(processes, out_dir)``."""
+    import atexit
+    import os
+    import tempfile
+
+    out_dir = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         arch.replace("-", "_"), "--shape", shape, "--mesh", "single",
+         "--out-dir", out_dir.name], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape in REPORT_CELLS]
+
+    def stop():
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out_dir.cleanup()
+
+    atexit.register(stop)
+    return procs, out_dir.name
+
+
+def reports_phase(torch, np, dev, log, fail, kernels, get_config,
+                  report_cells):
+    """Phase 14: the reports (``launch/{hlo_analysis,dryrun,report}.py``).
+
+    (a) :data:`REPORT_CELLS` through ``python -m
+    repro_torch.launch.dryrun`` on ``meta`` at published size on the (16,
+    16) mesh, in the processes :func:`start_report_cells` started in
+    phase 0: each must exit 0 with status ``ok``; the roofline, dry-run
+    and fused-attention tables and each trace's seconds are printed.
+    (b) :data:`COUNTED_MODELS` at full width (gemma2's one local and one
+    global layer) at :data:`COUNTED_SHAPES`: a 1 × 4096 training step, a
+    1 × 8192 prefill and a decode step over an 8192-slot cache, each the
+    dry run's own program (``dryrun.cell_program``, on the (16, 16)
+    production mesh: K/V repeated to the model axis, the MoE's grouped
+    dispatch and exchange), run on the card with weights drawn from a
+    seed under ``OpCounter`` and traced on ``meta`` by
+    ``dryrun.trace_cell``: flops, bytes and op counts equal exactly, K5's
+    counted calls equal to its launches, the counted peak within
+    :data:`PEAK_REL` of ``torch.cuda.max_memory_allocated()`` above the
+    arguments; then each is timed (CUDA events, one run after the counted
+    one) beside its roofline terms.
+
+    Returns the launch counts of (b)'s runs on the card."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import report
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.config import InputShape
+
+    t_phase = time.perf_counter()
+    counts = dict.fromkeys(kernels.launch_counts(), 0)
+
+    # (a) The dry run at published size, shapes only.
+    procs, out_dir = report_cells
+    for (arch, shape), proc in zip(REPORT_CELLS, procs):
+        out, _ = proc.communicate()
+        name = f"{arch.replace('-', '_')}_{shape}_single.json"
+        path = pathlib.Path(out_dir) / name
+        cell = json.loads(path.read_text()) if path.exists() else {}
+        if proc.returncode or cell.get("status") != "ok":
+            fail(f"phase 14 (a): {arch} {shape}: exit {proc.returncode}, "
+                 f"status {cell.get('status')}\n{out[-3000:]}\n"
+                 f"{cell.get('traceback', '')}")
+        r, b = cell["roofline"], cell["bytes_per_device"]
+        log(f"phase 14 (a): {arch} {shape} on meta, {cell['n_chips']} "
+            f"positions, {cell['microbatches']} microbatches: traced in "
+            f"{cell['trace_s']} s (its own process, beside phases 1-13), "
+            f"{sum(v['calls'] for v in cell['by_op'].values())} ops; per "
+            f"position {r['flops_per_dev']:.4e} flops, "
+            f"{r['hbm_bytes_per_dev']:.4e} bytes, arguments "
+            f"{b['arguments'] / 2**30:.3f} GiB, temp "
+            f"{b['temp'] / 2**30:.3f} GiB")
+    log("phase 14 (a): roofline (NVIDIA H100 80GB HBM3, 700 W, data "
+        "sheet):\n" + report.roofline_table("single", out_dir))
+    log("phase 14 (a): dry run:\n" + report.dryrun_table("single", out_dir))
+    log("phase 14 (a): fused attention:\n"
+        + report.fused_attention_projection(out_dir))
+
+    # (b) The dry run's own cell programs on the card against meta.
+    card = torch.device("cuda", torch.cuda.current_device())
+    hw = H.Hardware()
+    for arch, layers in COUNTED_MODELS.items():
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.scaled(n_layers=layers)
+        for shape in (InputShape(*f) for f in COUNTED_SHAPES):
+            _, ref, _, _ = dryrun.trace_cell(
+                cfg, shape, make_production_mesh(device="meta"),
+                device="meta")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            _, fn, args, _ = dryrun.cell_program(
+                cfg, shape, make_production_mesh(device=card), device=card,
+                seed=140)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            kernels.reset_launch_counts()
+            counter = H.OpCounter(baseline=args)
+            with counter:
+                out = fn(*args)
+            torch.cuda.synchronize()
+            got = kernels.launch_counts()
+            for k, v in got.items():
+                counts[k] += v
+            measured = torch.cuda.max_memory_allocated() - base
+            st = counter.stats(out)
+            label = f"phase 14 (b): {arch} {shape.name}"
+            off = abs(st.temp_bytes - measured) / max(measured, 1)
+            if off > PEAK_REL:
+                missed = sorted(
+                    ((t.untyped_storage().nbytes(), tuple(t.shape), t.dtype)
+                     for t in gc_tensors(torch, dev)
+                     if not counter.knows(t.untyped_storage())),
+                    key=lambda m: m[0], reverse=True)[:8]
+                fail(f"{label}: counted peak {st.temp_bytes} bytes, the "
+                     f"card's {measured} above the arguments ({off:.4f} "
+                     f"apart); the largest live storages it never counted: "
+                     f"{missed}")
+            del out
+            for field in ("flops", "hbm_bytes", "flops_by_dtype", "by_op",
+                          "kernel_calls"):
+                if getattr(st, field) != getattr(ref, field):
+                    mine, theirs = getattr(st, field), getattr(ref, field)
+                    if isinstance(mine, dict):
+                        mine = {k: v for k, v in mine.items()
+                                if theirs.get(k) != v}
+                        theirs = {k: theirs.get(k) for k in mine}
+                    fail(f"{label}: {field} on the card {mine} differs from "
+                         f"meta's {theirs}")
+            k5 = st.by_op.get("flash_attention", {}).get("calls", 0)
+            if k5 != got["flash_attention"]:
+                fail(f"{label}: K5 counted {k5} times, launched "
+                     f"{got['flash_attention']}")
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+            rl = H.roofline_from_stats(st, hw)
+            top = max(rl.compute_s, rl.memory_s) * 1e3
+            by_dtype = {k: f"{v:.4e}" for k, v in st.flops_by_dtype.items()}
+            log(f"{label}: cuda equals meta ({st.flops:.6e} flops "
+                f"{by_dtype}, {st.hbm_bytes:.6e} bytes, "
+                f"{sum(st.op_calls().values())} ops; meta peak "
+                f"{ref.temp_bytes}); K5 {k5} calls = launches; counted "
+                f"peak {st.temp_bytes / 2**30:.4f} GiB, card "
+                f"{measured / 2**30:.4f} GiB above "
+                f"{st.arg_bytes / 2**30:.3f} GiB of arguments ({off:.4f} "
+                f"apart); {ms:.3f} ms measured, "
+                f"compute {rl.compute_s * 1e3:.3f} ms, memory "
+                f"{rl.memory_s * 1e3:.3f} ms, max(term)/measured "
+                f"{top / ms:.3f}")
+            del args, fn
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    log(f"phase 14: wall time {time.perf_counter() - t_phase:.1f} s; main "
+        f"path launches {counts}")
+    return counts
+
+
+def gc_tensors(torch, dev):
+    """The tensors on ``dev`` that Python still reaches (phase 14's report
+    of a peak that misses)."""
+    import gc
+
+    return [o for o in gc.get_objects()
+            if isinstance(o, torch.Tensor) and o.device.type == dev.type]
 
 
 #: Kernel-name fragments of cuBLAS/CUTLASS products.

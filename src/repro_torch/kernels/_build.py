@@ -7,9 +7,17 @@ a plain C interface, and loaded with :mod:`ctypes`. The library lands in
 sources and flags, so an unchanged tree reuses it and a changed one
 rebuilds. Nothing builds on import: :func:`library` runs at the first
 kernel launch.
+
+A kernel launched through :mod:`ctypes` is invisible to a
+``TorchDispatchMode``, so each wrapper reports its own work to the
+installed op counter (``repro_torch.launch.hlo_analysis.OpCounter``)
+through :func:`report_work`, and runs its output allocation (or, on CPU
+tensors, its plain twin) inside :func:`kernel_scope`. Both do nothing
+unless a counter is installed.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -225,3 +233,35 @@ def stream_handle(dev):
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+#: Installed op counters, innermost last (``OpCounter`` pushes itself on
+#: entry and pops itself on exit).
+COUNTERS: list = []
+
+
+def report_work(name: str, flops: float, nbytes: float, dtype,
+                shape=None) -> None:
+    """Count one call of kernel ``name``: ``flops`` operations in ``dtype``
+    and ``nbytes`` of device memory moved; ``shape`` (a tuple of ints)
+    names the call's problem size. Nothing unless a counter is
+    installed."""
+    if COUNTERS:
+        COUNTERS[-1].kernel_work(name, flops, nbytes, dtype, shape)
+
+
+class _NoScope:
+    def outputs(self, *tensors) -> None:
+        pass
+
+
+def kernel_scope(name: str, *, twin: bool):
+    """Context for the part of a kernel call that runs aten ops: the
+    output allocation before a launch, or the whole plain twin on CPU
+    tensors (``twin=True``). An installed counter records those ops apart,
+    under ``name + "/twin"`` or ``name + "/outputs"``, and leaves them out
+    of its totals; the scope's ``outputs(*tensors)`` hands it the
+    kernel's outputs, whose storages it then counts as allocated."""
+    if not COUNTERS:
+        return contextlib.nullcontext(_NoScope())
+    return COUNTERS[-1].kernel_scope(name, twin=twin)

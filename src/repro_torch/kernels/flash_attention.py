@@ -13,9 +13,14 @@ mask edge cuts.
 
 :func:`flash_attention_fused` launches the kernel for CUDA tensors and
 runs :func:`flash_attention_ref`, its plain twin, for CPU tensors; it
-never falls back from the card to the plain version. The layout is the
-reference's ``(B, S, H, D)``; the kernel reads Q, K and V through their
-strides, so no transposed copies are made.
+never falls back from the card to the plain version. On ``meta``
+tensors (a shape-only trace, ``repro_torch.launch.dryrun``) it makes the
+kernel's checks and returns empty outputs. Every call reports its work,
+``4·D`` operations a visible (query, key) pair (:func:`visible_pairs`),
+to an installed op counter (``repro_torch.launch.hlo_analysis``).
+
+The layout is the reference's ``(B, S, H, D)``; the kernel reads Q, K
+and V through their strides, so no transposed copies are made.
 
 Training goes through :class:`FlashAttention`, a
 ``torch.autograd.Function`` (:func:`flash_attention_grad`): its forward
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -107,7 +113,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         acc = acc * alpha + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    # Contiguous, as the kernel writes it, so that what follows runs the
+    # same ops on either.
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(
+        q.dtype, memory_format=torch.contiguous_format)
     if not return_lse:
         return out
     lse = torch.where(m == NEG, math.inf, m + torch.log(l))
@@ -141,24 +150,57 @@ def flash_attention_fused(q, k, v, *, causal: bool = True, window: int = 0,
                     int(q_offset), False)
 
 
+def visible_pairs(b, sq, sk, h, *, causal=True, window=0, q_offset=0):
+    """Unmasked (query, key) pairs of one call, over every batch row and
+    query head: the work these inputs need, ``4·D`` operations a pair
+    (QKᵀ and PV). Query ``i`` sits at ``q_offset + i``; key ``kpos`` is
+    visible to it when ``kpos <= qpos`` (causal) and ``kpos > qpos -
+    window`` (``window > 0``)."""
+    qpos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else 0
+    return int(np.maximum(hi - lo, 0).sum()) * b * h
+
+
 def _forward(q, k, v, causal, window, softcap, q_offset, want_lse):
-    """The kernel on CUDA tensors, the twin on CPU tensors; with
-    ``want_lse`` returns ``(out, lse)``."""
+    """The kernel on CUDA tensors, the twin on CPU tensors, and on
+    ``meta`` tensors the kernel's checks and outputs alone (a shape-only
+    trace: nothing launches and the launch count stays); with
+    ``want_lse`` returns ``(out, lse)``. Each call that has work reports
+    it to an installed op counter (:func:`_build.report_work`)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if h % kv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(
             f"flash_attention_fused: shapes q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
+
+    def report(out, lse):
+        if not _build.COUNTERS:
+            return
+        pairs = visible_pairs(b, sq, sk, h, causal=causal, window=window,
+                              q_offset=q_offset)
+        moved = sum(t.numel() * t.element_size()
+                    for t in (q, k, v, out) + ((lse,) if want_lse else ()))
+        _build.report_work("flash_attention", 4.0 * d * pairs, moved,
+                           q.dtype, (b, sq, sk, h, kv, d))
+
     if _build.on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, q_offset=q_offset,
-                                   return_lse=want_lse)
+        with _build.kernel_scope("flash_attention", twin=True) as scope:
+            got = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      softcap=softcap, q_offset=q_offset,
+                                      return_lse=want_lse)
+            outs = got if want_lse else (got,)
+            scope.outputs(*outs)
+        if outs[0].numel():
+            report(outs[0], outs[-1] if want_lse else None)
+        return got
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError("flash_attention_fused: operands must all be CUDA "
                          "tensors (or all CPU tensors for the plain "
-                         f"version), got {dev}")
+                         "version, or all meta tensors for a shape-only "
+                         f"trace), got {dev}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"flash_attention_fused: {name} is on "
@@ -177,10 +219,15 @@ def _forward(q, k, v, causal, window, softcap, q_offset, want_lse):
                          f"{HEAD_DIMS}")
     if b * h > 65535:
         raise ValueError(f"flash_attention_fused: B*H = {b * h} > 65535")
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
-    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-           if want_lse else None)
+    with _build.kernel_scope("flash_attention", twin=False) as scope:
+        out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+        lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+               if want_lse else None)
+        scope.outputs(out, *((lse,) if want_lse else ()))
     if out.numel() == 0:
+        return (out, lse) if want_lse else out
+    if dev.type == "meta":
+        report(out, lse)
         return (out, lse) if want_lse else out
     with torch.cuda.device(dev):
         err = _build.library().flash_attention_launch(
@@ -192,6 +239,7 @@ def _forward(q, k, v, causal, window, softcap, q_offset, want_lse):
             _build.stream_handle(dev))
     _build.check(err, "flash_attention")
     flash_attention_fused.launches += 1
+    report(out, lse)
     return (out, lse) if want_lse else out
 
 

@@ -88,7 +88,7 @@ def apply_mrope(x, positions3, theta: float, sections):
         sec[start:start + width] = si
         start += width
     sec[start:] = len(sections) - 1
-    pos = positions3[torch.from_numpy(sec).to(positions3.device)]
+    pos = positions3[torch.tensor(sec, device=positions3.device)]
     ang = pos.movedim(0, -1).float() * freqs              # (..., S, half)
     cos = torch.cos(ang)[..., None, :].to(x.dtype)
     sin = torch.sin(ang)[..., None, :].to(x.dtype)

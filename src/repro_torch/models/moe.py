@@ -27,9 +27,10 @@ Where gm > 1, :func:`_moe_ep` is the counterpart of the reference's
 tiled exchange over ``model`` hands each model rank its e/gm experts'
 slots from all gm groups, the rank runs those experts, and the mirror
 exchange brings the results back before the combine. In one process the
-exchange is a split and a cat across the mesh's positions (each on its
-position's device), so autograd gives the mirrored exchange in backward,
-as the reference's ``all_to_all`` does. Where gm = 1 but gd > 1, all B·S
+groups dispatch and combine together on the tokens' device, and the
+exchange is a split and a cat, copied to each rank's position's device
+and back, so autograd gives the mirrored exchange in backward, as the
+reference's ``all_to_all`` does. Where gm = 1 but gd > 1, all B·S
 tokens dispatch as one group at the per-group capacity, as in the
 reference (decode included). The reference's sharding constraints change
 no value and are left out.
@@ -47,6 +48,7 @@ decoding equals the forward only where the capacity reaches the tokens
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -92,60 +94,90 @@ def router_topk(logits, k: int):
     topv, topi = topv[..., :k], topi[..., :k]
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     e = logits.shape[-1]
-    f_e = torch.bincount(topi.reshape(-1), minlength=e).float()
+    # An exact count (integers below 2^24 in fp32, in any order) that also
+    # runs on ``meta`` tensors, which ``torch.bincount`` does not.
+    flat = topi.reshape(-1)
+    f_e = torch.zeros(e, dtype=torch.float32, device=flat.device).index_add_(
+        0, flat, torch.ones(flat.numel(), dtype=torch.float32,
+                            device=flat.device))
     f_e = f_e / torch.clamp(f_e.sum(), min=1.0)
     p_e = probs.reshape(-1, e).mean(dim=0)
     return topv, topi, e * torch.sum(f_e * p_e)
 
 
-def _local_dispatch(xg, topi, e: int, k: int, cap: int, cd):
-    """Dispatch one token group. xg: (t, d); topi: (t, k).
+def _dispatch_groups(xg, topi, e: int, k: int, cap: int, cd):
+    """Dispatch g token groups at once, each on its own. xg: (g, t, d);
+    topi: (g, t, k).
 
-    Returns the buffer (e, cap, d) in ``cd`` and each assignment's slot
-    (t, k); a dropped assignment (rank ≥ cap in its expert) gets the
-    sentinel slot ``e·cap``. The sort is stable, so an expert keeps its
-    first ``cap`` assignments in token order, as ``jnp.argsort`` does.
-    The only index written more than once below is the sentinel, whose
-    entry is discarded (``[:-1]``), so the order in which duplicate
-    writes land does not matter.
+    Returns the buffers (g, e, cap, d) in ``cd`` and each assignment's
+    slot (g, t, k) in its group's buffer; a dropped assignment (rank ≥ cap
+    in its expert) gets the sentinel slot ``e·cap``. The sort is stable,
+    so an expert keeps its first ``cap`` assignments of a group in token
+    order, as ``jnp.argsort`` does. The only index written more than once
+    below is the sentinel, whose entry is discarded (``[:, :-1]``), so the
+    order in which duplicate writes land does not matter. The rows are
+    read by indexing the (g·t, d) tokens: its backward is ``index_put_``,
+    which adds a token's k slot gradients in a fixed order, where a
+    ``torch.gather``'s ``scatter_add_`` adds them with atomics in x's
+    type, in an order that changes from run to run.
     """
-    t, d = xg.shape
+    g, t, d = xg.shape
     dev = xg.device
-    flat_e = topi.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    starts = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
-    rank = torch.arange(t * k, device=dev) - starts[sorted_e]
+    flat_e = topi.reshape(g, t * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(e, device=dev).expand(g, e).contiguous())
+    rank = (torch.arange(t * k, device=dev)
+            - torch.gather(starts, 1, sorted_e))
     keep = rank < cap
     dest = torch.where(keep, sorted_e * cap + rank, e * cap)
-    src_token = order // k
-    tok_of_slot = torch.zeros(e * cap + 1, dtype=torch.long, device=dev)
-    tok_of_slot[dest] = src_token
-    valid_slot = torch.zeros(e * cap + 1, dtype=torch.bool, device=dev)
-    valid_slot[dest] = keep
-    buf = torch.where(valid_slot[:-1, None], xg[tok_of_slot[:-1]], 0).to(cd)
-    slot_of_assign = torch.full((t * k,), e * cap, dtype=torch.long,
-                                device=dev)
-    slot_of_assign[order] = dest
-    return buf.reshape(e, cap, d), slot_of_assign.reshape(t, k)
+    tok_of_slot = torch.zeros((g, e * cap + 1), dtype=torch.long,
+                              device=dev).scatter_(1, dest, order // k)
+    valid_slot = torch.zeros((g, e * cap + 1), dtype=torch.bool,
+                             device=dev).scatter_(1, dest, keep)
+    first_row = torch.arange(g, device=dev)[:, None] * t
+    rows = xg.reshape(g * t, d)[tok_of_slot[:, :-1] + first_row]
+    buf = torch.where(valid_slot[:, :-1, None], rows, 0).to(cd)
+    slot_of_assign = torch.full((g, t * k), e * cap, dtype=torch.long,
+                                device=dev).scatter_(1, order, dest)
+    return buf.reshape(g, e, cap, d), slot_of_assign.reshape(g, t, k)
+
+
+def _combine_groups(y, slot_of_assign, topv):
+    """y: (g, e, cap, d) expert outputs → (g, t, d) tokens: one row read
+    per (token, k) assignment of its own group (a dropped one reads a
+    zero row), weighted and summed over k in y's type."""
+    g, e, cap, d = y.shape
+    y_flat = torch.cat([y.reshape(g, e * cap, d), y.new_zeros(g, 1, d)],
+                       dim=1).reshape(g * (e * cap + 1), d)
+    first_row = torch.arange(g, device=y.device)[:, None, None] * (
+        e * cap + 1)
+    picked = y_flat[slot_of_assign + first_row]
+    return (picked * topv[..., None].to(y.dtype)).sum(dim=2)
+
+
+def _local_dispatch(xg, topi, e: int, k: int, cap: int, cd):
+    """Dispatch one token group. xg: (t, d); topi: (t, k). Returns the
+    buffer (e, cap, d) and each assignment's slot (t, k), as
+    :func:`_dispatch_groups` does for one group."""
+    buf, slots = _dispatch_groups(xg[None], topi[None], e, k, cap, cd)
+    return buf[0], slots[0]
 
 
 def _local_combine(y, slot_of_assign, topv):
-    """y: (e, cap, d) expert outputs → (t, d) tokens: one row gather per
-    (token, k) assignment (a dropped one reads a zero row), weighted and
-    summed over k in y's type."""
-    d = y.shape[-1]
-    y_flat = torch.cat([y.reshape(-1, d), y.new_zeros(1, d)])
-    picked = y_flat[slot_of_assign]
-    return (picked * topv[..., None].to(y.dtype)).sum(dim=1)
+    """y: (e, cap, d) expert outputs → (t, d) tokens, as
+    :func:`_combine_groups` does for one group."""
+    return _combine_groups(y[None], slot_of_assign[None], topv[None])[0]
 
 
-def _experts(p, buf, cd, experts=slice(None)):
-    """The FFNs of ``experts`` on their dispatch buffer: (e', cap, d) →
-    (e', cap, d), with the experts' weights brought to the buffer's
-    device (a mesh position's, in :func:`_moe_ep`)."""
+def _experts(p, buf, cd):
+    """The FFNs of the experts in ``p`` (``wi_gate``, ``wi_up``, ``wo``,
+    each with a leading expert axis) on their dispatch buffer: (e', cap, d)
+    → (e', cap, d), with the weights brought to the buffer's device (a
+    mesh position's, in :func:`_moe_ep`)."""
     def w(name):
-        return p[name][experts].to(buf.device, cd)
+        return p[name].to(buf.device, cd)
 
     gate = F.silu(torch.bmm(buf, w("wi_gate")))
     up = torch.bmm(buf, w("wi_up"))
@@ -195,50 +227,53 @@ def _moe_ep(p, x, topi, topv, cfg, cap, cd, mesh, ba, gd, gm):
     ``_moe_ep_shardmap``), in one process.
 
     Tokens split ``P(batch, "model", None)``: group (di, mj) holds batch
-    block di and sequence block mj, on its mesh position's device, and
-    dispatches its tg tokens locally into (e, cap, d). The exchange
-    gives model rank r the slots of its experts ``[r·e/gm, (r+1)·e/gm)``
-    from every peer group of its batch block, concatenated over the peers
-    in order, (e/gm, gm·cap, d); the rank runs those experts on its slice
-    of the weights; the mirror exchange hands each peer its cap rows of
-    every rank's output, concatenated over the ranks, (e, cap, d), for
-    the local combine. Split and cat are differentiable, so the backward
-    is the mirrored exchange.
+    block di and sequence block mj and dispatches its tg tokens locally
+    into (e, cap, d); the gd·gm groups dispatch and combine together on
+    ``x``'s device along a leading group axis. The exchange gives model
+    rank r of batch block di the slots of its experts ``[r·e/gm,
+    (r+1)·e/gm)`` from every peer group of that block, concatenated over
+    the peers in order, (e/gm, gm·cap, d), on position (di, r)'s device;
+    the rank runs those experts on its slice of the weights; the mirror
+    exchange brings every rank's output back for the combine. Batch
+    blocks whose rank r sits on one device in a row (every block, where
+    all positions share a card) run rank r's experts in one call. Each
+    expert's FFN acts on each row alone, so that changes only the shape
+    of the products. The copies and the cats are differentiable, so the
+    backward is the mirrored exchange.
     """
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    bl, sl, el = b // gd, s // gm, e // gm
+    bl, sl, el, g = b // gd, s // gm, e // gm, gd * gm
     pos = _group_positions(mesh, ba, gd, gm)
-    rows = []
-    for di in range(gd):
-        bufs, slots, vals = [], [], []
-        for mj in range(gm):
-            dev = mesh.device(pos[di, mj])
-            blk = (slice(di * bl, (di + 1) * bl),
-                   slice(mj * sl, (mj + 1) * sl))
-            buf, slot = _local_dispatch(
-                x[blk].reshape(bl * sl, d).to(dev),
-                topi[blk].reshape(bl * sl, k).to(dev), e, k, cap, cd)
-            bufs.append(buf)
-            slots.append(slot)
-            vals.append(topv[blk].reshape(bl * sl, k).to(dev))
-        # EP exchange: (e, cap, d) a peer → (e/gm, gm·cap, d) a rank.
-        ys = []
-        for r in range(gm):
-            dev = mesh.device(pos[di, r])
-            experts = slice(r * el, (r + 1) * el)
-            recv = torch.cat([bf[experts].to(dev) for bf in bufs], dim=1)
-            ys.append(_experts(p, recv, cd, experts))
-        # Mirror exchange: (e/gm, gm·cap, d) a rank → (e, cap, d) a peer.
-        cols = []
-        for mj in range(gm):
-            dev = mesh.device(pos[di, mj])
-            back = torch.cat([y[:, mj * cap:(mj + 1) * cap].to(dev)
-                              for y in ys], dim=0)
-            cols.append(_local_combine(back, slots[mj], vals[mj])
-                        .reshape(bl, sl, d).to(x.device))
-        rows.append(torch.cat(cols, dim=1))
-    return torch.cat(rows, dim=0)
+
+    def groups(a):                      # (b, s, c) → (g, t, c)
+        return (a.reshape(gd, bl, gm, sl, a.shape[-1]).transpose(1, 2)
+                .reshape(g, bl * sl, a.shape[-1]))
+
+    buf, slots = _dispatch_groups(groups(x), groups(topi), e, k, cap, cd)
+    # Each rank's experts and slots by ``split``, whose backward is one
+    # cat, where a slice's would fill a whole zero tensor for every rank.
+    names = ("wi_gate", "wi_up", "wo")
+    rank_w = zip(*(p[n].split(el) for n in names))
+    rank_buf = buf.reshape(gd, gm, e, cap, d).split(el, dim=2)
+    ys = []
+    for r, (w, rb) in enumerate(zip(rank_w, rank_buf)):
+        runs = [(dev, len(list(blocks))) for dev, blocks in itertools.groupby(
+            mesh.device(pos[di, r]) for di in range(gd))]
+        outs = []
+        for (dev, n), blk in zip(runs, rb.split([n for _, n in runs])):
+            # EP exchange: (n, gm, e/gm, cap, d) → (e/gm, n·gm·cap, d).
+            recv = (blk.permute(2, 0, 1, 3, 4).reshape(el, n * gm * cap, d)
+                    .to(dev))
+            y = _experts(dict(zip(names, w)), recv, cd)
+            # Mirror exchange: back to the tokens' device.
+            outs.append(y.reshape(el, n, gm, cap, d).permute(1, 2, 0, 3, 4)
+                        .to(x.device))
+        ys.append(torch.cat(outs))
+    y = torch.cat(ys, dim=2).reshape(g, e, cap, d)
+    out = _combine_groups(y, slots, groups(topv))
+    return (out.reshape(gd, gm, bl, sl, d).transpose(1, 2)
+            .reshape(b, s, d))
 
 
 def moe_block(p, x, cfg: ArchConfig):
@@ -263,18 +298,25 @@ def moe_block(p, x, cfg: ArchConfig):
     tg = (b // gd) * (s // gm)
     cap = _capacity(cfg, tg, 4)
     cd = L.dtype_of(cfg, "compute_dtype")
-    topv, topi, aux = router_topk(x.float() @ p["router"], k)
+    # x feeds the router, the experts and the shared experts. Autograd adds
+    # a tensor's gradients as they arrive, which on a mesh over several
+    # cards is the order in which the cards finish; the views of one
+    # expand hand theirs to one sum, in a fixed order, rounded once.
+    x_router, x_experts, *x_shared = x.expand(
+        3 if cfg.n_shared_experts else 2, b, s, d).unbind(0)
+    topv, topi, aux = router_topk(x_router.float() @ p["router"], k)
     topv = topv.to(cd)
     mesh, ba = sh.current_mesh_info()
     if mesh is not None and gm > 1:
-        out = _moe_ep(p, x, topi, topv, cfg, cap, cd, mesh, ba, gd, gm)
+        out = _moe_ep(p, x_experts, topi, topv, cfg, cap, cd, mesh, ba, gd,
+                      gm)
     else:
-        buf, slots = _local_dispatch(x.reshape(t, d), topi.reshape(t, k), e,
-                                     k, cap, cd)
+        buf, slots = _local_dispatch(x_experts.reshape(t, d),
+                                     topi.reshape(t, k), e, k, cap, cd)
         out = _local_combine(_experts(p, buf, cd), slots,
                              topv.reshape(t, k)).reshape(b, s, d)
-    if cfg.n_shared_experts:
-        out = out + L.mlp_block(p["shared"], x, cfg)
+    if x_shared:
+        out = out + L.mlp_block(p["shared"], x_shared[0], cfg)
     return out, aux
 
 

@@ -9,9 +9,10 @@ two Tensor Core streams K1 (``spmm_mxu``) and K3 (``sddmm_mxu``), and
 GNN training through all four (``GraphOps`` forward and backward, with
 row reordering off and on, against the plain ``backend="torch"`` path),
 the tuner's search timing its candidates through them, the attention
-backward over several key chunks, and placement on a mesh of ``cuda:0``
+backward over several key chunks, placement on a mesh of ``cuda:0``
 positions (the MoE expert-parallel exchange, K5 through a KV repeat,
-int8 gradient compression against the CPU).
+int8 gradient compression against the CPU), and the op counter of the
+reports on the card against its ``meta`` trace.
 
 These tests need an NVIDIA GPU (Hopper, ``sm_90a``) and ``nvcc``; they
 are marked ``cuda`` and skip without a card. On the card:
@@ -1432,6 +1433,55 @@ def test_expert_parallel_exchange_matches_per_group_composition(card):
     assert torch.equal(plain, one)
 
 
+def test_exchange_dispatch_backward_is_each_groups_own_in_bf16(card):
+    """The grouped dispatch of the exchange in bf16 on the card: the
+    tokens' gradient equals each group's own dispatch's bit for bit, and
+    a second run's, since a token's k slot gradients add in a fixed order
+    (``index_put_`` after a sort, where ``torch.gather``'s backward adds
+    them with atomics in an order that changes from run to run). The MoE
+    block's gradients on a (2, 4) mesh repeat bit for bit."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config("moonshot_v1_16b_a3b").scaled(n_layers=1)
+    e, k, g, t, d = cfg.n_experts, cfg.top_k, 8, 256, cfg.d_model
+    gen = torch.Generator(card).manual_seed(2)
+    x = torch.randn((g, t, d), generator=gen, device=card).to(
+        torch.bfloat16).requires_grad_(True)
+    _, topi, _ = moe.router_topk(
+        torch.randn((g, t, e), generator=gen, device=card), k)
+    cap = moe._capacity(cfg, t, 4)
+    ct = torch.randn((g, e, cap, d), generator=gen, device=card).to(
+        torch.bfloat16)
+
+    def grouped():
+        return moe._dispatch_groups(x, topi, e, k, cap, torch.bfloat16)[0]
+
+    def apart():
+        return torch.stack([moe._local_dispatch(
+            x[i], topi[i], e, k, cap, torch.bfloat16)[0] for i in range(g)])
+
+    want = torch.autograd.grad(apart(), x, ct)[0]
+    for _ in range(2):
+        assert torch.equal(torch.autograd.grad(grouped(), x, ct)[0], want)
+
+    model = api.init_params(torch.Generator(card).manual_seed(0), cfg,
+                            device=card)
+    p = model.layers[0].moe
+    xb = torch.randn((4, 64, d), generator=gen, device=card).to(
+        torch.bfloat16).requires_grad_(True)
+    ctb = torch.randn(xb.shape, generator=gen, device=card).to(
+        torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        with sh.activation_context(sh.make_mesh((2, 4), ("data", "model"))):
+            out, _ = moe.moe_block(p, xb, cfg)
+        runs.append(torch.autograd.grad(out, [xb, p["wi_gate"], p["wo"]],
+                                        ctb))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.skipif(torch.cuda.device_count() < 2,
                     reason="needs two cards")
 def test_expert_parallel_exchange_over_two_cards(card):
@@ -1525,3 +1575,49 @@ def test_crosspod_compression_on_the_card_equals_the_cpu(card):
         assert got["a"].device.type == "cuda"
         assert torch.equal(got["a"].cpu(), want["a"])
         assert torch.equal(got["b"]["c"].cpu(), want["b"]["c"])
+
+
+# ------------------------------------------------------------ the reports --
+def _counted_forward(cfg, where):
+    from repro_torch.launch import hlo_analysis as H
+
+    gen = torch.Generator(where).manual_seed(0) if where.type == "cuda" \
+        else None
+    model = api.init_params(gen, cfg, device=where)
+    toks = torch.zeros((2, 256), dtype=torch.int32, device=where)
+
+    def fwd(model, batch):
+        with torch.no_grad():
+            return api.forward_logits(model, batch, cfg)[0]
+
+    return H.analyze_step(fwd, model, {"tokens": toks})
+
+
+def test_counter_on_the_card_equals_the_meta_trace(card):
+    """A 2-layer gemma2 smoke forward (head dim 64, the smallest K5 is
+    built for) counted on the card equals its ``meta`` trace: flops,
+    bytes, ops and peak live bytes; K5's counted calls equal its
+    launches."""
+    cfg = get_smoke_config("gemma2-9b").scaled(d_head=64)
+    kernels.reset_launch_counts()
+    on_card = _counted_forward(cfg, card)
+    launched = kernels.launch_counts()["flash_attention"]
+    on_meta = _counted_forward(cfg, torch.device("meta"))
+    for field in ("flops", "hbm_bytes", "flops_by_dtype", "by_op",
+                  "kernel_calls", "arg_bytes", "temp_bytes"):
+        assert getattr(on_card, field) == getattr(on_meta, field), field
+    assert launched == cfg.n_layers
+    assert on_card.by_op["flash_attention"]["calls"] == launched
+    assert kernels.launch_counts()["flash_attention"] == launched
+
+
+def test_meta_call_of_k5_launches_nothing(card):
+    """On ``meta`` operands K5's wrapper makes the kernel's checks and
+    returns empty outputs; nothing launches, on the card's machine too."""
+    q, k, v = (torch.empty(s, dtype=torch.bfloat16, device="meta")
+               for s in ((1, 128, 4, 128), (1, 128, 2, 128),
+                         (1, 128, 2, 128)))
+    kernels.reset_launch_counts()
+    out = fa.flash_attention_fused(q, k, v, causal=True)
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 128, 4, 128)
+    assert kernels.launch_counts()["flash_attention"] == 0

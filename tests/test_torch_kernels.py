@@ -196,7 +196,24 @@ def test_wrappers_raise_instead_of_falling_back(name):
                                          **meta)), {"causal": True}),
     }[name]
     before = kernels.launch_counts()
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.KERNELS[name](*args[0], **args[1])
+    if name == "flash_attention":
+        # All-meta operands are K5's shape-only trace (the dry run): the
+        # kernel's checks and empty outputs, neither a launch nor the
+        # twin. Operands on mixed devices still raise.
+        from unittest import mock
+
+        from repro_torch.kernels import flash_attention as fa
+
+        with mock.patch.object(fa, "flash_attention_ref",
+                               side_effect=AssertionError("twin ran")):
+            out = kernels.KERNELS[name](*args[0], **args[1])
+        assert out.device.type == "meta" and out.shape == args[0][0].shape
+        q, k, v = args[0]
+        with pytest.raises(ValueError, match="k is on cpu"):
+            kernels.KERNELS[name](q, torch.empty(k.shape, dtype=k.dtype), v,
+                                  **args[1])
+    else:
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.KERNELS[name](*args[0], **args[1])
     assert kernels.launch_counts() == before
 

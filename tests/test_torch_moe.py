@@ -114,6 +114,97 @@ def test_router_topk_matches_reference(shape, k, ties):
     assert abs(aux.item() - float(waux)) <= ROUTER_ATOL
 
 
+@pytest.mark.parametrize("shape,k,ties", [
+    ((2, 48, 8), 2, False),
+    ((1, 64, 64), 6, False),
+    ((3, 5, 128), 8, False),
+    ((4, 16, 8), 2, True),
+])
+def test_router_count_equals_bincount_and_the_reference(shape, k, ties):
+    """``router_topk`` counts assignments with an ``index_add_`` of fp32
+    ones (``torch.bincount`` has no ``meta`` kernel): every output equals
+    the ``bincount`` expression bit for bit and the reference's, and the
+    router runs on ``meta``."""
+    rng = np.random.default_rng(11)
+    if ties:
+        logits = rng.integers(-2, 3, shape).astype(np.float32)
+    else:
+        logits = rng.standard_normal(shape).astype(np.float32)
+    t = torch.from_numpy(logits)
+    topv, topi, aux = moe.router_topk(t, k)
+    e = shape[-1]
+    probs = torch.softmax(t.float(), dim=-1)
+    f_e = torch.bincount(topi.reshape(-1), minlength=e).float()
+    f_e = f_e / torch.clamp(f_e.sum(), min=1.0)
+    old = e * torch.sum(f_e * probs.reshape(-1, e).mean(dim=0))
+    assert torch.equal(aux, old)
+    wv, wi, waux = jmoe.router_topk(jnp.asarray(logits), k)
+    np.testing.assert_array_equal(topi.numpy(), np.asarray(wi))
+    assert abs(aux.item() - float(waux)) <= ROUTER_ATOL
+    mv, mi, maux = moe.router_topk(t.to("meta"), k)
+    assert mi.shape == topi.shape and maux.shape == aux.shape
+
+
+def _looped_exchange(p, x, topi, topv, cfg, cap, cd, gd, gm):
+    """The no-mesh functions over the gd × gm token groups: each group's
+    own dispatch, its buffer through every expert, its own combine."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    bl, sl = b // gd, s // gm
+    rows = []
+    for di in range(gd):
+        cols = []
+        for mj in range(gm):
+            blk = (slice(di * bl, (di + 1) * bl),
+                   slice(mj * sl, (mj + 1) * sl))
+            buf, slot = moe._local_dispatch(
+                x[blk].reshape(bl * sl, d), topi[blk].reshape(bl * sl, k), e,
+                k, cap, cd)
+            cols.append(moe._local_combine(
+                moe._experts(p, buf, cd), slot,
+                topv[blk].reshape(bl * sl, k)).reshape(bl, sl, d))
+        rows.append(torch.cat(cols, dim=1))
+    return torch.cat(rows)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("gd,gm", [(2, 4), (1, 2), (4, 4)])
+def test_one_device_exchange_equals_the_looped_exchange(arch, gd, gm):
+    """``_moe_ep`` dispatches the gd·gm groups together and runs each
+    rank's experts once over its slots of every batch block on one
+    device; its output and the tokens' gradient equal the no-mesh
+    functions looped over the groups bit for bit on the CPU (fp32
+    compute). So do they where batch blocks sit on other devices
+    (``cpu`` and ``cpu:0`` positions, which compare unequal): each run of
+    blocks on one device runs the rank's experts apart, and the slots
+    cross to the rank's device and back."""
+    from repro_torch.dist import sharding as sh
+
+    cfg = get_smoke_config(arch).scaled(compute_dtype="float32")
+    model = api.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    p = model.layers[0].moe
+    x = torch.randn(4, 32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1),
+                    requires_grad=True)
+    topv, topi, _ = moe.router_topk(x.float() @ p["router"], cfg.top_k)
+    cap = moe._capacity(cfg, (4 // gd) * (32 // gm), 4)
+    want = _looped_exchange(p, x, topi, topv, cfg, cap, torch.float32, gd,
+                            gm)
+    g_want = torch.autograd.grad(want.square().sum(), x,
+                                 retain_graph=True)[0]
+    apart = ["cpu:0" if di % 3 == 1 or (di, mj) == (0, 1) else "cpu"
+             for di in range(gd) for mj in range(gm)]
+    for devices in ("cpu", apart):
+        mesh = sh.Mesh((gd, gm), ("data", "model"), devices)
+        out = moe._moe_ep(p, x, topi, topv, cfg, cap, torch.float32, mesh,
+                          ("data",), gd, gm)
+        assert torch.equal(out, want), devices
+        g_out = torch.autograd.grad(out.square().sum(), x,
+                                    retain_graph=True)[0]
+        assert torch.equal(g_out, g_want), devices
+
+
 # ------------------------------------------------- dispatch and combine --
 @pytest.mark.parametrize("t,e,k,cf", [
     (96, 8, 2, 1.25), (96, 8, 2, 0.5), (200, 64, 6, 1.25), (50, 128, 8, 0.5),
