@@ -96,12 +96,23 @@ Phases:
    path, where the card's ladder does not go; (f) a flush sampled into a
    ``PerfLedger`` and its calibration report (the H100 model's measured
    over predicted); (g) ``/metrics``, ``/health``, ``/memory`` (equal to
-   the uploaded tensors' bytes) and ``/stats`` from ``serve_http``.
+   the uploaded tensors' bytes) and ``/stats`` from ``serve_http``;
+   (h) the batched form of K1–K4 (``stack_phase``): at panel buckets 1,
+   2, 4 and 8 (``STACK_PANELS``, width ``STACK_WIDTH``), on the graph's
+   AGNN entry and the mixed tenant, the revalued SpMM stack (AGNN's
+   path, per-panel edge values) and the SDDMM stack, each exactly one
+   launch a stream a stack, every panel bit for bit against its single
+   apply on integer data in [-4, 4] and on random fp32 (SpMM under
+   deterministic algorithms; SDDMM within the fp32 tolerance), the
+   stack's time against the looped single applies; at 8 panels each
+   kernel's batched launch bit for bit against its 8 single launches on
+   random fp32, timed beside them and its bound.
    (a)-(d) must serve every request on the fast path.
 
 8. The sharded path and the explainer (``dist/``, ``obs/explain.py``),
-   eight window shards on ``cuda:0`` one after another
-   (``ShardMesh.round_robin(8)`` on one card): (a) ``DistGraphOps`` on
+   eight window shards on ``cuda:0`` applied as one batch
+   (``ShardMesh.round_robin(8)`` on one card: each of K1–K4 launches once
+   an apply over the stacked tables): (a) ``DistGraphOps`` on
    phase 3's graph at its default ``tune="model"``, the host seconds of
    its A, A^T and SDDMM(A) partitions, each partition's
    ``explain_partition`` (nnz and segment balance, halo rows and waste)
@@ -112,12 +123,19 @@ Phases:
    ``edge_vals`` and on one shard; ``ShardedSDDMM`` kf=128), the graph's
    A with edge values and SDDMM(A); sharded against single apply times,
    the halo gathers and the reassembly timed alone, and one profiled
-   sharded apply of each kind by kernel group; (c) GCN and AGNN
+   sharded apply of each kind by kernel group; the batched applies at P
+   = 1, 3 and 8 on the mixed matrix bit for bit against the shards
+   applied one by one through ``ops.spmm_apply``/``ops.sddmm_apply``
+   (integer data, and random fp32 under deterministic algorithms), one
+   launch a stream an apply, and at P = 8 each kernel's batched launch
+   timed against its per-shard launches with its bound, and the batched
+   apply against the shard loop; (c) GCN and AGNN
    ``[128, 256, 256, 40]`` through ``DistGraphOps``: three requests each
    against ``GraphOps(tune="model")`` and three SGD steps each (falling
    losses, first-step gradients against ``backend="torch"``), launches by
-   shard, leg and width; (d) ``GNNService.register_gcn(mesh=)``: a flush
-   of 8 GCN requests beside phase 7's batched one (ms, requests/s), the
+   leg and width (one a stream a sharded apply); (d)
+   ``GNNService.register_gcn(mesh=)``: a flush of 8 GCN requests beside
+   phase 7's batched one (ms, requests/s), the
    scores bit for bit against the ``ShardedSpMM`` called layer by layer
    and within TF32's tolerance of the batched scores, raw requests on the
    sharded mixed tenant bit for bit against direct calls and the batched
@@ -1088,6 +1106,16 @@ def main(argv=None) -> int:
                 "path)")
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
+    def bound(nbytes, ops, kind):
+        """The least time the card could take: bytes over HBM's rate or
+        operations of ``kind`` over its peak, whichever is longer."""
+        t_bytes = nbytes / hw.hbm_bw * 1e3
+        t_ops = ops / hw.peak_for(PEAK_DTYPE[kind]) * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
     # ------------------------------------------------ phase 6: tuned path
     tuned_counts = tuned_phase(
         torch, np, log, fail, compare, tol_kind, spec0=ExecSpec(),
@@ -1100,14 +1128,14 @@ def main(argv=None) -> int:
     serving_counts, served = serving_phase(
         torch, np, log, fail, compare, dev=dev, graph=graph, a_mix=a_mix,
         norm=norm, gcn=gcn, agnn=agnn, gops_plain=gops_plain,
-        latency=latency, median_ms=median_ms)
+        latency=latency, median_ms=median_ms, bound=bound)
 
     # ------------------------------------------------ phase 8: sharded path
     sharded_counts = sharded_phase(
         torch, np, log, fail, compare, dev=dev, graph=graph, norm=norm,
         gcn=gcn, agnn=agnn, requests=requests, x_train=x_train,
         labels=labels, spmm_mix=spmm_mix, sddmm_mix=sddmm_mix,
-        served=served, median_ms=median_ms)
+        served=served, median_ms=median_ms, bound=bound)
     del served
 
     # ------------------------------------------------ phase 9: K5's Function
@@ -1134,12 +1162,6 @@ def main(argv=None) -> int:
                                   get_config, report_cells)
 
     # ------------------------------------------------ timing and bounds
-    def rows_read(*ids):
-        """Distinct rows that the index tensors ``ids`` name together: the
-        rows of a gathered operand a kernel must read at least once."""
-        return int(torch.unique(torch.cat(
-            [i.reshape(-1).long() for i in ids])).numel())
-
     coo_rows = {id(a): a.to_coo()[0] for a in (a_mix, graph)}
 
     def stream_csr(a, pos, vals):
@@ -1153,14 +1175,6 @@ def main(argv=None) -> int:
             torch.from_numpy(crow).to(dev),
             torch.from_numpy(a.indices[p].astype(np.int64)).to(dev), v,
             size=(a.m, a.k))
-
-    def bound(nbytes, ops, kind):
-        t_bytes = nbytes / hw.hbm_bw * 1e3
-        t_ops = ops / hw.peak_for(PEAK_DTYPE[kind]) * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
 
     entries = []
 
@@ -1237,7 +1251,7 @@ def main(argv=None) -> int:
         vectors = int(t["tc_len"].sum())
         real = (torch.arange(k1[1].shape[1], device=dev)
                 < t["tc_len"][:, None])
-        b_rows = rows_read(k1[1][real])
+        b_rows = distinct_rows(torch, k1[1][real])
         b_read = b_rows * b.shape[1] * b.element_size()
         lib_a = stream_csr(a, pa.host["tc_pos"].ravel(), vals)
         k1_bytes = vectors * 36 + b_read + nbytes(t["tc_len"],
@@ -1269,7 +1283,7 @@ def main(argv=None) -> int:
     real = int(np.count_nonzero(gops.arrs.host["vpu_seg_pos"] >= 0))
     prefix = (torch.arange(t["vpu_seg_cols"].shape[1], device=dev)
               < t["vpu_len"][:, None])
-    b_rows = rows_read(t["vpu_seg_cols"][prefix])
+    b_rows = distinct_rows(torch, t["vpu_seg_cols"][prefix])
     del prefix
     lib_a = stream_csr(graph, gops.arrs.host["vpu_pos"].ravel(), norm)
     for n in (256, 128, 40):
@@ -1343,10 +1357,10 @@ def main(argv=None) -> int:
             table_bytes = useful * 12
             del mask
         if yg is xg:
-            xy_rows = rows_read(xr, yr)
+            xy_rows = distinct_rows(torch, xr, yr)
             what = f"{xy_rows} of X = Y's {xg.shape[0]} rows"
         else:
-            xy_rows = rows_read(xr) + rows_read(yr)
+            xy_rows = distinct_rows(torch, xr) + distinct_rows(torch, yr)
             what = f"{xy_rows} rows of X and Y"
         nb = table_bytes + xy_rows * kf * xg.element_size()
         whole = table_bytes + nbytes(xg) + (nbytes(yg) if yg is not xg else 0)
@@ -4296,16 +4310,16 @@ def tuned_phase(torch, np, log, fail, compare, tol_kind, *, spec0, a_mix,
 
 
 def serving_phase(torch, np, log, fail, compare, *, dev, graph, a_mix, norm,
-                  gcn, agnn, gops_plain, latency, median_ms):
+                  gcn, agnn, gops_plain, latency, median_ms, bound):
     """Phase 7: the serving path (``GNNService`` → ``SparseEngine`` →
     ``GraphRegistry`` → ``BatchedSpMM``/``BatchedSDDMM`` → K1–K4) at
     full width on phase 3's graph and weights.
 
     Returns the launch counts of the serving path: the served flushes of
     (b) scoring, (c) raw requests, (e) the fault storms and (f) the
-    sampled flush; and the registry, service, engine, the eight scoring
-    feature sets and the mixed tenant's matrix, which phase 8 serves
-    beside. Every count is set to 0 at the phase's start and each
+    sampled flush, and (h)'s batched stacks; and the registry, service,
+    engine, the eight scoring feature sets and the mixed tenant's matrix,
+    which phase 8 serves beside. Every count is set to 0 at the phase's start and each
     part's counts are taken as it ends; the direct calls, plain-path
     references and (d)'s timings, made only to compare with, are logged
     apart and left out."""
@@ -4706,12 +4720,294 @@ def serving_phase(torch, np, log, fail, compare, *, dev, graph, a_mix, norm,
         fail(f"phase 7 (g): /memory {memory['resident_bytes']} B != the "
              f"uploaded tensors' {uploaded} B")
 
+    # (h) The batched form of K1-K4 on the registered tables.
+    stack_phase(torch, log, fail, compare, dev=dev,
+                tenants={"graph (AGNN)": entries["agnn::graph"],
+                         "mixed": m_entry},
+                mark=mark, median_ms=median_ms, bound=bound)
+
     missing = [k for k, v in path.items() if k != "flash_attention" and v <= 0]
     log(f"phase 7 (serving path) launches: {path}")
     if missing:
         fail(f"kernels never launched on the serving path: {missing}")
     log(f"phase 7: wall time {time.perf_counter() - t_phase:.1f} s")
     return path, dict(reg=reg, svc=svc, eng=eng, feats=feats, mixed=mixed)
+
+
+STACK_PANELS = (1, 2, 4, 8)
+STACK_WIDTH = 128
+STACK_STREAMS = {"spmm_mxu": 1, "spmm_vpu": 1, "sddmm_mxu": 1,
+                 "sddmm_vpu": 1}
+
+
+def distinct_rows(torch, *ids) -> int:
+    """Rows of a gathered operand that the index tensors ``ids`` name
+    together: what a kernel must read at least once."""
+    return int(torch.unique(torch.cat(
+        [i.reshape(-1).long() for i in ids])).numel())
+
+
+def real_prefix(torch, table, lengths):
+    """The entries of a ``(rows, slots)`` table within each row's real
+    length."""
+    slot = torch.arange(table.shape[-1], device=table.device)
+    return table[slot < lengths[..., None]]
+
+
+def batched_kernel_rows(torch, kernels, log, fail, median_ms, bound, *,
+                        label, calls, p):
+    """Each kernel's batched launch against its ``p`` single launches, at
+    the shapes of one batched apply (random fp32): bit for bit where the
+    kernel stores (K1 with unique ranks, K2, K3, K4), else within the
+    fp32 tolerance, and both timed, beside the batched work's bound.
+    ``calls`` maps a kernel name to ``(args, kw, element, nbytes, ops,
+    kind)``: its batched arguments, ``element(i)`` giving element
+    ``i``'s ``(args, kw)``, and the batched call's compulsory bytes and
+    operations. Returns the timing rows."""
+    rows = []
+    for name, (args, kw, element, nb, ops, kind) in calls.items():
+        fn = getattr(kernels, name)
+        out = fn(*args, **kw)
+        stores = name != "spmm_mxu" or kw["unique_ranks"]
+        for i in range(p):
+            a_i, kw_i = element(i)
+            one = fn(*a_i, **kw_i)
+            if stores and not torch.equal(out[i], one):
+                err = (out[i] - one).abs().max().item()
+                fail(f"{label}: {name} element {i} of the batched launch "
+                     f"differs from its single launch (max|err| {err})")
+            if not stores and not torch.allclose(
+                    out[i], one, rtol=FP32_RTOL,
+                    atol=FP32_RTOL * one.abs().max().item()):
+                fail(f"{label}: {name} element {i} outside the fp32 "
+                     "tolerance of its single launch")
+        del out, one
+        singles = [element(i) for i in range(p)]
+        ms = median_ms(lambda: fn(*args, **kw))
+        loop_ms = median_ms(lambda: [fn(*a_i, **kw_i)
+                                     for a_i, kw_i in singles])
+        bound_ms, bound_by = bound(nb, ops, kind)
+        log(f"  {name} [{label}, batch {p}]: batched {ms:.4f} ms, {p} "
+            f"single launches {loop_ms:.4f} ms (ratio {ms / loop_ms:.3f}), "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({nb / 1e6:.1f} MB, "
+            f"{ops / 1e9:.2f} G {kind} ops)"
+            + ("" if stores else "; atomic adds: within the fp32 tolerance"))
+        rows.append({"kernel": name, "label": label, "batch": p, "ms": ms,
+                     "looped_ms": loop_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+    return rows
+
+
+def _el(x, ndim, i):
+    """Element ``i`` of a batched operand, or the shared operand itself."""
+    return x[i] if x.dim() == ndim + 1 else x
+
+
+def _copies(x, ndim, p):
+    """How many copies of ``x`` a batch of ``p`` reads: ``p`` when it
+    carries a batch axis (one an element), else 1 (shared)."""
+    return p if x.dim() == ndim + 1 else 1
+
+
+def spmm_kernel_calls(torch, t, b):
+    """K1's and K2's batched calls of one SpMM apply over the tables ``t``
+    (shared by the batch or each with a leading batch axis) and the dense
+    stack ``b`` ``(p, k, n)``, for :func:`batched_kernel_rows`. Bytes:
+    each table once (once an element when it has its own), each B row
+    that a real entry names once a panel, and the outputs; operations 2 x
+    real non-zeros x n a panel."""
+    p, n = b.shape[0], b.shape[2]
+    seg = "_seg" if "tc_seg_vals" in t else ""
+    vals, cols = t[f"tc{seg}_vals"], t[f"tc{seg}_cols"]
+    rank, lens = t["tc_seg_rank" if seg else "tc_rank"], t["tc_len"]
+    n_active = (rank.shape[-1] if seg
+                else t["tc_active_row"].shape[-1] // 8)
+    unique = bool(seg)
+    vseg = "_seg" if "vpu_seg_vals" in t else ""
+    v2, c2, l2 = t[f"vpu{vseg}_vals"], t[f"vpu{vseg}_cols"], t["vpu_len"]
+
+    def size(*ts):
+        return sum(x.numel() * x.element_size() for x in ts)
+
+    # Real entries over the distinct tables (every element's when the
+    # column table has a batch axis); a value table a panel reads its
+    # values once a panel.
+    vec = real_prefix(torch, cols, lens)
+    pairs = real_prefix(torch, c2, l2)
+    real1 = int(torch.count_nonzero(vals)) * p // _copies(vals, 3, p)
+    real2 = int(torch.count_nonzero(v2)) * p // _copies(v2, 2, p)
+    rows1 = sum(distinct_rows(torch, real_prefix(
+        torch, _el(cols, 2, i), _el(lens, 1, i))) for i in range(p))
+    rows2 = sum(distinct_rows(torch, real_prefix(
+        torch, _el(c2, 2, i), _el(l2, 1, i))) for i in range(p))
+    b1 = (vec.numel() * (32 * _copies(vals, 3, p) // _copies(cols, 2, p)
+                         + 4)
+          + size(lens, rank) + rows1 * n * 4 + p * n_active * 8 * n * 4)
+    b2 = (pairs.numel() * (4 * _copies(v2, 2, p) // _copies(c2, 2, p) + 4)
+          + size(l2) + rows2 * n * 4 + p * c2.shape[-2] * n * 4)
+    kw1 = dict(n_active=n_active, unique_ranks=unique)
+    return {
+        "spmm_mxu": (
+            (vals, cols, rank, b), dict(kw1, seg_len=lens),
+            lambda i: ((_el(vals, 3, i), _el(cols, 2, i), _el(rank, 1, i),
+                        b[i]), dict(kw1, seg_len=_el(lens, 1, i))),
+            b1, 2 * real1 * n, "tf32"),
+        "spmm_vpu": (
+            (v2, c2, b), dict(seg_len=l2),
+            lambda i: ((_el(v2, 2, i), _el(c2, 2, i), b[i]),
+                       dict(seg_len=_el(l2, 1, i))),
+            b2, 2 * real2 * n, "fp32"),
+    }
+
+
+def sddmm_kernel_calls(torch, t, x, y):
+    """K3's and K4's batched calls of one SDDMM apply over the tables
+    ``t`` and the dense stacks ``x`` ``(p, m, kf)``, ``y`` ``(p, k,
+    kf)``, for :func:`batched_kernel_rows`. Bytes: the real columns'
+    (column, bitmap) pairs and the window ids (K3), the real (row,
+    column) pairs (K4), once each or once an element, each X and Y row
+    they name once a panel, and the scores (K3 every slot, K4 the real
+    ones); operations 2 x real scores x kf a panel."""
+    p, kf = x.shape[0], x.shape[2]
+    seg = "_seg" if "tc_seg_cols" in t else ""
+    cols, bits = t[f"tc{seg}_cols"], t[f"tc{seg}_bitmap"]
+    win, tc_pos = t[f"tc{seg}_window"], t[f"tc{seg}_out_pos"]
+    vseg = "_seg" if "vpu_seg_rows" in t else ""
+    rows4, cols4 = t[f"vpu{vseg}_rows"], t[f"vpu{vseg}_cols"]
+    mask = t[f"vpu{vseg}_mask"]
+    useful3 = int((tc_pos >= 0).sum()) * p // _copies(tc_pos, 3, p)
+    useful4 = int(mask.sum()) * p // _copies(mask, 2, p)
+    b3 = b4 = 0
+    for i in range(p):
+        real = _el(bits, 2, i) != 0
+        xr = (_el(win, 1, i)[real.any(-1)].long()[:, None] * 8
+              + torch.arange(8, device=x.device)).reshape(-1)
+        xr = xr[xr < x.shape[1]]
+        b3 += (distinct_rows(torch, xr)
+               + distinct_rows(torch, _el(cols, 2, i)[real])) * kf * 4
+        m_i = _el(mask, 2, i)
+        b4 += (distinct_rows(torch, _el(rows4, 2, i)[m_i])
+               + distinct_rows(torch, _el(cols4, 2, i)[m_i])) * kf * 4
+        if i < _copies(bits, 2, p):
+            b3 += int(real.sum()) * 8 + _el(win, 1, i).numel() * 4
+        if i < _copies(mask, 2, p):
+            b4 += int(m_i.sum()) * 8
+    b3 += p * cols.shape[-2] * 8 * cols.shape[-1] * 4
+    b4 += useful4 * 4
+    return {
+        "sddmm_mxu": (
+            (cols, bits, win, x, y), {},
+            lambda i: ((_el(cols, 2, i), _el(bits, 2, i), _el(win, 1, i),
+                        x[i], y[i]), {}),
+            b3, 2 * useful3 * kf, "tf32"),
+        "sddmm_vpu": (
+            (rows4, cols4, x, y), {},
+            lambda i: ((_el(rows4, 2, i), _el(cols4, 2, i), x[i], y[i]), {}),
+            b4, 2 * useful4 * kf, "fp32"),
+    }
+
+
+def stack_phase(torch, log, fail, compare, *, dev, tenants, mark, median_ms,
+                bound):
+    """Phase 7 (h): the batched form of K1–K4 on the serving tier's
+    tables. For each tenant (name → registry entry) and panel bucket p in
+    ``STACK_PANELS``, at width ``STACK_WIDTH``: the revalued SpMM stack
+    (AGNN's path: per-panel edge values) and the SDDMM stack, exactly one
+    launch a stream a stack. Integer data in [-4, 4]: every panel bit for
+    bit against its single apply. Random fp32: the SpMM panels bit for
+    bit under deterministic algorithms (the combine's ``index_add_``
+    then adds in a fixed order), the SDDMM panels within the fp32
+    tolerance; the stacks' times against the p single applies looped. At
+    the last bucket, each kernel's batched launch against its single
+    launches (:func:`batched_kernel_rows`). The stacks count towards the
+    serving path (``mark``); the single applies and launches made to
+    compare with do not."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+
+    w = STACK_WIDTH
+    for label, entry in tenants.items():
+        sp, sd = entry.op("spmm").op, entry.op("sddmm").op
+        arrs = sp.arrays.for_backend("cuda", revalue=True)
+        arrs_sd = sd.arrays.for_backend("cuda")
+        gen = torch.Generator(dev).manual_seed(705)
+        for p in STACK_PANELS:
+            for data in ("integer", "random"):
+                if data == "integer":
+                    def draw(*shape):
+                        return torch.randint(-4, 5, shape, generator=gen,
+                                             device=dev).float()
+                else:
+                    def draw(*shape):
+                        return torch.randn(*shape, generator=gen,
+                                           device=dev)
+                b, ev = draw(p, sp.k, w), draw(p, entry.nnz)
+                x, y = draw(p, sd.m, w), draw(p, sd.k, w)
+                tag = f"phase 7 (h): {label} p={p} {data}"
+                torch.use_deterministic_algorithms(data == "random")
+                try:
+                    before = kernels.launch_counts()
+                    got = ops.spmm_apply_stack(arrs, b, m=sp.m, nwin=sp.nwin,
+                                               edge_vals=ev)
+                    torch.use_deterministic_algorithms(False)
+                    got_sd = ops.sddmm_apply_stack(arrs_sd, x, y, nnz=sd.nnz)
+                    after = kernels.launch_counts()
+                    mark(f"(h) {label} p={p} {data}: the two stacks")
+                    launched = {k: after[k] - before[k]
+                                for k in STACK_STREAMS}
+                    if launched != STACK_STREAMS:
+                        fail(f"{tag}: launches {launched}, expected one a "
+                             "stream a stack")
+                    torch.use_deterministic_algorithms(data == "random")
+                    for i in range(p):
+                        one = ops.spmm_apply(ref.revalue_spmm_arrays(
+                            arrs, ev[i]), b[i], m=sp.m, nwin=sp.nwin)
+                        if not torch.equal(got[i], one):
+                            err = (got[i] - one).abs().max().item()
+                            fail(f"{tag}: SpMM panel {i} differs from its "
+                                 f"single apply (max|err| {err})")
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                ones = torch.stack([ops.sddmm_apply(arrs_sd, x[i], y[i],
+                                                    nnz=sd.nnz)
+                                    for i in range(p)])
+                if data == "integer":
+                    if not torch.equal(got_sd, ones):
+                        fail(f"{tag}: an SDDMM panel differs from its "
+                             "single apply")
+                else:
+                    compare(f"{tag}: SDDMM stack against its {p} single "
+                            f"applies (bit for bit: "
+                            f"{bool(torch.equal(got_sd, ones))})",
+                            got_sd, ones, "fp32")
+                del got, got_sd, ones
+                mark(f"(h) {label} p={p} {data}: single applies",
+                     on_path=False)
+            # Times of the random stacks against the p single applies.
+            stack_ms = median_ms(lambda: ops.spmm_apply_stack(
+                arrs, b, m=sp.m, nwin=sp.nwin, edge_vals=ev), reps=5)
+            loop_ms = median_ms(lambda: [ops.spmm_apply(
+                ref.revalue_spmm_arrays(arrs, ev[i]), b[i], m=sp.m,
+                nwin=sp.nwin) for i in range(p)], reps=5)
+            sd_ms = median_ms(lambda: ops.sddmm_apply_stack(
+                arrs_sd, x, y, nnz=sd.nnz), reps=5)
+            sd_loop_ms = median_ms(lambda: [ops.sddmm_apply(
+                arrs_sd, x[i], y[i], nnz=sd.nnz) for i in range(p)], reps=5)
+            log(f"phase 7 (h): {label} p={p} w={w}: revalued SpMM stack "
+                f"{stack_ms:.4f} ms, {p} single applies {loop_ms:.4f} ms "
+                f"(ratio {stack_ms / loop_ms:.3f}); SDDMM stack "
+                f"{sd_ms:.4f} ms, {p} single applies {sd_loop_ms:.4f} ms "
+                f"(ratio {sd_ms / sd_loop_ms:.3f})")
+            if p == STACK_PANELS[-1]:
+                t = ref.revalue_spmm_arrays(arrs, ev)
+                batched_kernel_rows(
+                    torch, kernels, log, fail, median_ms, bound,
+                    label=f"{label} stack w={w}", p=p,
+                    calls={**spmm_kernel_calls(torch, t, b),
+                           **sddmm_kernel_calls(torch, arrs_sd, x, y)})
+                del t
+            del b, ev, x, y
+            mark(f"(h) {label} p={p}: timings", on_path=False)
 
 
 def classify_sharded(key: str) -> str:
@@ -4722,7 +5018,8 @@ def classify_sharded(key: str) -> str:
                         ("sddmm_mxu", "K3 sddmm_mxu"),
                         ("sddmm_vpu", "K4 sddmm_vpu"),
                         ("indexfunc", "combines (index_add_)"),
-                        ("catarray", "concatenation of the shards' outputs")):
+                        ("catarray", "concatenations (the combine's rows "
+                         "and partials)")):
         if kern in k:
             return group
     # index_select by an int32 index is a halo gather (the halo maps are
@@ -4743,11 +5040,44 @@ def shard_tc_share(part) -> list[float]:
             for s in part.shards]
 
 
+def shard_loop(torch, part, dev, *operands, edge_vals=None):
+    """The shards of ``part`` applied one by one through
+    ``ops.spmm_apply``/``ops.sddmm_apply`` on their own tables, and
+    reassembled: what a batched sharded apply must equal."""
+    from repro_torch.kernels import ops, ref
+
+    outs = []
+    if part.kind == "spmm":
+        (b,) = operands
+        if edge_vals is not None and part.edge_perm is not None:
+            edge_vals = edge_vals.index_select(0, part.index("edge_perm",
+                                                             dev))
+        for p in range(part.n_shards):
+            arrs = part.arrays(p, dev)
+            local = arrs.for_backend("cuda", revalue=edge_vals is not None)
+            if edge_vals is not None:
+                local = ref.revalue_spmm_arrays(local, edge_vals)
+            outs.append(ops.spmm_apply(local, b.index_select(0, arrs["halo"]),
+                                       m=part.rows_pad, nwin=part.wmax))
+        return torch.cat(outs).index_select(0, part.index("out_gather", dev))
+    x, y = operands
+    panels = x.index_select(0, part.index("x_take", dev)).split(part.rows_pad)
+    for p in range(part.n_shards):
+        arrs = part.arrays(p, dev)
+        outs.append(ops.sddmm_apply(arrs.for_backend("cuda"), panels[p],
+                                    y.index_select(0, arrs["halo"]),
+                                    nnz=part.nnz_pad))
+    return torch.cat(outs).index_select(0, part.index("nnz_gather", dev))
+
+
+SHARD_COUNTS = (1, 3, 8)
+
+
 def sharded_phase(torch, np, log, fail, compare, *, dev, graph, norm, gcn,
                   agnn, requests, x_train, labels, spmm_mix, sddmm_mix,
-                  served, median_ms):
+                  served, median_ms, bound):
     """Phase 8: window-sharded Libra (``dist/``) and the plan explainer on
-    one card, eight shards on ``cuda:0`` one after another.
+    one card, eight shards on ``cuda:0`` applied as one batch.
 
     (a) ``DistGraphOps`` on phase 3's graph at its default
     ``tune="model"``: host seconds of the A, A^T and SDDMM(A) partitions,
@@ -4760,11 +5090,16 @@ def sharded_phase(torch, np, log, fail, compare, *, dev, graph, norm, gcn,
     ``edge_vals``) and SDDMM(A) partitions against
     ``GraphOps(tune="model")``; sharded against single apply times, and
     one profiled sharded apply of each kind split into K1–K4, the halo
-    gathers, the combines and the reassembly. (c) GCN and AGNN ``[128, 256, 256, 40]``
+    gathers, the combines and the reassembly; the batched applies of the
+    mixed matrix at P in ``SHARD_COUNTS`` against the shards applied one
+    by one (:func:`shard_loop`), bit for bit on integer and, under
+    deterministic algorithms, random data, one launch a stream an apply;
+    at P = 8 the batched apply and each kernel's batched launch timed
+    against the shard loop. (c) GCN and AGNN ``[128, 256, 256, 40]``
     through ``DistGraphOps``: three requests each against
     ``GraphOps(tune="model")``, three SGD steps each (losses must fall,
     first-step gradients against the plain path), launches split by
-    shard, leg and width. (d) ``GNNService.register_gcn(mesh=)``: a flush
+    leg and width. (d) ``GNNService.register_gcn(mesh=)``: a flush
     of 8 GCN requests beside phase 7's batched one, the scores bit for bit
     against the sharded operator called layer by layer (deterministic)
     and within TF32's tolerance of the batched scores; raw requests on
@@ -4788,6 +5123,10 @@ def sharded_phase(torch, np, log, fail, compare, *, dev, graph, norm, gcn,
         ShardedSDDMM,
         ShardedSpMM,
         ShardMesh,
+        partition_sddmm,
+        partition_spmm,
+        sddmm_sharded,
+        spmm_sharded,
     )
     from repro_torch.dist import gnn as dist_gnn
     from repro_torch.kernels import ref
@@ -4960,29 +5299,24 @@ def sharded_phase(torch, np, log, fail, compare, *, dev, graph, norm, gcn,
         sh_ms, one_ms = median_ms(sh), median_ms(single)
         log(f"  {label}: sharded ({n_shards} shards) {sh_ms:.4f} ms, single "
             f"device {one_ms:.4f} ms (ratio {sh_ms / one_ms:.3f})")
-    # Its pieces, each timed alone: the halo gathers, and the reassembly
-    # (the shards' outputs concatenated, then one gather).
-    for label, part, arrays, operand in (
-            ("mixed SpMM n=256", sh_sp.part, sh_sp.arrays, b),
-            ("graph SDDMM(A) kf=128", gd.part_sd,
-             [gd.part_sd.arrays(p, mesh.device(p)) for p in range(n_shards)],
-             gx)):
-        halos = [a_["halo"] for a_ in arrays]
-        halo_ms = median_ms(lambda: [operand.index_select(0, h)
-                                     for h in halos])
+    # Its pieces, each timed alone: the halo gather (one over the stacked
+    # halo maps), and the reassembly (one gather of the batch's output).
+    for label, part, operand in (
+            ("mixed SpMM n=256", sh_sp.part, b),
+            ("graph SDDMM(A) kf=128", gd.part_sd, gx)):
+        halo = part.stacked_arrays(dev)["halo"].reshape(-1)
+        halo_ms = median_ms(lambda: operand.index_select(0, halo))
         if part.kind == "spmm":
-            outs = [torch.zeros(part.rows_pad, operand.shape[1], device=dev)
-                    for _ in range(n_shards)]
+            flat = torch.zeros(n_shards * part.rows_pad, operand.shape[1],
+                               device=dev)
             gather = part.index("out_gather", dev)
         else:
-            outs = [torch.zeros(part.nnz_pad, device=dev)
-                    for _ in range(n_shards)]
+            flat = torch.zeros(n_shards * part.nnz_pad, device=dev)
             gather = part.index("nnz_gather", dev)
-        re_ms = median_ms(lambda: torch.cat(outs).index_select(0, gather))
-        log(f"  {label}: the {n_shards} halo gathers {halo_ms:.4f} ms "
-            f"({sum(h.numel() for h in halos)} rows), reassembly "
-            f"{re_ms:.4f} ms")
-        del outs, halos
+        re_ms = median_ms(lambda: flat.index_select(0, gather))
+        log(f"  {label}: the halo gather {halo_ms:.4f} ms "
+            f"({halo.numel()} rows), reassembly {re_ms:.4f} ms")
+        del flat, halo
     for label, run in (("sharded SpMM mixed n=256", lambda: sh_sp(b)),
                        ("sharded SpMM graph A n=256 edge_vals",
                         lambda: gd._spmm(gd.part, gb, edge_vals=gev)),
@@ -4991,6 +5325,95 @@ def sharded_phase(torch, np, log, fail, compare, *, dev, graph, norm, gcn,
         profile_request(torch, log, label, run, classify_sharded)
     mark("(b) timings and profiles", on_path=False)
     del one, row_sp, row_sd
+
+    # The batched applies at P = 1, 3 and 8 against the shard loop: the
+    # mixed tenant's partitions at P = 8, partitions of the same matrix
+    # at the registry's spec for the others.
+    parts = {n_shards: (sh_sp.part, sh_sd.part)}
+    for n_p in SHARD_COUNTS:
+        if n_p not in parts:
+            t = time.perf_counter()
+            parts[n_p] = (partition_spmm(mixed, n_p, spec=sh_sp.spec),
+                          partition_sddmm(mixed, n_p, spec=sh_sd.spec))
+            log(f"phase 8 (b): mixed partitions at P={n_p} "
+                f"{time.perf_counter() - t:.1f} s (host)")
+    want_launches = {"spmm_mxu": 2, "spmm_vpu": 2, "sddmm_mxu": 1,
+                     "sddmm_vpu": 1}
+    for n_p in SHARD_COUNTS:
+        psp, psd = parts[n_p]
+        mesh_p = ShardMesh.round_robin(n_p)
+        for data in ("integer", "random"):
+            if data == "integer":
+                draw = ints
+            else:
+                def draw(*shape):
+                    return torch.randn(*shape, generator=gen, device=dev)
+            b_, ev_ = draw(mixed.k, 256), draw(mixed.nnz)
+            x_, y_ = draw(mixed.m, 128), draw(mixed.k, 128)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                before = kernels.launch_counts()
+                got = (spmm_sharded(psp, b_, mesh=mesh_p),
+                       spmm_sharded(psp, b_, mesh=mesh_p, edge_vals=ev_),
+                       sddmm_sharded(psd, x_, y_, mesh=mesh_p))
+                after = kernels.launch_counts()
+                mark(f"(b) batched sharded applies, P={n_p}, {data}")
+                launched = {k: after[k] - before[k] for k in want_launches}
+                if launched != want_launches:
+                    fail(f"phase 8 (b): P={n_p} {data}: launches "
+                         f"{launched}, expected {want_launches} (one a "
+                         "stream an apply)")
+                want = (shard_loop(torch, psp, dev, b_),
+                        shard_loop(torch, psp, dev, b_, edge_vals=ev_),
+                        shard_loop(torch, psd, dev, x_, y_))
+                mark(f"(b) shard loop, P={n_p}, {data}", on_path=False)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            for what, g, w_ in zip(("SpMM n=256", "SpMM n=256 edge_vals",
+                                    "SDDMM kf=128"), got, want):
+                if not torch.equal(g, w_):
+                    err = (g - w_).abs().max().item()
+                    fail(f"phase 8 (b): P={n_p} {data} {what}: the batched "
+                         f"apply differs from the shard loop (max|err| "
+                         f"{err})")
+            del got, want
+        log(f"phase 8 (b): P={n_p}: the batched sharded applies equal the "
+            "shards applied one by one, bit for bit (integer data; random "
+            "fp32 under deterministic algorithms), one launch a stream an "
+            "apply")
+    # At P = 8: the batched apply and each kernel's batched launch against
+    # the shard loop and the per-shard launches (random fp32).
+    psp, psd = parts[n_shards]
+    rb = torch.randn(mixed.k, 256, generator=gen, device=dev)
+    rx = torch.randn(mixed.m, 128, generator=gen, device=dev)
+    ry = torch.randn(mixed.k, 128, generator=gen, device=dev)
+    for what, run, loop in (
+            ("SpMM n=256", lambda: spmm_sharded(psp, rb, mesh=mesh),
+             lambda: shard_loop(torch, psp, dev, rb)),
+            ("SDDMM kf=128", lambda: sddmm_sharded(psd, rx, ry, mesh=mesh),
+             lambda: shard_loop(torch, psd, dev, rx, ry))):
+        ms, loop_ms = median_ms(run), median_ms(loop)
+        log(f"phase 8 (b): mixed {what}, P={n_shards}: batched apply "
+            f"{ms:.4f} ms, the {n_shards} shards applied one by one "
+            f"{loop_ms:.4f} ms (ratio {ms / loop_ms:.3f})")
+    t_sp = psp.stacked_arrays(dev)
+    t_sd = psd.stacked_arrays(dev)
+    halo_sp, halo_sd = t_sp["halo"], t_sd["halo"]
+    b_halo = rb.index_select(0, halo_sp.reshape(-1)).view(
+        *halo_sp.shape, rb.shape[1])
+    y_halo = ry.index_select(0, halo_sd.reshape(-1)).view(
+        *halo_sd.shape, ry.shape[1])
+    panels = rx.index_select(0, psd.index("x_take", dev)).view(
+        n_shards, psd.rows_pad, rx.shape[1])
+    batched_kernel_rows(
+        torch, kernels, log, fail, median_ms, bound,
+        label=f"mixed sharded P={n_shards}", p=n_shards,
+        calls={**spmm_kernel_calls(torch, t_sp.for_backend("cuda"), b_halo),
+               **sddmm_kernel_calls(torch, t_sd.for_backend("cuda"), panels,
+                                    y_halo)})
+    del parts, psp, psd, rb, rx, ry, b_halo, y_halo, panels
+    mark("(b) the batched form against the shard loop: timings",
+         on_path=False)
 
     # (c) GCN and AGNN through DistGraphOps from phase 3's weights.
     counts_by_step, applies, ms_by = {}, {}, {"GCN": [], "AGNN": []}
@@ -5049,15 +5472,11 @@ def sharded_phase(torch, np, log, fail, compare, *, dev, graph, norm, gcn,
         if not losses[-1] < losses[0]:
             fail(f"phase 8 (c): the {name} loss did not fall: {losses}")
     mark("(c) DistGraphOps training steps")
-    per_shard = {}
-    for step_label, c in counts_by_step.items():
-        if any(v % n_shards for v in c.values()):
-            fail(f"phase 8 (c): {step_label}: launches {c} are not "
-                 f"{n_shards} a sharded apply")
-        per_shard[step_label] = {k: v // n_shards for k, v in c.items()}
-    by_shape = launches_by_shape(per_shard, applies)
-    log(f"phase 8 (c) launches by leg and width, each shard (x{n_shards} "
-        "shards): " + str(by_shape).replace("GraphOps", "DistGraphOps"))
+    # The shards apply as one batch: a launch a stream a sharded apply.
+    by_shape = launches_by_shape(counts_by_step, applies)
+    log(f"phase 8 (c) launches by leg and width (one batched launch a "
+        f"stream a sharded apply of {n_shards} shards): "
+        + str(by_shape).replace("GraphOps", "DistGraphOps"))
     plain = copy.copy(gd)
     plain.backend = "torch"
     for name, model0, args in (("GCN", gcn, (norm,)), ("AGNN", agnn, ())):

@@ -25,6 +25,7 @@ Host arrays stay NumPy in the reference's dtypes, so
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping
 
 import numpy as np
@@ -351,21 +352,23 @@ _REVALUE_OF = {"tc_vals": "tc_pos", "vpu_vals": "vpu_pos",
 
 def real_prefix_lengths(pos: np.ndarray) -> np.ndarray:
     """(rows,) i32: one past the last real slot (``pos >= 0``) of each row
-    of a CUDA-core SpMM table. Real slots form a prefix of every row
-    (:func:`segment_take` puts a segment's real tiles first, and a tile
-    fills its slots in order), so this is each row's real length."""
-    slot = np.arange(1, pos.shape[1] + 1, dtype=np.int32)
-    return np.where(pos >= 0, slot, 0).max(axis=1, initial=0).astype(
+    of a CUDA-core SpMM table (the last axis; a leading shard axis
+    stays). Real slots form a prefix of every row (:func:`segment_take`
+    puts a segment's real tiles first, and a tile fills its slots in
+    order), so this is each row's real length."""
+    slot = np.arange(1, pos.shape[-1] + 1, dtype=np.int32)
+    return np.where(pos >= 0, slot, 0).max(axis=-1, initial=0).astype(
         np.int32)
 
 
 def real_vector_lengths(pos: np.ndarray) -> np.ndarray:
     """(blocks,) i32: one past the last real condensed vector of each
     block or segment of a Tensor Core SpMM table (``pos`` is ``(nb, 8,
-    bk)``; a vector is real when any of its 8 rows is). Only a window's
-    last block is partly filled, and :func:`segment_take` puts a
-    segment's real blocks first, so real vectors form a prefix."""
-    return real_prefix_lengths(pos.max(axis=1, initial=-1))
+    bk)``, or ``(P, nb, 8, bk)`` stacked; a vector is real when any of
+    its 8 rows is). Only a window's last block is partly filled, and
+    :func:`segment_take` puts a segment's real blocks first, so real
+    vectors form a prefix."""
+    return real_prefix_lengths(pos.max(axis=-2, initial=-1))
 
 
 def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -583,8 +586,11 @@ class PlanArrays(Mapping):
                                  segmented=segmented)
         lengths = 0
         if self._carries_lengths(backend):
+            # One length a row: the table's shape up to its (8, bk)
+            # blocks or its slots (a stacked table keeps its shard axis).
             lengths = sum(
-                4 * self._host[self._length_source(s, segmented)[1]].shape[0]
+                4 * math.prod(self._host[self._length_source(
+                    s, segmented)[1]].shape[:-2 if s == "tc" else -1])
                 for s in ("tc", "vpu"))
         return sum(int(self._host[k].nbytes) for k in keys) + lengths
 

@@ -303,7 +303,10 @@ def _search_run_cfg(part, op: str, a: SparseCSR, *, width: int,
 
 
 def _timed_apply(part, op: str, *, backend: str, mesh):
-    """The sharded apply of one candidate partition on ``mesh``."""
+    """The sharded apply of one candidate partition on ``mesh``: on a
+    mesh whose shards share one device, the batched apply over the
+    stacked tables (the reference's no-mesh ``vmap`` over
+    ``part.stacked``), the one that is served."""
     from repro_torch.dist.sparse import sddmm_sharded, spmm_sharded
 
     if op == "spmm":
@@ -394,6 +397,20 @@ class _DeviceViews:
             host = {k: v[p] for k, v in self.stacked.items()}
             got = self._views[key] = PlanArrays.from_host(host, self.kind,
                                                           dev)
+        return got
+
+    def stacked_arrays(self, device="cuda") -> PlanArrays:
+        """Every shard's tables at once on ``device``: the stacked tables
+        with their leading shard axis (``"halo"`` included), uploaded on
+        first use. The batched apply of a mesh whose shards share one
+        device reads them (:mod:`repro_torch.dist.sparse`)."""
+        dev = checked_device(device,
+                             f"{type(self).__name__}.stacked_arrays")
+        key = ("stacked", str(dev))
+        got = self._views.get(key)
+        if got is None:
+            got = self._views[key] = PlanArrays.from_host(
+                dict(self.stacked), self.kind, dev)
         return got
 
     def index(self, name: str, device="cuda") -> torch.Tensor:

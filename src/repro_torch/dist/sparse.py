@@ -5,21 +5,24 @@ The two scale axes the single-device operators lack:
 * :func:`spmm_sharded` / :func:`sddmm_sharded` — run one Libra plan
   split into contiguous-window shards (:mod:`repro_torch.dist.partition`)
   over a :class:`ShardMesh`, the counterpart of the reference package's
-  one-axis ``Mesh``. Each shard runs the *existing* single-device hybrid
-  apply (:func:`~repro_torch.kernels.ops.spmm_apply`: K1–K4 on
-  ``backend="cuda"``) on its device, one shard after another; because
-  the output is row-partitioned by construction (a window never
-  straddles shards), there is **no cross-shard combine** — one gather
-  reassembles the result.
+  one-axis ``Mesh``. When every shard sits on one device, the shards
+  apply as one batch over the partition's stacked tables
+  (:func:`~repro_torch.kernels.ops.spmm_apply` with a leading shard
+  axis: K1–K4 launch once each on ``backend="cuda"``), the port of the
+  reference's no-mesh ``vmap`` over ``part.stacked``. A mesh spread
+  over several devices runs the single-device apply on each shard's
+  device, one shard after another. The output is row-partitioned by
+  construction (a window never straddles shards), so there is **no
+  cross-shard combine** — one gather reassembles the result.
 * :class:`BatchedSpMM` / :class:`BatchedSDDMM` — apply one plan to a
   ``(batch, k, n)`` stack of dense panels (the serving shape: one graph,
   many feature panels in flight) through
   :func:`~repro_torch.kernels.ops.spmm_apply_stack` /
   :func:`~repro_torch.kernels.ops.sddmm_apply_stack`. On the card a
-  stack runs K1–K4 panel by panel, so each panel's result is bit for
-  bit the single apply's. Reordered plans keep the single operators'
-  contract: SpMM outputs come back in original row order, SDDMM gathers
-  X's rows into the reordered row space.
+  stack is one launch of each of K1–K4, and each panel's result is bit
+  for bit the single apply's. Reordered plans keep the single
+  operators' contract: SpMM outputs come back in original row order,
+  SDDMM gathers X's rows into the reordered row space.
 
 Every operator counts the apply keys (operand shape, dtype, backend) it
 has used (:func:`~repro_torch.kernels.ops.apply_at`).
@@ -75,7 +78,7 @@ class ShardMesh:
     The counterpart of the reference package's ``jax.sharding.Mesh``
     over one named axis: ``mesh.shape[axis]`` is the shard count. Every
     device is checked (a CUDA device needs a card). Several shards may
-    share one device; they then run one after another.
+    share one device; when all of them do, they apply as one batch.
     """
 
     def __init__(self, devices, axis: str = SHARD_AXIS):
@@ -95,6 +98,12 @@ class ShardMesh:
 
     def device(self, p: int) -> torch.device:
         return self.devices[p]
+
+    @property
+    def one_device(self) -> bool:
+        """True when every shard runs on one device: the sharded applies
+        then run the shards as one batch."""
+        return len(set(self.devices)) == 1
 
     def __repr__(self) -> str:
         return f"ShardMesh({[str(d) for d in self.devices]}, {self.axis!r})"
@@ -125,36 +134,79 @@ def _operand(t: torch.Tensor, blocks, dev: torch.device) -> torch.Tensor:
     return torch.cat([blk.to(dev) for blk in blocks])
 
 
+def _device_arrays(part, mesh: ShardMesh) -> list:
+    """The tables a sharded apply on ``mesh`` reads: the stacked tables
+    once when every shard shares one device, else each shard's on its
+    device."""
+    if mesh.one_device:
+        return [part.stacked_arrays(mesh.device(0))]
+    return [part.arrays(p, mesh.device(p)) for p in range(part.n_shards)]
+
+
+def _apply_batch(apply, local, operands, *, backend: str, **kw):
+    """One device's shards as one batch: ``local``'s tables and each
+    operand carry a leading shard axis. The kernel path is one batched
+    apply (K1–K4 once each); the plain path applies the shards one after
+    another over their slices of the stacked tables."""
+    if backend == "cuda":
+        return apply(local, *operands, backend=backend, **kw)
+    return torch.stack([
+        apply({k: v[p] for k, v in local.items()}, *(o[p] for o in operands),
+              backend=backend, **kw)
+        for p in range(operands[0].shape[0])])
+
+
+def _halo_stack(t: torch.Tensor, halo: torch.Tensor) -> torch.Tensor:
+    """``t``'s rows at each shard's halo, ``(P, halo_pad, n)``, by one
+    gather over the stacked halo maps."""
+    return t.index_select(0, halo.reshape(-1)).view(*halo.shape, t.shape[1])
+
+
 def spmm_sharded(part: SpMMPartition, b: torch.Tensor, *, mesh: ShardMesh,
                  axis: str = SHARD_AXIS, backend: str = "cuda",
                  edge_vals: torch.Tensor | None = None,
                  b_layout: str = "replicated") -> torch.Tensor:
-    """C = A @ B over a mesh; each shard applies its plan on its device.
+    """C = A @ B over a mesh; the shards of one device apply as one batch,
+    those of a spread mesh each on its device.
 
     ``edge_vals`` (canonical global nnz order) revalues every shard's
-    tables — the differentiable-values path. Output rows are partitioned
-    by shard, so the result needs no reduction: one gather
+    tables — the differentiable-values path; the stacked position maps
+    are global, so one gather revalues all of them. Output rows are
+    partitioned by shard, so the result needs no reduction: one gather
     (``part.out_gather``) reassembles C on ``b``'s device.
     """
     _check_mesh(part, mesh, axis, b_layout)
     if edge_vals is not None and part.edge_perm is not None:
         # Reordered partition: shard positions index the reordered
         # canonical nnz order — gather the caller's original-order
-        # values into it once, before the shard loop.
+        # values into it once, before the shards apply.
         edge_vals = edge_vals.index_select(
             0, part.index("edge_perm", edge_vals.device))
     blocks = _row_blocks(b, mesh) if b_layout == "rowshard" else None
-    outs = []
-    for p in range(part.n_shards):
-        dev = mesh.device(p)
-        arrays = part.arrays(p, dev)
-        local = arrays.for_backend(backend, revalue=edge_vals is not None)
-        if edge_vals is not None:
+    revalue = edge_vals is not None
+    kw = dict(m=part.rows_pad, nwin=part.wmax, backend=backend)
+    if mesh.one_device:
+        dev = mesh.device(0)
+        arrays = part.stacked_arrays(dev)
+        local = arrays.for_backend(backend, revalue=revalue)
+        if revalue:
             local = ref.revalue_spmm_arrays(local, edge_vals.to(dev))
-        b_halo = _operand(b, blocks, dev).index_select(0, arrays["halo"])
-        outs.append(spmm_apply(local, b_halo, m=part.rows_pad,
-                               nwin=part.wmax, backend=backend).to(b.device))
-    return torch.cat(outs).index_select(0, part.index("out_gather", b.device))
+        b_halo = _halo_stack(_operand(b, blocks, dev), arrays["halo"])
+        out = _apply_batch(spmm_apply, local, (b_halo,), **kw)
+        flat = out.reshape(-1, b.shape[1]).to(b.device)
+    else:
+        outs = []
+        for p in range(part.n_shards):
+            dev = mesh.device(p)
+            arrays = part.arrays(p, dev)
+            local = arrays.for_backend(backend, revalue=revalue)
+            if revalue:
+                local = ref.revalue_spmm_arrays(local, edge_vals.to(dev))
+            b_halo = _operand(b, blocks, dev).index_select(0,
+                                                           arrays["halo"])
+            outs.append(spmm_apply(local, b_halo, **kw).to(b.device))
+        flat = torch.cat(outs)
+    return flat.index_select(0, part.index("out_gather", b.device))
 
 
 def sddmm_sharded(part: SDDMMPartition, x: torch.Tensor, y: torch.Tensor, *,
@@ -165,26 +217,34 @@ def sddmm_sharded(part: SDDMMPartition, x: torch.Tensor, y: torch.Tensor, *,
     nnz order.
 
     X is laid out in padded per-shard panels (``part.x_take``, one
-    gather before the shard loop); Y follows ``y_layout`` like B in
+    gather before the shards apply); Y follows ``y_layout`` like B in
     :func:`spmm_sharded`. Each shard scores into its local nnz slice;
     ``part.nnz_gather`` reassembles the canonical vector on ``x``'s
     device — again no cross-shard combine.
     """
     _check_mesh(part, mesh, axis, y_layout)
-    panels = x.index_select(0, part.index("x_take", x.device)).split(
-        part.rows_pad)
+    panels = x.index_select(0, part.index("x_take", x.device)).view(
+        part.n_shards, part.rows_pad, x.shape[1])
     blocks = _row_blocks(y, mesh) if y_layout == "rowshard" else None
-    outs = []
-    for p in range(part.n_shards):
-        dev = mesh.device(p)
-        arrays = part.arrays(p, dev)
-        y_halo = _operand(y, blocks, dev).index_select(0, arrays["halo"])
-        outs.append(sddmm_apply(arrays.for_backend(backend),
-                                panels[p].to(dev), y_halo,
-                                nnz=part.nnz_pad,
-                                backend=backend).to(x.device))
-    return torch.cat(outs).index_select(0, part.index("nnz_gather",
-                                                      x.device))
+    kw = dict(nnz=part.nnz_pad, backend=backend)
+    if mesh.one_device:
+        dev = mesh.device(0)
+        arrays = part.stacked_arrays(dev)
+        y_halo = _halo_stack(_operand(y, blocks, dev), arrays["halo"])
+        out = _apply_batch(sddmm_apply, arrays.for_backend(backend),
+                           (panels.to(dev), y_halo), **kw)
+        flat = out.reshape(-1).to(x.device)
+    else:
+        outs = []
+        for p in range(part.n_shards):
+            dev = mesh.device(p)
+            arrays = part.arrays(p, dev)
+            y_halo = _operand(y, blocks, dev).index_select(0, arrays["halo"])
+            outs.append(sddmm_apply(arrays.for_backend(backend),
+                                    panels[p].to(dev), y_halo,
+                                    **kw).to(x.device))
+        flat = torch.cat(outs)
+    return flat.index_select(0, part.index("nnz_gather", x.device))
 
 
 class BatchedSpMM:
@@ -258,8 +318,9 @@ class ShardedSpMM:
     :class:`~repro_torch.sparse.matrix.SparseCSR` (partitioned here
     under ``spec``); ``edge_vals`` revalues the tables per call
     (canonical nnz order). ``_cache`` holds the apply keys (operand
-    shape, dtype, revalued) used so far; ``arrays`` each shard's lazy
-    device tables.
+    shape, dtype, revalued) used so far; ``arrays`` the lazy device
+    tables the applies read: the stacked tables when every shard shares
+    one device, else each shard's.
     """
 
     def __init__(self, a, mesh: ShardMesh, *, axis: str = SHARD_AXIS,
@@ -273,8 +334,7 @@ class ShardedSpMM:
         self.mesh, self.axis = mesh, axis
         self.backend, self.b_layout = spec.backend, spec.b_layout
         self.m, self.k, self.nnz = self.part.m, self.part.k, self.part.nnz
-        self.arrays = [self.part.arrays(p, mesh.device(p))
-                       for p in range(self.part.n_shards)]
+        self.arrays = _device_arrays(self.part, mesh)
         self._cache: set = set()
 
     @property
@@ -308,8 +368,7 @@ class ShardedSDDMM:
         self.mesh, self.axis = mesh, axis
         self.backend, self.y_layout = spec.backend, spec.b_layout
         self.m, self.k, self.nnz = self.part.m, self.part.k, self.part.nnz
-        self.arrays = [self.part.arrays(p, mesh.device(p))
-                       for p in range(self.part.n_shards)]
+        self.arrays = _device_arrays(self.part, mesh)
         self._cache: set = set()
 
     @property

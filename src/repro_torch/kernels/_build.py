@@ -41,16 +41,24 @@ _F = ctypes.c_float
 #: C entry point → argument types. Pointers and the stream are
 #: ``c_void_p`` (a bare Python int would be cut to 32 bits).
 SIGNATURES = {
-    # vals, cols, seg_len, rank, b, out, nb, bk, n, atomic_out, vec4, stream
-    "spmm_mxu_launch": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # vals, cols, row_len, b, out, ntiles, ts, n, slice_cols, vec4, stream
-    "spmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # cols, bitmap, window, x, y, out, nb, bk, kf, mrows, slice_feats,
-    # vec4, stream
-    "sddmm_mxu_launch": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I,
-                         _P),
-    # rows, cols, x, y, out, nel, kf, slice_feats, vec4, stream
-    "sddmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    # K1–K4 take a batch count and, after the sizes, each operand's batch
+    # stride in elements (0: shared by the batch), in argument order.
+    # vals, cols, seg_len, rank, b, out, batch, nb, bk, n, 6 strides,
+    # atomic_out, vec4, stream
+    "spmm_mxu_launch": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
+                        _L, _L, _L, _L, _L, _L, _I, _I, _P),
+    # vals, cols, row_len, b, out, batch, ntiles, ts, n, 5 strides,
+    # slice_cols, vec4, stream
+    "spmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _L, _I, _I,
+                        _L, _L, _L, _L, _L, _I, _I, _P),
+    # cols, bitmap, window, x, y, out, batch, nb, bk, kf, mrows, 6 strides,
+    # slice_feats, vec4, stream
+    "sddmm_mxu_launch": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _L,
+                         _L, _L, _L, _L, _L, _L, _I, _I, _P),
+    # rows, cols, x, y, out, batch, nel, kf, 5 strides, slice_feats, vec4,
+    # stream
+    "sddmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _L, _I,
+                         _L, _L, _L, _L, _L, _I, _I, _P),
     # q, k, v, o, lse (or null), b, sq, sk, h, kv, d, q/k/v strides over
     # (B, S, H), scale, softcap, causal, window, q_offset, dtype, stream
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -170,12 +178,14 @@ def on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def check_operands(name: str, *specs):
+def check_operands(name: str, *specs, batch: int | None = None):
     """Validate kernel operands before their pointers reach C.
 
     ``specs`` are ``(arg, tensor, dtype, ndim)``; every tensor must be a
     contiguous CUDA tensor of that dtype and rank, all on one device.
-    Returns that device.
+    With ``batch`` set (a batched launch), a tensor may also carry a
+    leading batch axis of that size: ``ndim + 1`` dims. Returns that
+    device.
     """
     dev = specs[0][1].device
     if dev.type != "cuda":
@@ -186,12 +196,34 @@ def check_operands(name: str, *specs):
             raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
-        if t.dim() != ndim:
-            raise ValueError(f"{name}: {arg} must have {ndim} dims, "
+        batched = batch is not None and t.dim() == ndim + 1
+        if t.dim() != ndim and not batched:
+            want = f"{ndim}" if batch is None else f"{ndim} or {ndim + 1}"
+            raise ValueError(f"{name}: {arg} must have {want} dims, "
                              f"got shape {tuple(t.shape)}")
+        if batched and t.shape[0] != batch:
+            raise ValueError(f"{name}: {arg} has a batch of {t.shape[0]}, "
+                             f"not {batch}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     return dev
+
+
+def batch_of(*dense) -> int | None:
+    """The batch of a launch: the leading axis of its dense operands
+    (``(batch, rows, cols)``), which must agree; ``None`` when every one
+    is a plain ``(rows, cols)`` matrix."""
+    sizes = {t.shape[0] for t in dense if t.dim() == 3}
+    if len(sizes) > 1:
+        raise ValueError(f"dense operands disagree on the batch: "
+                         f"{sorted(sizes)}")
+    return sizes.pop() if sizes else None
+
+
+def batch_stride(t, ndim: int) -> int:
+    """Elements between two batch elements of ``t``: its leading stride
+    when it carries a batch axis (``ndim + 1`` dims), else 0 (shared)."""
+    return t.stride(0) if t.dim() == ndim + 1 else 0
 
 
 #: Bytes of a gathered operand's column slice that K2, K3 and K4 keep in

@@ -11,6 +11,23 @@ namespace libra {
 constexpr int kWindow = 8;          // rows per window (8x1 column vectors)
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// Batch elements one launch of K1-K4 covers. A launch over a batch (a
+// panel stack, a partition's shards) takes each element's operand bases
+// as a kernel parameter, a table indexed by the block's batch coordinate,
+// which the kernel reads from the constant bank as it reads a plain
+// pointer parameter; the launcher covers a larger batch with one launch
+// of kMaxBatch elements after another. Offsetting the pointers inside the
+// kernel by batch strides instead kept them in registers and cost a
+// single launch of K2 9-11% and of K4 16-17% at the main path's shapes
+// (the scheduler issued fewer gathers ahead of their use), against 2-3%
+// and nothing this way (tools/ab_batched_kernels.py).
+constexpr int kMaxBatch = 64;
+
+// Elements of a batch of ``batch`` from element z0 that one launch covers.
+inline int batch_chunk(long long batch, long long z0) {
+  return static_cast<int>(batch - z0 < kMaxBatch ? batch - z0 : kMaxBatch);
+}
+
 // Round an fp32 value to TF32 (round to nearest, ties away), as the
 // Tensor Core operand registers expect.
 __device__ __forceinline__ uint32_t to_tf32(float f) {

@@ -47,6 +47,12 @@
 //   distinct banks.
 // - Plain stores for the scores: a later slice reads them back, and the
 //   A/B found them 1-2% faster than streaming ones even with one slice.
+// - A batch axis (a panel stack, a partition's shards): blockIdx.y picks
+//   the batch element, whose operand bases the launcher computes from the
+//   batch strides (0 shares an operand) into the kernel's parameter
+//   table (libra::kMaxBatch). Each element gets the single launch's wave
+//   of warps and chunk runs, so its arithmetic, and its output, are the
+//   single launch's; the single launch is the batch of one.
 #include <atomic>
 
 #include "common.cuh"
@@ -106,15 +112,29 @@ __device__ __forceinline__ void copy(float* dst, const float* src, bool ok,
   }
 }
 
+// The operands of the batch elements of one launch.
+struct Operands {
+  const int* cols[libra::kMaxBatch];
+  const int* bitmap[libra::kMaxBatch];
+  const int* window[libra::kMaxBatch];
+  const float* x[libra::kMaxBatch];
+  const float* y[libra::kMaxBatch];
+  float* out[libra::kMaxBatch];
+};
+
 template <int kF, bool kVec4>
 __global__ void __launch_bounds__(kWarps * 32)
-sddmm_mxu_kernel(const int* __restrict__ cols, const int* __restrict__ bitmap,
-                 const int* __restrict__ window, const float* __restrict__ x,
-                 const float* __restrict__ y, float* __restrict__ out,
-                 long long nchunks, int chunks_per_seg, int bk, int kf,
-                 long long mrows, int f0, int accumulate, int out16,
-                 long long per_warp) {
+sddmm_mxu_kernel(const __grid_constant__ Operands ops, long long nchunks,
+                 int chunks_per_seg, int bk, int kf, long long mrows, int f0,
+                 int accumulate, int out16, long long per_warp) {
   extern __shared__ __align__(16) float smem[];
+  const int z = blockIdx.y;  // the batch element
+  const int* __restrict__ cols = ops.cols[z];
+  const int* __restrict__ bitmap = ops.bitmap[z];
+  const int* __restrict__ window = ops.window[z];
+  const float* __restrict__ x = ops.x[z];
+  const float* __restrict__ y = ops.y[z];
+  float* __restrict__ out = ops.out[z];
   constexpr int kCols = chunk_cols<kF>();
   constexpr int kTiles = kCols / 16;
   constexpr int kPitch = row_pitch<kF>();
@@ -294,10 +314,16 @@ sddmm_mxu_kernel(const int* __restrict__ cols, const int* __restrict__ bitmap,
   libra::cp_async_wait<0>();
 }
 
+// Batch strides of the six operands: cols, bitmap, window, x, y, out.
+struct Strides {
+  long long cols, bitmap, window, x, y, out;
+};
+
 template <int kF, bool kVec4>
 int launch(const int* cols, const int* bitmap, const int* window,
-           const float* x, const float* y, float* out, long long nb, int bk,
-           int kf, long long mrows, cudaStream_t stream) {
+           const float* x, const float* y, float* out, long long batch,
+           long long nb, int bk, int kf, long long mrows, const Strides& bs,
+           cudaStream_t stream) {
   auto kernel = sddmm_mxu_kernel<kF, kVec4>;
   constexpr size_t smem = smem_bytes<kF>();
   // Resident warps a device: set up and measured once (each entry is
@@ -331,15 +357,27 @@ int launch(const int* cols, const int* bitmap, const int* window,
   const long long nchunks = nb * chunks_per_seg;
   const long long per_warp = (nchunks + resident - 1) / resident;
   const long long warps = (nchunks + per_warp - 1) / per_warp;
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  const int out16 =
-      bk % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  for (int f0 = 0; f0 < kf; f0 += kF) {
-    kernel<<<blocks, kWarps * 32, smem, stream>>>(
-        cols, bitmap, window, x, y, out, nchunks, chunks_per_seg, bk, kf,
-        mrows, f0, f0 > 0, out16, per_warp);
-    if ((err = cudaGetLastError()) != cudaSuccess) {
-      return static_cast<int>(err);
+  const int out16 = bk % 4 == 0 && bs.out % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (long long z0 = 0; z0 < batch; z0 += libra::kMaxBatch) {
+    const int nz = libra::batch_chunk(batch, z0);
+    Operands ops;
+    for (int i = 0; i < nz; ++i) {
+      const long long z = z0 + i;
+      ops.cols[i] = cols + z * bs.cols;
+      ops.bitmap[i] = bitmap + z * bs.bitmap;
+      ops.window[i] = window + z * bs.window;
+      ops.x[i] = x + z * bs.x, ops.y[i] = y + z * bs.y;
+      ops.out[i] = out + z * bs.out;
+    }
+    const dim3 grid(static_cast<unsigned>((warps + kWarps - 1) / kWarps), nz);
+    for (int f0 = 0; f0 < kf; f0 += kF) {
+      kernel<<<grid, kWarps * 32, smem, stream>>>(
+          ops, nchunks, chunks_per_seg, bk, kf, mrows, f0, f0 > 0, out16,
+          per_warp);
+      if ((err = cudaGetLastError()) != cudaSuccess) {
+        return static_cast<int>(err);
+      }
     }
   }
   return static_cast<int>(cudaSuccess);
@@ -347,22 +385,22 @@ int launch(const int* cols, const int* bitmap, const int* window,
 
 template <bool kVec4>
 int launch_width(const int* cols, const int* bitmap, const int* window,
-                 const float* x, const float* y, float* out, long long nb,
-                 int bk, int kf, long long mrows, int slice_feats,
-                 cudaStream_t stream) {
+                 const float* x, const float* y, float* out, long long batch,
+                 long long nb, int bk, int kf, long long mrows,
+                 int slice_feats, const Strides& bs, cudaStream_t stream) {
   switch (slice_feats) {
     case 16:
-      return launch<16, kVec4>(cols, bitmap, window, x, y, out, nb, bk, kf,
-                               mrows, stream);
+      return launch<16, kVec4>(cols, bitmap, window, x, y, out, batch, nb,
+                               bk, kf, mrows, bs, stream);
     case 32:
-      return launch<32, kVec4>(cols, bitmap, window, x, y, out, nb, bk, kf,
-                               mrows, stream);
+      return launch<32, kVec4>(cols, bitmap, window, x, y, out, batch, nb,
+                               bk, kf, mrows, bs, stream);
     case 64:
-      return launch<64, kVec4>(cols, bitmap, window, x, y, out, nb, bk, kf,
-                               mrows, stream);
+      return launch<64, kVec4>(cols, bitmap, window, x, y, out, batch, nb,
+                               bk, kf, mrows, bs, stream);
     case 128:
-      return launch<128, kVec4>(cols, bitmap, window, x, y, out, nb, bk, kf,
-                                mrows, stream);
+      return launch<128, kVec4>(cols, bitmap, window, x, y, out, batch, nb,
+                                bk, kf, mrows, bs, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -370,15 +408,24 @@ int launch_width(const int* cols, const int* bitmap, const int* window,
 
 }  // namespace
 
+// Strides (*_bs, in elements) step from one batch element's operand to
+// the next; 0 shares the operand.
 extern "C" int sddmm_mxu_launch(const int* cols, const int* bitmap,
                                 const int* window, const float* x,
-                                const float* y, float* out, long long nb,
-                                int bk, int kf, long long mrows,
+                                const float* y, float* out, long long batch,
+                                long long nb, int bk, int kf, long long mrows,
+                                long long cols_bs, long long bitmap_bs,
+                                long long window_bs, long long x_bs,
+                                long long y_bs, long long out_bs,
                                 int slice_feats, int vec4,
                                 cudaStream_t stream) {
-  if (nb <= 0 || bk <= 0 || kf <= 0) return static_cast<int>(cudaSuccess);
-  return vec4 ? launch_width<true>(cols, bitmap, window, x, y, out, nb, bk,
-                                   kf, mrows, slice_feats, stream)
-              : launch_width<false>(cols, bitmap, window, x, y, out, nb, bk,
-                                    kf, mrows, slice_feats, stream);
+  if (batch <= 0 || nb <= 0 || bk <= 0 || kf <= 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  const Strides bs{cols_bs, bitmap_bs, window_bs, x_bs, y_bs, out_bs};
+  return vec4 ? launch_width<true>(cols, bitmap, window, x, y, out, batch,
+                                   nb, bk, kf, mrows, slice_feats, bs, stream)
+              : launch_width<false>(cols, bitmap, window, x, y, out, batch,
+                                    nb, bk, kf, mrows, slice_feats, bs,
+                                    stream);
 }

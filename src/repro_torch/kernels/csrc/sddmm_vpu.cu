@@ -28,6 +28,10 @@
 // - Many gathers in flight: each lane issues the X and Y loads of
 //   kUnroll elements before it reduces any; the group sums with
 //   log2(group) butterfly shuffles.
+// - A batch axis (a panel stack, a partition's shards): blockIdx.y picks
+//   the batch element, whose operand bases the launcher computes from the
+//   batch strides (0 shares an operand) into the kernel's parameter
+//   table (libra::kMaxBatch); the single launch is the batch of one.
 // FP32 FMA.
 #include "common.cuh"
 
@@ -36,12 +40,25 @@ namespace {
 constexpr int kWarps = 4;   // warps a block
 constexpr int kUnroll = 2;  // elements a lane has in flight
 
+// The operands of the batch elements of one launch.
+struct Operands {
+  const int* rows[libra::kMaxBatch];
+  const int* cols[libra::kMaxBatch];
+  const float* x[libra::kMaxBatch];
+  const float* y[libra::kMaxBatch];
+  float* out[libra::kMaxBatch];
+};
+
 template <int kV>
 __global__ void __launch_bounds__(kWarps * 32)
-sddmm_vpu_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
-                 const float* __restrict__ x, const float* __restrict__ y,
-                 float* __restrict__ out, long long nel, int kf, int f0,
-                 int group, int accumulate) {
+sddmm_vpu_kernel(const __grid_constant__ Operands ops, long long nel, int kf,
+                 int f0, int group, int accumulate) {
+  const int z = blockIdx.y;  // the batch element
+  const int* __restrict__ rows = ops.rows[z];
+  const int* __restrict__ cols = ops.cols[z];
+  const float* __restrict__ x = ops.x[z];
+  const float* __restrict__ y = ops.y[z];
+  float* __restrict__ out = ops.out[z];
   const int lane = threadIdx.x & 31;
   const long long base =
       ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32;
@@ -97,29 +114,40 @@ sddmm_vpu_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 
 }  // namespace
 
+// Strides (*_bs, in elements) step from one batch element's operand to
+// the next; 0 shares the operand.
 extern "C" int sddmm_vpu_launch(const int* rows, const int* cols,
                                 const float* x, const float* y, float* out,
-                                long long nel, int kf, int slice_feats,
-                                int vec4, cudaStream_t stream) {
+                                long long batch, long long nel, int kf,
+                                long long rows_bs, long long cols_bs,
+                                long long x_bs, long long y_bs,
+                                long long out_bs, int slice_feats, int vec4,
+                                cudaStream_t stream) {
   const int v = vec4 ? 4 : 1;
   const int group = slice_feats / v;
   if (slice_feats <= 0 || slice_feats % v != 0 || group > 32 ||
       (group & (group - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (batch <= 0 || nel <= 0) return static_cast<int>(cudaSuccess);
   const long long warps = (nel + 31) / 32;
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  for (int f0 = 0; f0 < kf; f0 += slice_feats) {
-    const int accumulate = f0 > 0;
-    if (vec4) {
-      sddmm_vpu_kernel<4><<<blocks, kWarps * 32, 0, stream>>>(
-          rows, cols, x, y, out, nel, kf, f0, group, accumulate);
-    } else {
-      sddmm_vpu_kernel<1><<<blocks, kWarps * 32, 0, stream>>>(
-          rows, cols, x, y, out, nel, kf, f0, group, accumulate);
+  auto kernel = vec4 ? sddmm_vpu_kernel<4> : sddmm_vpu_kernel<1>;
+  for (long long z0 = 0; z0 < batch; z0 += libra::kMaxBatch) {
+    const int nz = libra::batch_chunk(batch, z0);
+    Operands ops;
+    for (int i = 0; i < nz; ++i) {
+      const long long z = z0 + i;
+      ops.rows[i] = rows + z * rows_bs, ops.cols[i] = cols + z * cols_bs;
+      ops.x[i] = x + z * x_bs, ops.y[i] = y + z * y_bs;
+      ops.out[i] = out + z * out_bs;
     }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>((warps + kWarps - 1) / kWarps), nz);
+    for (int f0 = 0; f0 < kf; f0 += slice_feats) {
+      kernel<<<grid, kWarps * 32, 0, stream>>>(ops, nel, kf, f0, group,
+                                               f0 > 0);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
   return static_cast<int>(cudaSuccess);
 }

@@ -47,6 +47,13 @@
 // Segments own their output rows (unique ranks) and store with streaming
 // stores; with shared ranks (the per-block layout) the wrapper zeroes the
 // output and the kernel adds atomically.
+// - A batch axis (the TPU's vmapped form over a panel stack or a
+//   partition's shards): blockIdx.z picks the batch element, whose
+//   operand bases the launcher computes from the batch strides (a stride
+//   of 0 shares the operand across the batch: one plan for a stack of
+//   panels) into the kernel's parameter table (libra::kMaxBatch). A
+//   block does the same arithmetic at any batch size, so each element's
+//   output is the single launch's; the single launch is the batch of one.
 #include "common.cuh"
 
 namespace {
@@ -62,13 +69,28 @@ __host__ __device__ constexpr int stage_floats(int nt) {
   return kChunk * (nt + 4) + libra::kWindow * kVPitch;
 }
 
+// The operands of the batch elements of one launch.
+struct Operands {
+  const float* vals[libra::kMaxBatch];
+  const int* cols[libra::kMaxBatch];
+  const int* seg_len[libra::kMaxBatch];
+  const int* rank[libra::kMaxBatch];
+  const float* b[libra::kMaxBatch];
+  float* out[libra::kMaxBatch];
+};
+
 template <bool kVec4>
 __global__ void __launch_bounds__(kTileCols)
-spmm_mxu_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
-                const int* __restrict__ seg_len, const int* __restrict__ rank,
-                const float* __restrict__ b, float* __restrict__ out, int bk,
-                int n, int atomic_out, int vals16) {
+spmm_mxu_kernel(const __grid_constant__ Operands ops, int bk, int n,
+                int atomic_out, int vals16) {
   extern __shared__ __align__(16) float smem[];
+  const int z = blockIdx.z;  // the batch element
+  const float* __restrict__ vals = ops.vals[z];
+  const int* __restrict__ cols = ops.cols[z];
+  const int* __restrict__ seg_len = ops.seg_len[z];
+  const int* __restrict__ rank = ops.rank[z];
+  const float* __restrict__ b = ops.b[z];
+  float* __restrict__ out = ops.out[z];
   const int nt = blockDim.x;  // this tile's columns, 32 a warp
   const int pitch = nt + 4;
   const int stage = stage_floats(nt);
@@ -220,18 +242,23 @@ spmm_mxu_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
 
 }  // namespace
 
+// Strides (*_bs, in elements) step from one batch element's operand to
+// the next; 0 shares the operand.
 extern "C" int spmm_mxu_launch(const float* vals, const int* cols,
                                const int* seg_len, const int* rank,
-                               const float* b, float* out, long long nb,
-                               int bk, int n, int atomic_out, int vec4,
+                               const float* b, float* out, long long batch,
+                               long long nb, int bk, int n,
+                               long long vals_bs, long long cols_bs,
+                               long long len_bs, long long rank_bs,
+                               long long b_bs, long long out_bs,
+                               int atomic_out, int vec4,
                                cudaStream_t stream) {
-  if (nb <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  if (batch <= 0 || nb <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   // The tile: all of n up to kTileCols, in whole warps.
   const int nt = min(kTileCols, (n + 31) / 32 * 32);
   const size_t smem = sizeof(float) * kStages * stage_floats(nt);
-  const int vals16 =
-      bk % 4 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0;
-  const dim3 grid(static_cast<unsigned>(nb), (n + nt - 1) / nt);
+  const int vals16 = bk % 4 == 0 && vals_bs % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(vals) % 16 == 0;
   auto kernel = vec4 ? spmm_mxu_kernel<true> : spmm_mxu_kernel<false>;
   if (smem > 48 * 1024) {  // two stages of 128 columns take 36 KB
     const cudaError_t err = cudaFuncSetAttribute(
@@ -239,7 +266,20 @@ extern "C" int spmm_mxu_launch(const float* vals, const int* cols,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<grid, nt, smem, stream>>>(vals, cols, seg_len, rank, b, out, bk, n,
-                                     atomic_out, vals16);
-  return static_cast<int>(cudaGetLastError());
+  for (long long z0 = 0; z0 < batch; z0 += libra::kMaxBatch) {
+    const int nz = libra::batch_chunk(batch, z0);
+    Operands ops;
+    for (int i = 0; i < nz; ++i) {
+      const long long z = z0 + i;
+      ops.vals[i] = vals + z * vals_bs, ops.cols[i] = cols + z * cols_bs;
+      ops.seg_len[i] = seg_len + z * len_bs;
+      ops.rank[i] = rank + z * rank_bs;
+      ops.b[i] = b + z * b_bs, ops.out[i] = out + z * out_bs;
+    }
+    const dim3 grid(static_cast<unsigned>(nb), (n + nt - 1) / nt, nz);
+    kernel<<<grid, nt, smem, stream>>>(ops, bk, n, atomic_out, vals16);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }

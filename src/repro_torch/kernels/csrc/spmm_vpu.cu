@@ -32,6 +32,12 @@
 //   independent B loads (L2 only) before it consumes any. Small blocks
 //   and few loads a lane measured fastest: the L2, not the number of
 //   loads in flight, sets the pace once a slice is resident.
+// - A batch axis (a panel stack, a partition's shards): blockIdx.y picks
+//   the batch element, whose operand bases the launcher computes from the
+//   batch strides (0 shares an operand) into the kernel's parameter
+//   table (libra::kMaxBatch). Each element runs the single launch's grid,
+//   slice-major, so a slice of its B stays in L2 while it runs; the
+//   single launch is the batch of one.
 // FP32 FMA, summed in slot order; the partials are written once, with
 // streaming stores.
 #include "common.cuh"
@@ -58,12 +64,25 @@ __device__ __forceinline__ Row<kV> gather(const float* p) {
   return r;
 }
 
+// The operands of the batch elements of one launch.
+struct Operands {
+  const float* vals[libra::kMaxBatch];
+  const int* cols[libra::kMaxBatch];
+  const int* row_len[libra::kMaxBatch];
+  const float* b[libra::kMaxBatch];
+  float* out[libra::kMaxBatch];
+};
+
 template <int kV>
 __global__ void __launch_bounds__(kWarps * 32)
-spmm_vpu_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
-                const int* __restrict__ row_len, const float* __restrict__ b,
-                float* __restrict__ out, long long ntiles, int width, int n,
-                int slice_cols, long long blocks_per_slice) {
+spmm_vpu_kernel(const __grid_constant__ Operands ops, long long ntiles,
+                int width, int n, int slice_cols, long long blocks_per_slice) {
+  const int z = blockIdx.y;  // the batch element
+  const float* __restrict__ vals = ops.vals[z];
+  const int* __restrict__ cols = ops.cols[z];
+  const int* __restrict__ row_len = ops.row_len[z];
+  const float* __restrict__ b = ops.b[z];
+  float* __restrict__ out = ops.out[z];
   const int group = slice_cols / kV;  // lanes per row, <= 32
   const int per_warp = 32 / group;    // rows per warp
   const int lane = threadIdx.x & 31;
@@ -133,28 +152,40 @@ spmm_vpu_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
 
 }  // namespace
 
+// Strides (*_bs, in elements) step from one batch element's operand to
+// the next; 0 shares the operand.
 extern "C" int spmm_vpu_launch(const float* vals, const int* cols,
                                const int* row_len, const float* b, float* out,
-                               long long ntiles, int width, int n,
-                               int slice_cols, int vec4, cudaStream_t stream) {
+                               long long batch, long long ntiles, int width,
+                               int n, long long vals_bs, long long cols_bs,
+                               long long len_bs, long long b_bs,
+                               long long out_bs, int slice_cols, int vec4,
+                               cudaStream_t stream) {
   const int v = vec4 ? 4 : 1;
   if (slice_cols <= 0 || slice_cols % v != 0 || slice_cols / v > 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (batch <= 0 || ntiles <= 0) return static_cast<int>(cudaSuccess);
   const int per_warp = 32 / (slice_cols / v);
   const long long rows_per_block = static_cast<long long>(kWarps) * per_warp;
   const long long blocks_per_slice =
       (ntiles + rows_per_block - 1) / rows_per_block;
   const long long slices = (n + slice_cols - 1) / slice_cols;
-  const unsigned blocks = static_cast<unsigned>(blocks_per_slice * slices);
-  if (vec4) {
-    spmm_vpu_kernel<4><<<blocks, kWarps * 32, 0, stream>>>(
-        vals, cols, row_len, b, out, ntiles, width, n, slice_cols,
-        blocks_per_slice);
-  } else {
-    spmm_vpu_kernel<1><<<blocks, kWarps * 32, 0, stream>>>(
-        vals, cols, row_len, b, out, ntiles, width, n, slice_cols,
-        blocks_per_slice);
+  auto kernel = vec4 ? spmm_vpu_kernel<4> : spmm_vpu_kernel<1>;
+  for (long long z0 = 0; z0 < batch; z0 += libra::kMaxBatch) {
+    const int nz = libra::batch_chunk(batch, z0);
+    Operands ops;
+    for (int i = 0; i < nz; ++i) {
+      const long long z = z0 + i;
+      ops.vals[i] = vals + z * vals_bs, ops.cols[i] = cols + z * cols_bs;
+      ops.row_len[i] = row_len + z * len_bs, ops.b[i] = b + z * b_bs;
+      ops.out[i] = out + z * out_bs;
+    }
+    const dim3 grid(static_cast<unsigned>(blocks_per_slice * slices), nz);
+    kernel<<<grid, kWarps * 32, 0, stream>>>(ops, ntiles, width, n,
+                                             slice_cols, blocks_per_slice);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
 }

@@ -16,12 +16,19 @@ The combine stays outside the kernels, as in the reference package: one
 add is a store in effect; atomic ones (decomposed windows/rows, windows
 shared by both streams) accumulate.
 
-The ``*_apply_stack`` forms apply one plan to a stack of panels, the
-serving shape; :func:`apply_at` runs an operator's apply and counts its
-keys.
+On the kernel path the applies also take a batch: dense operands with a
+leading batch axis, and tables that are shared by the batch or carry
+one of their own. Each kernel then launches once for the whole batch
+(the reference's ``vmap`` of the apply, a batch grid axis on the TPU)
+and one combine covers every element, each element's result bit for
+bit its single apply's. The ``*_apply_stack`` forms apply one plan to
+a stack of panels this way, the serving shape;
+:mod:`repro_torch.dist.sparse` applies the shards of one card this way.
+:func:`apply_at` runs an operator's apply and counts its keys.
 """
 from __future__ import annotations
 
+import math
 import time
 
 import torch
@@ -120,25 +127,43 @@ def apply_at(seen: set, key, device: torch.device, fn, *args,
             sp.close()
 
 
+def _add_rows(rows: torch.Tensor, data: torch.Tensor,
+              height: int) -> torch.Tensor:
+    """The SpMM combine: ``data``'s rows ``(..., R, n)`` added into a
+    zeroed ``(..., height, n)`` output at ``rows`` (``(R,)``, or one set
+    an element of a batch) by one ``index_add_``, each batch element's
+    rows offset by its height."""
+    *lead, r, n = data.shape
+    batch = math.prod(lead)
+    idx = rows.long().reshape(-1, r)
+    idx = idx + torch.arange(batch, device=idx.device)[:, None] * height
+    out = torch.zeros((batch * height, n), dtype=torch.float32,
+                      device=data.device)
+    out.index_add_(0, idx.reshape(-1), data.reshape(batch * r, n))
+    return out.view(*lead, height, n)
+
+
 def spmm_apply(arrs, b: torch.Tensor, *, m: int, nwin: int,
                backend: str = "cuda") -> torch.Tensor:
-    """Hybrid SpMM: ``C[m, n] = A_sp @ B`` from a preprocessed plan."""
+    """Hybrid SpMM: ``C[m, n] = A_sp @ B`` from a preprocessed plan.
+
+    On the kernel path ``b`` may be a ``(batch, k, n)`` stack (see the
+    module docstring): ``(batch, m, n)``, K1 and K2 once each."""
     if backend == "torch":
         return ref.spmm_hybrid_ref(arrs, b, m, nwin)
     if backend != "cuda":
         raise ValueError(f"unknown backend {backend!r}")
-    n0 = b.shape[1]
     if "tc_seg_vals" in arrs:
         # Segment-granular launch (§4.3 Ts): one segment of ≤ ts blocks
         # of one window per thread block, each with its own output slab;
         # the kernel reads each segment's real vectors (``tc_len``).
-        nseg = arrs["tc_seg_rank"].shape[0]
+        nseg = arrs["tc_seg_rank"].shape[-1]
         tc = spmm_mxu(arrs["tc_seg_vals"], arrs["tc_seg_cols"],
                       arrs["tc_seg_rank"], b, n_active=nseg,
                       unique_ranks=True, seg_len=arrs.get("tc_len"))
         tc_rows = arrs["tc_seg_row"]
     else:
-        n_active = arrs["tc_active_row"].shape[0] // WINDOW
+        n_active = arrs["tc_active_row"].shape[-1] // WINDOW
         tc = spmm_mxu(arrs["tc_vals"], arrs["tc_cols"], arrs["tc_rank"], b,
                       n_active=n_active, seg_len=arrs.get("tc_len"))
         tc_rows = arrs["tc_active_row"]
@@ -151,18 +176,19 @@ def spmm_apply(arrs, b: torch.Tensor, *, m: int, nwin: int,
     vpu_rows = arrs[f"vpu{seg}_row"]
     # Combine: one scatter-add of both streams' partials into a zeroed C
     # (rows ≥ m from the padded last window are sliced off).
-    rows = torch.cat([tc_rows, vpu_rows]).long()
-    data = torch.cat([tc, partials])
-    out = torch.zeros((nwin * WINDOW, n0), dtype=torch.float32,
-                      device=b.device)
-    out.index_add_(0, rows, data)
-    return out[:m, :n0]
+    rows = torch.cat([tc_rows.expand(*tc.shape[:-2], -1),
+                      vpu_rows.expand(*partials.shape[:-2], -1)], -1)
+    out = _add_rows(rows, torch.cat([tc, partials], -2), nwin * WINDOW)
+    return out[..., :m, :]
 
 
 def sddmm_apply(arrs, x: torch.Tensor, y: torch.Tensor, *, nnz: int,
                 backend: str = "cuda") -> torch.Tensor:
     """Hybrid SDDMM: ``values[nnz] = sample(X @ Yᵀ)`` in canonical CSR
-    order."""
+    order.
+
+    On the kernel path ``x``/``y`` may be ``(batch, rows, kf)`` stacks
+    (see the module docstring): ``(batch, nnz)``, K3 and K4 once each."""
     if backend == "torch":
         return ref.sddmm_hybrid_ref(arrs, x, y, nnz)
     if backend != "cuda":
@@ -197,31 +223,36 @@ def spmm_apply_stack(arrs, b_stack: torch.Tensor, *, m: int, nwin: int,
     """Panel-stack hybrid SpMM: one plan over a ``(batch, k, n)`` stack.
 
     The serving-shape primitive: a graph's plan is the amortized asset,
-    requests arrive as feature panels. Each panel runs the single apply
-    (on the card, the same kernels panel by panel), so every panel's
-    result is bit for bit the single apply's. ``edge_vals`` — optional
-    ``(batch, nnz)`` canonical per-panel values — revalues the plan per
-    panel (``arrs`` then holds the position maps, ``for_backend(...,
-    revalue=True)``): the attention-serving path, pattern shared and
-    values per request.
+    requests arrive as feature panels. On the kernel path the stack is
+    one launch of K1 and one of K2 over the plan's tables, and one
+    combine; every panel's result is bit for bit its single apply's.
+    ``edge_vals`` — optional ``(batch, nnz)`` canonical per-panel values
+    — revalues the plan per panel (``arrs`` then holds the position maps,
+    ``for_backend(..., revalue=True)``) by one gather over the position
+    maps: the attention-serving path, pattern shared and values per
+    request. ``backend="torch"`` runs the plain path panel by panel.
     """
-    outs = []
-    for i in range(b_stack.shape[0]):
-        a_i = (arrs if edge_vals is None
-               else ref.revalue_spmm_arrays(arrs, edge_vals[i]))
-        outs.append(spmm_apply(a_i, b_stack[i], m=m, nwin=nwin,
-                               backend=backend))
-    if not outs:
+    if b_stack.shape[0] == 0:
         return b_stack.new_zeros((0, m, b_stack.shape[2]))
-    return torch.stack(outs)
+    if backend == "torch":
+        return torch.stack([
+            spmm_apply(arrs if edge_vals is None
+                       else ref.revalue_spmm_arrays(arrs, edge_vals[i]),
+                       b, m=m, nwin=nwin, backend=backend)
+            for i, b in enumerate(b_stack)])
+    if edge_vals is not None:
+        arrs = ref.revalue_spmm_arrays(arrs, edge_vals)
+    return spmm_apply(arrs, b_stack, m=m, nwin=nwin, backend=backend)
 
 
 def sddmm_apply_stack(arrs, x_stack: torch.Tensor, y_stack: torch.Tensor,
                       *, nnz: int, backend: str = "cuda") -> torch.Tensor:
     """Panel-stack hybrid SDDMM: ``(batch, m, kf) × (batch, k, kf) →
-    (batch, nnz)``, panel by panel (see :func:`spmm_apply_stack`)."""
-    outs = [sddmm_apply(arrs, x, y, nnz=nnz, backend=backend)
-            for x, y in zip(x_stack, y_stack)]
-    if not outs:
+    (batch, nnz)``; on the kernel path one launch of K3 and one of K4
+    (see :func:`spmm_apply_stack`)."""
+    if x_stack.shape[0] == 0:
         return x_stack.new_zeros((0, nnz))
-    return torch.stack(outs)
+    if backend == "torch":
+        return torch.stack([sddmm_apply(arrs, x, y, nnz=nnz, backend=backend)
+                            for x, y in zip(x_stack, y_stack)])
+    return sddmm_apply(arrs, x_stack, y_stack, nnz=nnz, backend=backend)

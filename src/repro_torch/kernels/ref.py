@@ -16,6 +16,8 @@ arithmetic of any output element.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -30,6 +32,19 @@ def chunks(n_units: int, elems_per_unit: int):
     step = max(1, CHUNK_ELEMS // max(elems_per_unit, 1))
     for lo in range(0, n_units, step):
         yield slice(lo, min(lo + step, n_units))
+
+
+def over_batch(fn, *operands):
+    """The plain form of a batched launch: ``fn`` once a batch element,
+    the results stacked. Each operand is ``(tensor, ndim)``; a tensor
+    with ``ndim + 1`` dims is taken one element at a time, one with
+    ``ndim`` is shared by every element."""
+    batch = {t.shape[0] for t, nd in operands if t.dim() == nd + 1}
+    if len(batch) != 1:
+        raise ValueError(f"operands disagree on the batch: {sorted(batch)}")
+    return torch.stack([fn(*(t[i] if t.dim() == nd + 1 else t
+                             for t, nd in operands))
+                        for i in range(batch.pop())])
 
 
 def spmm_tc_compact_ref(tc_vals, tc_cols, tc_rank, b, n_active):
@@ -132,23 +147,37 @@ def sddmm_hybrid_ref(arrs, x, y, nnz):
 def scatter_scores(s_tc, tc_pos, s_el, el_pos, el_mask, nnz):
     """The SDDMM combine: both streams' scores into the canonical
     ``(nnz,)`` vector by one ``index_add_`` (slot ``nnz`` swallows the
-    −1 / masked padding)."""
-    pos_tc = torch.where(tc_pos >= 0, tc_pos, nnz)
-    pos_el = torch.where(el_mask, el_pos, nnz)
-    pos = torch.cat([pos_tc.reshape(-1), pos_el.reshape(-1)]).long()
-    data = torch.cat([s_tc.reshape(-1), s_el.reshape(-1)])
-    out = torch.zeros((nnz + 1,), dtype=torch.float32, device=data.device)
-    return out.index_add_(0, pos, data)[:nnz]
+    −1 / masked padding). Scores with a leading batch axis (``s_tc``
+    ``(batch, nb, 8, bk)``, ``s_el`` ``(batch, nt, ts)``; the position
+    maps shared or one set an element) give ``(batch, nnz)``: the same
+    ``index_add_`` into ``(batch, nnz + 1)``, each element's positions
+    offset by its row."""
+    lead = s_tc.shape[:-3]
+    batch = math.prod(lead)
+    pos_tc = torch.where(tc_pos >= 0, tc_pos, nnz).expand(s_tc.shape)
+    pos_el = torch.where(el_mask, el_pos, nnz).expand(s_el.shape)
+    pos = torch.cat([pos_tc.reshape(batch, -1), pos_el.reshape(batch, -1)],
+                    1).long()
+    pos += torch.arange(batch, device=pos.device)[:, None] * (nnz + 1)
+    data = torch.cat([s_tc.reshape(batch, -1), s_el.reshape(batch, -1)], 1)
+    out = torch.zeros((batch * (nnz + 1),), dtype=torch.float32,
+                      device=data.device)
+    out.index_add_(0, pos.reshape(-1), data.reshape(-1))
+    return out.view(batch, nnz + 1)[:, :nnz].reshape(*lead, nnz)
 
 
 def revalue_spmm_arrays(arrs, edge_vals):
     """Rebuild plan value tensors from a runtime per-edge value vector
     (canonical CSR nnz order). The sparsity pattern, and so the whole
-    plan, is fixed; only values change (e.g. GNN attention weights)."""
-    src = edge_vals if edge_vals.numel() else edge_vals.new_zeros(1)
+    plan, is fixed; only values change (e.g. GNN attention weights).
+    A ``(batch, nnz)`` stack of value vectors gives every value tensor a
+    leading batch axis, one gather ``edge_vals[:, pos]`` a table: the
+    per-panel tables of a stack apply."""
+    src = edge_vals if edge_vals.shape[-1] else edge_vals.new_zeros(
+        (*edge_vals.shape[:-1], 1))
 
     def from_pos(pos):
-        return torch.where(pos >= 0, src[pos.clamp(min=0).long()],
+        return torch.where(pos >= 0, src[..., pos.clamp(min=0).long()],
                            0.0).to(torch.float32)
 
     out = dict(arrs)

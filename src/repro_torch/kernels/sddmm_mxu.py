@@ -7,7 +7,8 @@ Cores. The CUDA kernel (``csrc/sddmm_mxu.cu``) computes
 paper's Bit-Decoding (``(bitmap[j] >> r) & 1``) in registers. It gathers
 only the Y rows of columns whose bitmap is non-zero, staged by
 ``cp.async``, over feature slices of Y small enough to stay in L2
-(:func:`slice_feats`), one launch a slice.
+(:func:`slice_feats`), one launch a slice. A batch of dense operands (a
+panel stack, a partition's shards) runs with a batch grid axis.
 
 :func:`sddmm_mxu` launches the kernel for CUDA tensors and runs
 :func:`repro_torch.kernels.ref.sddmm_tc_ref`, its plain fp32
@@ -34,7 +35,8 @@ def slice_feats(k: int, kf: int) -> int:
 
 
 def sddmm_mxu(tc_cols, tc_bitmap, tc_window, x, y):
-    """Bitmap-sampled block scores, shape ``(nb, 8, bk)``.
+    """Bitmap-sampled block scores, shape ``(nb, 8, bk)``, or ``(batch,
+    nb, 8, bk)`` for a batch.
 
     Args:
       tc_cols: (nb, bk) i32 column (row of Y) of each condensed vector.
@@ -42,36 +44,51 @@ def sddmm_mxu(tc_cols, tc_bitmap, tc_window, x, y):
       tc_window: (nb,) i32 window (row-block) ids.
       x: (mrows, kf) f32 dense rows; window rows past ``mrows`` read as 0.
       y: (kcols, kf) f32 dense rows.
+
+    ``x`` and ``y`` may carry a leading batch axis ``(batch, rows, kf)``:
+    one launch (a feature slice) for the whole batch, the TPU kernel's
+    vmapped form; each table may then carry one too or be shared.
     """
+    batch = _build.batch_of(x, y)
     if _build.on_cpu(tc_cols, tc_bitmap, tc_window, x, y):
-        return ref.sddmm_tc_ref(tc_cols, tc_bitmap, tc_window, x, y)
+        if batch is None:
+            return ref.sddmm_tc_ref(tc_cols, tc_bitmap, tc_window, x, y)
+        return ref.over_batch(ref.sddmm_tc_ref, (tc_cols, 2),
+                              (tc_bitmap, 2), (tc_window, 1), (x, 2),
+                              (y, 2))
     dev = _build.check_operands(
         "sddmm_mxu", ("tc_cols", tc_cols, torch.int32, 2),
         ("tc_bitmap", tc_bitmap, torch.int32, 2),
         ("tc_window", tc_window, torch.int32, 1),
-        ("x", x, torch.float32, 2), ("y", y, torch.float32, 2))
-    nb, bk = tc_cols.shape
-    kf = x.shape[1]
-    if tc_bitmap.shape != tc_cols.shape or tuple(tc_window.shape) != (nb,) \
-            or y.shape[1] != kf:
+        ("x", x, torch.float32, 2), ("y", y, torch.float32, 2),
+        batch=batch)
+    nb, bk = tc_cols.shape[-2:]
+    mrows, kf = x.shape[-2:]
+    if tc_bitmap.shape[-2:] != tc_cols.shape[-2:] \
+            or tuple(tc_window.shape[-1:]) != (nb,) or y.shape[-1] != kf:
         raise ValueError(
             f"sddmm_mxu: shapes cols {tuple(tc_cols.shape)}, bitmap "
             f"{tuple(tc_bitmap.shape)}, window {tuple(tc_window.shape)}, "
             f"x {tuple(x.shape)}, y {tuple(y.shape)} disagree")
-    out = torch.empty((nb, WINDOW, bk), dtype=torch.float32, device=dev)
-    if nb == 0 or bk == 0:
+    lead = () if batch is None else (batch,)
+    out = torch.empty((*lead, nb, WINDOW, bk), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
         return out
     if kf == 0:
         return out.zero_()
     vec4 = kf % 4 == 0 and _build.aligned16(x, y)
     # A launch touches at most nb * bk rows of Y: a small table keeps
-    # its gathers in L2 at any width, and needs fewer launches.
-    width = slice_feats(min(y.shape[0], nb * bk), kf)
+    # its gathers in L2 at any width, and needs fewer launches. A batch
+    # element slices as its single launch does, so its sums are the same.
+    width = slice_feats(min(y.shape[-2], nb * bk), kf)
+    bs = _build.batch_stride
     with torch.cuda.device(dev):
         err = _build.library().sddmm_mxu_launch(
             tc_cols.data_ptr(), tc_bitmap.data_ptr(), tc_window.data_ptr(),
-            x.data_ptr(), y.data_ptr(), out.data_ptr(), nb, bk, kf,
-            x.shape[0], width, int(vec4),
+            x.data_ptr(), y.data_ptr(), out.data_ptr(), batch or 1, nb, bk,
+            kf, mrows, bs(tc_cols, 2), bs(tc_bitmap, 2), bs(tc_window, 1),
+            bs(x, 2), bs(y, 2), bs(out, 3), width, int(vec4),
             _build.stream_handle(dev))
     _build.check(err, "sddmm_mxu")
     sddmm_mxu.launches += 1

@@ -269,7 +269,8 @@ class GraphRegistry:
 
     def _account_entry(self, key: str, built: dict) -> None:
         """Attach byte accounting to an entry's operators: plan uploads
-        (each shard's, for sharded entries, under ``shard<p>/`` keys)
+        (a sharded entry's stacked tables, or each shard's under
+        ``shard<p>/`` keys on a spread mesh)
         stream into the ledger as they materialize, and uploads that
         already happened replay on attach."""
         if self.mem is None:
@@ -483,10 +484,14 @@ class GraphRegistry:
 
 def _plan_arrays(op) -> list[tuple[str, object]]:
     """``(key prefix, PlanArrays)`` of one registered operator: its plan's
-    for a batched op, one a shard for a sharded op."""
+    for a batched op; for a sharded op the stacked tables (unprefixed,
+    as the reference books them) when its shards share one device, else
+    one a shard."""
     shards = getattr(op, "arrays", None)
     if shards is None:
         return [("", op.op.arrays)]
+    if op.mesh.one_device:
+        return [("", shards[0])]
     return [(f"shard{p}/", arrays) for p, arrays in enumerate(shards)]
 
 

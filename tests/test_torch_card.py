@@ -931,6 +931,158 @@ def test_sddmm_operator_tensor_core_path_matches_plain(card, layout):
     assert torch.equal(got, op(x, y, backend="torch"))
 
 
+# ----------------------------------------- K1–K4's batched launches ---
+BATCH = 3
+
+
+def _tables(make, own):
+    """One table set shared by the batch, or BATCH sets stacked (each
+    element its own)."""
+    sets = [make() for _ in range(BATCH if own else 1)]
+    return [torch.stack(ts) if own else ts[0] for ts in zip(*sets)]
+
+
+def _el(t, ndim, i):
+    """Element ``i``'s operand: its slice, or the shared operand."""
+    return t[i] if t.dim() == ndim + 1 else t
+
+
+@pytest.mark.parametrize("tables", ["shared", "own"])
+@pytest.mark.parametrize("n", [256, 40, 37])
+def test_batched_spmm_kernels_equal_single_launches(card, n, tables):
+    """K1 (unique ranks) and K2 over a batch of three random fp32
+    operands, one launch each: every element's output equals the single
+    launch's bit for bit, with tables shared by the batch (a plan over a
+    panel stack) or each element's own (per-panel values, shards);
+    derived lengths agree with the tables'."""
+    gen = torch.Generator().manual_seed(n)
+    own = tables == "own"
+    k, nb = 5000, 700
+    vals, cols, lens = (t.to(card) for t in _tables(
+        lambda: _tc_table(gen, k, nb, 128, integers=False), own))
+    rank = _tables(lambda: (torch.randperm(nb, generator=gen).to(
+        torch.int32),), own)[0].to(card)
+    b = torch.randn(BATCH, k, n, generator=gen).to(card)
+    before = kernels.spmm_mxu.launches
+    out = kernels.spmm_mxu(vals, cols, rank, b, n_active=nb,
+                           unique_ranks=True, seg_len=lens)
+    assert kernels.spmm_mxu.launches == before + 1
+    assert out.shape == (BATCH, nb * 8, n)
+    assert torch.equal(out, kernels.spmm_mxu(vals, cols, rank, b,
+                                             n_active=nb, unique_ranks=True))
+    for i in range(BATCH):
+        one = kernels.spmm_mxu(_el(vals, 3, i), _el(cols, 2, i),
+                               _el(rank, 1, i), b[i], n_active=nb,
+                               unique_ranks=True, seg_len=_el(lens, 1, i))
+        assert torch.equal(out[i], one), i
+    v2, c2, l2 = (t.to(card) for t in _tables(
+        lambda: _seg_table(gen, k, 900, integers=False), own))
+    before = kernels.spmm_vpu.launches
+    out = kernels.spmm_vpu(v2, c2, b, seg_len=l2)
+    assert kernels.spmm_vpu.launches == before + 1
+    assert torch.equal(out, kernels.spmm_vpu(v2, c2, b))
+    for i in range(BATCH):
+        one = kernels.spmm_vpu(_el(v2, 2, i), _el(c2, 2, i), b[i],
+                               seg_len=_el(l2, 1, i))
+        assert torch.equal(out[i], one), i
+
+
+@pytest.mark.parametrize("tables", ["shared", "own"])
+def test_batched_spmm_mxu_shared_ranks_add_atomically(card, tables):
+    """K1 with shared ranks (the compact tables) over a batch: each
+    element's atomic adds land in its own output, exactly as the single
+    launch's on integer data."""
+    gen = torch.Generator().manual_seed(3)
+    own = tables == "own"
+    vals, cols, lens = (t.to(card) for t in _tables(
+        lambda: _tc_table(gen, 5000, 700, 48, integers=True), own))
+    rank = _tables(lambda: (torch.randint(0, 200, (700,), generator=gen,
+                                          dtype=torch.int32),), own)[0]
+    b = _data(gen, True, BATCH, 5000, 40).to(card)
+    out = kernels.spmm_mxu(vals, cols, rank.to(card), b, n_active=200,
+                           seg_len=lens)
+    for i in range(BATCH):
+        assert torch.equal(out[i], kernels.spmm_mxu(
+            _el(vals, 3, i), _el(cols, 2, i), _el(rank, 1, i).to(card),
+            b[i], n_active=200, seg_len=_el(lens, 1, i))), i
+
+
+@pytest.mark.parametrize("tables", ["shared", "own"])
+@pytest.mark.parametrize("kf", [128, 30])
+def test_batched_sddmm_kernels_equal_single_launches(card, kf, tables):
+    """K3 and K4 over a batch of three random fp32 operands, one launch
+    each (feature slices inside it): every element's scores equal the
+    single launch's bit for bit. Y has enough rows that kf = 128 is cut
+    into two slices; with shared tables X is shared too (stride 0)."""
+    gen = torch.Generator().manual_seed(kf)
+    own = tables == "own"
+    m = 3001
+    cols, bits, window = (t.to(card) for t in _tables(
+        lambda: _sddmm_table(gen, K_BIG, m, 3000, 32, one_bit=True), own))
+    x = torch.randn(*((BATCH,) if own else ()), m, kf,
+                    generator=gen).to(card)
+    y = torch.randn(BATCH, K_BIG, kf, generator=gen).to(card)
+    before = kernels.sddmm_mxu.launches
+    out = kernels.sddmm_mxu(cols, bits, window, x, y)
+    assert kernels.sddmm_mxu.launches == before + 1
+    assert out.shape == (BATCH, 3000, 8, 32)
+    for i in range(BATCH):
+        one = kernels.sddmm_mxu(_el(cols, 2, i), _el(bits, 2, i),
+                                _el(window, 1, i), _el(x, 2, i), y[i])
+        assert torch.equal(out[i], one), i
+    rows, ecols = _tables(lambda: (
+        torch.randint(0, m, (500, 64), generator=gen, dtype=torch.int32),
+        torch.randint(0, K_BIG, (500, 64), generator=gen,
+                      dtype=torch.int32)), own)
+    rows, ecols = rows.to(card), ecols.to(card)
+    before = kernels.sddmm_vpu.launches
+    out = kernels.sddmm_vpu(rows, ecols, x, y)
+    assert kernels.sddmm_vpu.launches == before + 1
+    assert out.shape == (BATCH, 500, 64)
+    for i in range(BATCH):
+        one = kernels.sddmm_vpu(_el(rows, 2, i), _el(ecols, 2, i),
+                                _el(x, 2, i), y[i])
+        assert torch.equal(out[i], one), i
+
+
+def test_batched_launches_past_one_parameter_table(card):
+    """A batch of 70 elements, more than one launch's table of 64
+    (``libra::kMaxBatch``): the launcher covers it with two launches, and
+    every element of K1–K4 equals its single launch bit for bit on
+    random fp32."""
+    gen = torch.Generator().manual_seed(70)
+    p = 70
+    vals, cols, lens = (t.to(card) for t in _tc_table(
+        gen, 500, 40, 48, integers=False))
+    rank = torch.randperm(40, generator=gen).to(torch.int32).to(card)
+    b = torch.randn(p, 500, 40, generator=gen).to(card)
+    out = kernels.spmm_mxu(vals, cols, rank, b, n_active=40,
+                           unique_ranks=True, seg_len=lens)
+    v2, c2, l2 = (t.to(card) for t in _seg_table(gen, 500, 60,
+                                                  integers=False))
+    out2 = kernels.spmm_vpu(v2, c2, b, seg_len=l2)
+    cols3, bits, window = (t.to(card) for t in _sddmm_table(
+        gen, 500, 200, 30, 32))
+    x = torch.randn(p, 200, 36, generator=gen).to(card)
+    y = torch.randn(p, 500, 36, generator=gen).to(card)
+    out3 = kernels.sddmm_mxu(cols3, bits, window, x, y)
+    rows4 = torch.randint(0, 200, (20, 32), generator=gen,
+                          dtype=torch.int32).to(card)
+    cols4 = torch.randint(0, 500, (20, 32), generator=gen,
+                          dtype=torch.int32).to(card)
+    out4 = kernels.sddmm_vpu(rows4, cols4, x, y)
+    for i in range(p):
+        assert torch.equal(out[i], kernels.spmm_mxu(
+            vals, cols, rank, b[i], n_active=40, unique_ranks=True,
+            seg_len=lens)), i
+        assert torch.equal(out2[i], kernels.spmm_vpu(v2, c2, b[i],
+                                                     seg_len=l2)), i
+        assert torch.equal(out3[i], kernels.sddmm_mxu(cols3, bits, window,
+                                                      x[i], y[i])), i
+        assert torch.equal(out4[i], kernels.sddmm_vpu(rows4, cols4, x[i],
+                                                      y[i])), i
+
+
 def _training_graph(card, reorder, backend="cuda"):
     """A shuffled power-law graph (rows permuted, so reordering has
     windows to densify) with non-zero integer edge values, and a config
@@ -1112,8 +1264,9 @@ def _ints_on(rng, card, *shape):
 @pytest.mark.parametrize("revalued", [False, True],
                          ids=["plan_values", "edge_vals"])
 def test_stack_applies_match_looped_single_applies(card, revalued):
-    """``spmm_apply_stack``/``sddmm_apply_stack`` run K1–K4 panel by
-    panel: each panel equals its single apply bit for bit."""
+    """``spmm_apply_stack``/``sddmm_apply_stack`` launch K1–K4 once each
+    for the whole stack: each panel equals its single apply bit for
+    bit."""
     from repro_torch.kernels import ops
 
     a, rng, spmm, sddmm = _serving_ops(card)
@@ -1123,7 +1276,7 @@ def test_stack_applies_match_looped_single_applies(card, revalued):
     kernels.reset_launch_counts()
     got = ops.spmm_apply_stack(arrs, b, m=spmm.m, nwin=spmm.nwin,
                                edge_vals=ev)
-    assert kernels.spmm_mxu.launches == kernels.spmm_vpu.launches == 3
+    assert kernels.spmm_mxu.launches == kernels.spmm_vpu.launches == 1
     for i in range(3):
         t = arrs if ev is None else ref.revalue_spmm_arrays(arrs, ev[i])
         assert torch.equal(got[i], ops.spmm_apply(t, b[i], m=spmm.m,
@@ -1131,11 +1284,12 @@ def test_stack_applies_match_looped_single_applies(card, revalued):
     x = _ints_on(rng, card, 2, a.m, 64)
     y = _ints_on(rng, card, 2, a.k, 64)
     sd = sddmm.arrays.for_backend("cuda")
+    kernels.reset_launch_counts()
     got = ops.sddmm_apply_stack(sd, x, y, nnz=sddmm.nnz)
+    assert kernels.sddmm_mxu.launches == kernels.sddmm_vpu.launches == 1
     for i in range(2):
         assert torch.equal(got[i], ops.sddmm_apply(sd, x[i], y[i],
                                                    nnz=sddmm.nnz))
-    assert kernels.sddmm_mxu.launches >= 4 and kernels.sddmm_vpu.launches
 
 
 @pytest.mark.parametrize("budget", [None, 1024 * 32 * 4],
@@ -1295,8 +1449,8 @@ def test_padded_shard_segments_write_zeros(card, monkeypatch):
 @pytest.mark.parametrize("layout", ["replicated", "rowshard"])
 def test_sharded_applies_equal_single_device(card, layout):
     """``spmm_sharded``/``sddmm_sharded`` over 8 shards on the card equal
-    the single-device operators bit for bit on integer data, and every
-    shard launches K1–K4."""
+    the single-device operators bit for bit on integer data, with one
+    batched launch of each of K1–K4 an apply."""
     from repro_torch.dist import sddmm_sharded, spmm_sharded
 
     a, rng, spmm, sddmm, mesh, part, sd = _sharded_matrix(card)
@@ -1307,17 +1461,78 @@ def test_sharded_applies_equal_single_device(card, layout):
     got_ev = spmm_sharded(part, b, mesh=mesh, b_layout=layout, edge_vals=ev)
     got_sd = sddmm_sharded(sd, x, y, mesh=mesh, y_layout=layout)
     counts = kernels.launch_counts()
-    assert counts["spmm_mxu"] == counts["spmm_vpu"] == 16
-    assert counts["sddmm_mxu"] >= 8 and counts["sddmm_vpu"] >= 8
+    # The eight shards of one card apply as one batch: a launch a stream
+    # an apply.
+    assert counts["spmm_mxu"] == counts["spmm_vpu"] == 2
+    assert counts["sddmm_mxu"] == counts["sddmm_vpu"] == 1
     assert torch.equal(got, spmm(b))
     assert torch.equal(got_sd, sddmm(x, y))
     g = gnn.GraphOps(a, spec=spmm.spec)
     assert torch.equal(got_ev, g._a_apply(ev, b))
 
 
+@pytest.mark.parametrize("integers", [True, False], ids=["int", "rand"])
+@pytest.mark.parametrize("n_shards", [1, 3, 8])
+def test_one_card_shards_equal_the_shard_loop(card, n_shards, integers):
+    """The shards of one card as one batched apply against the shards
+    applied one by one through ``ops.spmm_apply``/``sddmm_apply``, bit
+    for bit (random fp32 under deterministic algorithms: the combines'
+    ``index_add_`` then adds in a fixed order)."""
+    from repro_torch.dist import (
+        ShardMesh,
+        partition_sddmm,
+        partition_spmm,
+        sddmm_sharded,
+        spmm_sharded,
+    )
+    from repro_torch.kernels import ops
+
+    a, rng, spmm, sddmm = _serving_ops(card)
+    part = partition_spmm(a, n_shards, spec=spmm.spec)
+    sd = partition_sddmm(a, n_shards, spec=sddmm.spec)
+    mesh = ShardMesh([card] * n_shards)
+    gen = torch.Generator().manual_seed(n_shards)
+    b, ev = (_data(gen, integers, *s).to(card) for s in ((a.k, 256),
+                                                           (a.nnz,)))
+    x, y = (_data(gen, integers, r, 128).to(card) for r in (a.m, a.k))
+    torch.use_deterministic_algorithms(True)
+    try:
+        kernels.reset_launch_counts()
+        got = spmm_sharded(part, b, mesh=mesh)
+        got_ev = spmm_sharded(part, b, mesh=mesh, edge_vals=ev)
+        got_sd = sddmm_sharded(sd, x, y, mesh=mesh)
+        counts = kernels.launch_counts()
+        assert counts["spmm_mxu"] == counts["spmm_vpu"] == 2, counts
+        assert counts["sddmm_mxu"] == counts["sddmm_vpu"] == 1, counts
+        outs, outs_ev, outs_sd = [], [], []
+        panels = x.index_select(0, sd.index("x_take", card)).split(
+            sd.rows_pad)
+        for p in range(n_shards):
+            arrs = part.arrays(p, card)
+            b_halo = b.index_select(0, arrs["halo"])
+            kw = dict(m=part.rows_pad, nwin=part.wmax)
+            outs.append(ops.spmm_apply(arrs.for_backend("cuda"), b_halo,
+                                       **kw))
+            outs_ev.append(ops.spmm_apply(ref.revalue_spmm_arrays(
+                arrs.for_backend("cuda", revalue=True), ev), b_halo, **kw))
+            arrs = sd.arrays(p, card)
+            outs_sd.append(ops.sddmm_apply(
+                arrs.for_backend("cuda"), panels[p],
+                y.index_select(0, arrs["halo"]), nnz=sd.nnz_pad))
+        gather = part.index("out_gather", card)
+        assert torch.equal(got, torch.cat(outs).index_select(0, gather))
+        assert torch.equal(got_ev,
+                           torch.cat(outs_ev).index_select(0, gather))
+        assert torch.equal(got_sd, torch.cat(outs_sd).index_select(
+            0, sd.index("nnz_gather", card)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def test_dist_graphops_training_step_matches_plain(card):
-    """One GCN SGD step through ``DistGraphOps`` (8 shards, K1–K4) against
-    the same partitions on the plain path, within TF32's tolerance."""
+    """One GCN SGD step through ``DistGraphOps`` (8 shards of one card,
+    batched launches of K1–K4) against the same partitions on the plain
+    path, within TF32's tolerance."""
     from repro_torch.dist import DistGraphOps, ShardMesh
 
     a = _training_graph(card, "off").a
@@ -1332,9 +1547,9 @@ def test_dist_graphops_training_step_matches_plain(card):
     kernels.reset_launch_counts()
     loss = gnn.train_step(models[0], g, x, labels, norm, lr=0.2)
     counts = kernels.launch_counts()
-    # Forward A and backward A^T, each layer and each shard (GCN's fixed
-    # edge values need no SDDMM).
-    assert counts["spmm_mxu"] == counts["spmm_vpu"] == 2 * 2 * 8
+    # Forward A and backward A^T, each layer, the eight shards of the card
+    # in one batched launch (GCN's fixed edge values need no SDDMM).
+    assert counts["spmm_mxu"] == counts["spmm_vpu"] == 2 * 2
     want = gnn.train_step(models[1], _plain(g), x, labels, norm, lr=0.2)
     _agree_tf32(loss, want, False)
     for p, q in zip(*(mdl.parameters() for mdl in models)):

@@ -117,6 +117,7 @@ def test_serving_entry_points_raise_without_a_card(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["ShardMesh", "partition_upload",
+                                   "partition_stacked_upload",
                                    "ShardedSpMM", "ShardedSDDMM",
                                    "DistGraphOps", "register_mesh",
                                    "explain_measure"])
@@ -133,6 +134,8 @@ def test_sharded_and_explain_entry_points_raise_without_a_card(
     calls = {
         "ShardMesh": lambda: ShardMesh.round_robin(2),
         "partition_upload": lambda: partition_spmm(a, 2, spec=cpu).arrays(0),
+        "partition_stacked_upload": lambda: partition_spmm(
+            a, 2, spec=cpu).stacked_arrays(),
         "ShardedSpMM": lambda: ShardedSpMM(a, ShardMesh.round_robin(2)),
         "ShardedSDDMM": lambda: ShardedSDDMM(a, ShardMesh.round_robin(2)),
         "DistGraphOps": lambda: DistGraphOps(a, ShardMesh.round_robin(2)),

@@ -157,10 +157,11 @@ def k1_call(lib, old, vals, cols, lens, rank, b, out):
         return lambda: lib.spmm_mxu_launch(
             vals.data_ptr(), cols.data_ptr(), rank.data_ptr(), b.data_ptr(),
             out.data_ptr(), nb, bk, n, 0, int(n % 4 == 0), stream())
+    # A batch of one: every batch stride 0.
     return lambda: lib.spmm_mxu_launch(
         vals.data_ptr(), cols.data_ptr(), lens.data_ptr(), rank.data_ptr(),
-        b.data_ptr(), out.data_ptr(), nb, bk, n, 0, int(n % 4 == 0),
-        stream())
+        b.data_ptr(), out.data_ptr(), 1, nb, bk, n, 0, 0, 0, 0, 0, 0, 0,
+        int(n % 4 == 0), stream())
 
 
 def k3_call(lib, old, cols, bits, window, x, y, out, w=None):
@@ -173,8 +174,8 @@ def k3_call(lib, old, cols, bits, window, x, y, out, w=None):
             x.shape[0], stream())
     return lambda: lib.sddmm_mxu_launch(
         cols.data_ptr(), bits.data_ptr(), window.data_ptr(), x.data_ptr(),
-        y.data_ptr(), out.data_ptr(), nb, bk, kf, x.shape[0], w,
-        int(kf % 4 == 0), stream())
+        y.data_ptr(), out.data_ptr(), 1, nb, bk, kf, x.shape[0],
+        0, 0, 0, 0, 0, 0, w, int(kf % 4 == 0), stream())
 
 
 def check(fn, out, want, label) -> int:

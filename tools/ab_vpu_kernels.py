@@ -156,9 +156,11 @@ def k2_call(lib, old, vals, cols, lens, b, out, w=None):
         return lambda: lib.spmm_vpu_launch(
             vals.data_ptr(), cols.data_ptr(), b.data_ptr(), out.data_ptr(),
             ntiles, ts, n, int(n % 4 == 0), stream())
+    # A batch of one: every batch stride 0.
     return lambda: lib.spmm_vpu_launch(
         vals.data_ptr(), cols.data_ptr(), lens.data_ptr(), b.data_ptr(),
-        out.data_ptr(), ntiles, ts, n, w, int(n % 4 == 0), stream())
+        out.data_ptr(), 1, ntiles, ts, n, 0, 0, 0, 0, 0, w,
+        int(n % 4 == 0), stream())
 
 
 def k4_call(lib, old, rows, cols, x, out, w=None):
@@ -169,7 +171,8 @@ def k4_call(lib, old, rows, cols, x, out, w=None):
             out.data_ptr(), nel, kf, int(kf % 4 == 0), stream())
     return lambda: lib.sddmm_vpu_launch(
         rows.data_ptr(), cols.data_ptr(), x.data_ptr(), x.data_ptr(),
-        out.data_ptr(), nel, kf, w, int(kf % 4 == 0), stream())
+        out.data_ptr(), 1, nel, kf, 0, 0, 0, 0, 0, w, int(kf % 4 == 0),
+        stream())
 
 
 def passes(cases):
