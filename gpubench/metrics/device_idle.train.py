@@ -1,0 +1,9 @@
+"""device_idle.train: the share of the profiled slice of a training
+window in which no operation ran on the card, in percent."""
+
+
+def read(rec):
+    t = rec.trace
+    if rec.mix["kind"] != "train" or not t or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
