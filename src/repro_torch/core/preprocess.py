@@ -27,6 +27,7 @@ from repro_torch.core.formats import (
     WINDOW,
 )
 from repro_torch.core.windows import extract_windows, num_windows
+from repro_torch.obs.trace import StageClock
 from repro_torch.reorder import (
     Reordering,
     apply_reorder,
@@ -581,6 +582,9 @@ def preprocess_spmm_loop(a: SparseCSR, threshold: int = DEFAULT_SPMM_THRESHOLD,
     return SpMMPlan(a.m, a.k, a.nnz, threshold, tc, vpu, meta)
 
 
+#: The stages of :meth:`Plan.build`, timed in ``plan.meta["build_s"]``.
+BUILD_STAGES = ("features", "reorder", "tune", "preprocess")
+
 #: Process-local reorder decisions for runs without a PlanCache,
 #: keyed like the cache entries (pattern signature + op + threshold).
 _REORDER_MEMO: dict[str, dict] = {}
@@ -605,7 +609,8 @@ def _put_reorder_decision(cache, key: str, doc: dict) -> None:
         pc.put_doc(key, doc)
 
 
-def _maybe_reorder(a: SparseCSR, *, op: str, spec, threshold: int, feat):
+def _maybe_reorder(a: SparseCSR, *, op: str, spec, threshold: int, feat,
+                   stages: StageClock | None = None):
     """Resolve ``spec.reorder`` for one build.
 
     Returns ``(a_eff, reord, report, feat_eff)``: the matrix to
@@ -623,23 +628,27 @@ def _maybe_reorder(a: SparseCSR, *, op: str, spec, threshold: int, feat):
     :data:`~repro_torch.reorder.MIN_TC_GAIN` — and keeps the decision
     under :func:`~repro_torch.tune.cache.reorder_key` in
     ``spec.tune_cache`` (or the process memo without one). A decline
-    cached before skips the sketch pass.
+    cached before skips the sketch pass. ``stages`` times the reordering
+    and its feature passes (``plan.reorder`` > ``plan.features``).
     """
     mode = spec.reorder
     if mode == "off" or a.nnz == 0 or a.m <= WINDOW:
         return a, None, {"mode": mode, "enabled": False}, feat
-    key = reorder_key(a, op=op, threshold=threshold)
-    if mode == "auto":
-        cached = _get_reorder_decision(spec.tune_cache, key)
-        if cached is not None and not cached.get("enabled"):
-            # Declined before for this pattern: skip the sketch pass.
-            return a, None, {"mode": mode, **cached}, feat
-    reord = reorder_rows(a)
-    a_r = apply_reorder(a, reord)
-    if feat is None:
-        feat = matrix_features(a)
-    feat_r = matrix_features(a_r)
-    gain = reorder_gain(feat, feat_r, threshold)
+    stages = StageClock() if stages is None else stages
+    with stages.stage("reorder"):
+        key = reorder_key(a, op=op, threshold=threshold)
+        if mode == "auto":
+            cached = _get_reorder_decision(spec.tune_cache, key)
+            if cached is not None and not cached.get("enabled"):
+                # Declined before for this pattern: skip the sketch pass.
+                return a, None, {"mode": mode, **cached}, feat
+        reord = reorder_rows(a)
+        a_r = apply_reorder(a, reord)
+        with stages.stage("features"):
+            if feat is None:
+                feat = matrix_features(a)
+            feat_r = matrix_features(a_r)
+        gain = reorder_gain(feat, feat_r, threshold)
     enabled = True if mode == "on" else decide_reorder(gain)
     report = {"mode": mode, "enabled": bool(enabled), **gain}
     if mode == "auto":
@@ -708,6 +717,12 @@ class Plan:
                ``index_select(0, reorder.row_inv)``; SDDMM callers gather
                X's rows with ``reorder.row_perm`` (outputs already land
                in original canonical order).
+
+    ``plan.meta["build_s"]`` holds the build's host seconds by stage:
+    ``features`` (the feature passes of the reorder pricing), ``reorder``,
+    ``tune`` (a feature pass the tuner makes itself included),
+    ``preprocess`` (with the position remap) and ``rest``; each is also
+    a ``plan.<stage>`` span under the build's ``plan.build``.
     """
 
     op: str
@@ -720,19 +735,32 @@ class Plan:
     @classmethod
     def build(cls, a: SparseCSR, op: str, spec=None, *,
               balance: BalanceParams | None = None, timer=None,
-              feat=None) -> "Plan":
+              feat=None, leg: str | None = None) -> "Plan":
         """Build the plan for ``op`` on ``a`` under ``spec``.
 
         ``balance`` (explicit §4.3 caps, overriding ``cfg.ts/cs``),
         ``timer`` (search timing hook) and ``feat`` (a precomputed
         ``matrix_features(a)``) are expert escape hatches forwarded to
-        the pipeline stages.
+        the pipeline stages. ``leg`` names the build on its span
+        (default ``"A"`` for SpMM, ``"SDDMM"`` for SDDMM).
         """
         from repro_torch.api import ExecSpec
 
         spec = ExecSpec() if spec is None else spec
         if op not in ("spmm", "sddmm"):
             raise ValueError(f"op must be 'spmm' or 'sddmm', got {op!r}")
+        leg = leg or ("A" if op == "spmm" else "SDDMM")
+        stages = StageClock()
+        with stages.stage("build", op=op, leg=leg):
+            built = cls._build(a, op, spec, balance, timer, feat, stages)
+        seconds = {k: stages.seconds.get(k, 0.0) for k in BUILD_STAGES}
+        seconds["rest"] = stages.seconds["build"]
+        built.plan.meta["build_s"] = seconds
+        return built
+
+    @classmethod
+    def _build(cls, a, op, spec, balance, timer, feat,
+               stages: StageClock) -> "Plan":
         mode = spec.mode
         forced = forced_threshold(op, spec)
         if op == "spmm":
@@ -741,27 +769,31 @@ class Plan:
             bk_eff = DEFAULT_BK_SDDMM if spec.bk is None else spec.bk
             guess = DEFAULT_SDDMM_THRESHOLD if forced is None else forced
         a_eff, reord, report, feat_eff = _maybe_reorder(
-            a, op=op, spec=spec, threshold=guess, feat=feat)
+            a, op=op, spec=spec, threshold=guess, feat=feat, stages=stages)
         tune_kw = dict(mode=mode, threshold=forced, tune=spec.tune,
                        backend=spec.tune_backend, cache=spec.tune_cache,
                        timer=timer, bk=spec.bk, ts_tile=spec.ts_tile,
                        feat=feat_eff, device=spec.device)
         if op == "spmm":
-            cfg = tune_spmm(a_eff, n=spec.tune_n, **tune_kw)
-            thr = threshold_for_mode_spmm(mode, cfg.threshold)
-            plan = preprocess_spmm(a_eff, thr, bk=spec.bk,
-                                   ts_tile=spec.ts_tile, balance=balance,
-                                   cfg=cfg)
-            if reord is not None:
-                plan = _remap_spmm_plan(plan, reord.nnz_perm)
+            with stages.stage("tune"):
+                cfg = tune_spmm(a_eff, n=spec.tune_n, **tune_kw)
+            with stages.stage("preprocess"):
+                thr = threshold_for_mode_spmm(mode, cfg.threshold)
+                plan = preprocess_spmm(a_eff, thr, bk=spec.bk,
+                                       ts_tile=spec.ts_tile,
+                                       balance=balance, cfg=cfg)
+                if reord is not None:
+                    plan = _remap_spmm_plan(plan, reord.nnz_perm)
         else:
-            cfg = tune_sddmm(a_eff, kf=spec.tune_kf, **tune_kw)
-            thr = threshold_for_mode_sddmm(mode, bk_eff, cfg.threshold)
-            plan = preprocess_sddmm(a_eff, thr, bk=spec.bk,
-                                    ts_tile=spec.ts_tile, balance=balance,
-                                    cfg=cfg)
-            if reord is not None:
-                plan = _remap_sddmm_plan(plan, reord.nnz_perm)
+            with stages.stage("tune"):
+                cfg = tune_sddmm(a_eff, kf=spec.tune_kf, **tune_kw)
+            with stages.stage("preprocess"):
+                thr = threshold_for_mode_sddmm(mode, bk_eff, cfg.threshold)
+                plan = preprocess_sddmm(a_eff, thr, bk=spec.bk,
+                                        ts_tile=spec.ts_tile,
+                                        balance=balance, cfg=cfg)
+                if reord is not None:
+                    plan = _remap_sddmm_plan(plan, reord.nnz_perm)
         plan.meta["reorder"] = report
         return cls(op=op, spec=spec, cfg=cfg, plan=plan, a=a_eff,
                    reorder=reord)

@@ -68,6 +68,7 @@ from repro_torch.kernels.ops import (
     spmm_apply,
     spmm_apply_stack,
 )
+from repro_torch.obs.trace import span
 
 SHARD_AXIS = "shards"
 
@@ -275,7 +276,8 @@ class BatchedSpMM:
             op.device, spmm_apply_stack, arrs, b_stack, m=op.m,
             nwin=op.nwin, backend=backend, edge_vals=edge_vals)
         if op._row_unperm is not None:   # reordered plan: restore rows
-            out = out.index_select(1, op._row_unperm)
+            with span("apply.permute"):
+                out = out.index_select(1, op._row_unperm)
         return out
 
 
@@ -299,7 +301,8 @@ class BatchedSDDMM:
             perm = torch.cat([perm, torch.arange(
                 op.m, x_stack.shape[1], device=perm.device)])
         if perm is not None:   # reordered plan: permute X's rows
-            x_stack = x_stack.index_select(1, perm)
+            with span("apply.permute"):
+                x_stack = x_stack.index_select(1, perm)
         return apply_at(
             self._cache,
             (tuple(x_stack.shape), tuple(y_stack.shape),

@@ -25,6 +25,13 @@ bit its single apply's. The ``*_apply_stack`` forms apply one plan to
 a stack of panels this way, the serving shape;
 :mod:`repro_torch.dist.sparse` applies the shards of one card this way.
 :func:`apply_at` runs an operator's apply and counts its keys.
+
+On the kernel path each apply opens spans
+(:mod:`repro_torch.obs.trace`): ``apply.tc`` (K1/K3), ``apply.cc``
+(K2/K4) and ``apply.combine`` (attribute ``op``: ``"spmm"`` or
+``"sddmm"``; the combine's zeros, masks, concatenations and
+``index_add_``), the combine on the device clock; a stack's
+revaluation is ``apply.revalue``.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from repro_torch.kernels.sddmm_mxu import sddmm_mxu
 from repro_torch.kernels.sddmm_vpu import sddmm_vpu
 from repro_torch.kernels.spmm_mxu import spmm_mxu
 from repro_torch.kernels.spmm_vpu import spmm_vpu
+from repro_torch.obs.trace import NULL_SPAN, get_tracer, span
 
 __all__ = ["ApplyError", "apply_at", "classify_apply_error",
            "sddmm_apply", "sddmm_apply_stack", "spmm_apply",
@@ -96,23 +104,24 @@ def apply_at(seen: set, key, device: torch.device, fn, *args,
     perf-ledger recording: it is timed from a synchronised card to
     ``torch.cuda.synchronize()`` after it (asynchronous launches would
     time the enqueue, not the kernels), and the wall seconds handed to
-    ``sample``. With the process tracer enabled the apply is a
-    ``kernels.execute`` span.
+    ``sample``. While the process tracer records, the apply is a
+    ``kernels.execute`` span: a profiler range around the apply's
+    kernels while the profiler records.
     """
-    from repro_torch.obs.trace import get_tracer
-
     tr = get_tracer()
+    active = tr.active
     if key not in seen:
         try:
-            with tr.span("kernels.compile", key=str(key)):
+            with (tr.span("kernels.compile", key=str(key)) if active
+                  else NULL_SPAN):
                 kernels_ready(backend, device)
         except Exception as exc:
             raise ApplyError("compile", key, exc) from exc
         seen.add(key)
-    if not tr.enabled and sample is None:
+    if not active and sample is None:
         return fn(*args, backend=backend, **kw)
     sp = tr.span("kernels.execute", key=str(key)).open() \
-        if tr.enabled else None
+        if active else None
     try:
         if sample is None:
             return fn(*args, backend=backend, **kw)
@@ -153,32 +162,36 @@ def spmm_apply(arrs, b: torch.Tensor, *, m: int, nwin: int,
         return ref.spmm_hybrid_ref(arrs, b, m, nwin)
     if backend != "cuda":
         raise ValueError(f"unknown backend {backend!r}")
-    if "tc_seg_vals" in arrs:
-        # Segment-granular launch (§4.3 Ts): one segment of ≤ ts blocks
-        # of one window per thread block, each with its own output slab;
-        # the kernel reads each segment's real vectors (``tc_len``).
-        nseg = arrs["tc_seg_rank"].shape[-1]
-        tc = spmm_mxu(arrs["tc_seg_vals"], arrs["tc_seg_cols"],
-                      arrs["tc_seg_rank"], b, n_active=nseg,
-                      unique_ranks=True, seg_len=arrs.get("tc_len"))
-        tc_rows = arrs["tc_seg_row"]
-    else:
-        n_active = arrs["tc_active_row"].shape[-1] // WINDOW
-        tc = spmm_mxu(arrs["tc_vals"], arrs["tc_cols"], arrs["tc_rank"], b,
-                      n_active=n_active, seg_len=arrs.get("tc_len"))
-        tc_rows = arrs["tc_active_row"]
+    with span("apply.tc"):
+        if "tc_seg_vals" in arrs:
+            # Segment-granular launch (§4.3 Ts): one segment of ≤ ts
+            # blocks of one window per thread block, each with its own
+            # output slab; the kernel reads each segment's real vectors
+            # (``tc_len``).
+            nseg = arrs["tc_seg_rank"].shape[-1]
+            tc = spmm_mxu(arrs["tc_seg_vals"], arrs["tc_seg_cols"],
+                          arrs["tc_seg_rank"], b, n_active=nseg,
+                          unique_ranks=True, seg_len=arrs.get("tc_len"))
+            tc_rows = arrs["tc_seg_row"]
+        else:
+            n_active = arrs["tc_active_row"].shape[-1] // WINDOW
+            tc = spmm_mxu(arrs["tc_vals"], arrs["tc_cols"], arrs["tc_rank"],
+                          b, n_active=n_active, seg_len=arrs.get("tc_len"))
+            tc_rows = arrs["tc_active_row"]
     # CUDA cores: §4.3 Cs row-segments of ≤ cs residual elements when the
     # plan has them, else tiles; the kernel reads each row's real prefix
     # (``vpu_len``).
-    seg = "_seg" if "vpu_seg_vals" in arrs else ""
-    partials = spmm_vpu(arrs[f"vpu{seg}_vals"], arrs[f"vpu{seg}_cols"], b,
-                        seg_len=arrs.get("vpu_len"))
-    vpu_rows = arrs[f"vpu{seg}_row"]
+    with span("apply.cc"):
+        seg = "_seg" if "vpu_seg_vals" in arrs else ""
+        partials = spmm_vpu(arrs[f"vpu{seg}_vals"], arrs[f"vpu{seg}_cols"],
+                            b, seg_len=arrs.get("vpu_len"))
+        vpu_rows = arrs[f"vpu{seg}_row"]
     # Combine: one scatter-add of both streams' partials into a zeroed C
     # (rows ≥ m from the padded last window are sliced off).
-    rows = torch.cat([tc_rows.expand(*tc.shape[:-2], -1),
-                      vpu_rows.expand(*partials.shape[:-2], -1)], -1)
-    out = _add_rows(rows, torch.cat([tc, partials], -2), nwin * WINDOW)
+    with span("apply.combine", b, op="spmm"):
+        rows = torch.cat([tc_rows.expand(*tc.shape[:-2], -1),
+                          vpu_rows.expand(*partials.shape[:-2], -1)], -1)
+        out = _add_rows(rows, torch.cat([tc, partials], -2), nwin * WINDOW)
     return out[..., :m, :]
 
 
@@ -193,28 +206,32 @@ def sddmm_apply(arrs, x: torch.Tensor, y: torch.Tensor, *, nnz: int,
         return ref.sddmm_hybrid_ref(arrs, x, y, nnz)
     if backend != "cuda":
         raise ValueError(f"unknown backend {backend!r}")
-    if "tc_seg_cols" in arrs:
-        # §4.3 Ts: one thread block scores a segment of ≤ ts blocks
-        # sharing a window (zero-bitmap padding samples to zero and its
-        # out_pos −1 lands in the swallow slot).
-        s_tc = sddmm_mxu(arrs["tc_seg_cols"], arrs["tc_seg_bitmap"],
-                         arrs["tc_seg_window"], x, y)
-        tc_pos = arrs["tc_seg_out_pos"]
-    else:
-        s_tc = sddmm_mxu(arrs["tc_cols"], arrs["tc_bitmap"],
-                         arrs["tc_window"], x, y)
-        tc_pos = arrs["tc_out_pos"]
-    if "vpu_seg_rows" in arrs:
-        # The Cs cap batches whole element tiles per segment.
-        el_mask = arrs["vpu_seg_mask"]
-        s_el = sddmm_vpu(arrs["vpu_seg_rows"], arrs["vpu_seg_cols"], x, y)
-        el_pos = arrs["vpu_seg_out_pos"]
-    else:
-        el_mask = arrs["vpu_mask"]
-        s_el = sddmm_vpu(arrs["vpu_rows"], arrs["vpu_cols"], x, y)
-        el_pos = arrs["vpu_out_pos"]
-    s_el = torch.where(el_mask, s_el, 0.0)
-    return ref.scatter_scores(s_tc, tc_pos, s_el, el_pos, el_mask, nnz)
+    with span("apply.tc"):
+        if "tc_seg_cols" in arrs:
+            # §4.3 Ts: one thread block scores a segment of ≤ ts blocks
+            # sharing a window (zero-bitmap padding samples to zero and
+            # its out_pos −1 lands in the swallow slot).
+            s_tc = sddmm_mxu(arrs["tc_seg_cols"], arrs["tc_seg_bitmap"],
+                             arrs["tc_seg_window"], x, y)
+            tc_pos = arrs["tc_seg_out_pos"]
+        else:
+            s_tc = sddmm_mxu(arrs["tc_cols"], arrs["tc_bitmap"],
+                             arrs["tc_window"], x, y)
+            tc_pos = arrs["tc_out_pos"]
+    with span("apply.cc"):
+        if "vpu_seg_rows" in arrs:
+            # The Cs cap batches whole element tiles per segment.
+            el_mask = arrs["vpu_seg_mask"]
+            s_el = sddmm_vpu(arrs["vpu_seg_rows"], arrs["vpu_seg_cols"],
+                             x, y)
+            el_pos = arrs["vpu_seg_out_pos"]
+        else:
+            el_mask = arrs["vpu_mask"]
+            s_el = sddmm_vpu(arrs["vpu_rows"], arrs["vpu_cols"], x, y)
+            el_pos = arrs["vpu_out_pos"]
+    with span("apply.combine", x, op="sddmm"):
+        s_el = torch.where(el_mask, s_el, 0.0)
+        return ref.scatter_scores(s_tc, tc_pos, s_el, el_pos, el_mask, nnz)
 
 
 def spmm_apply_stack(arrs, b_stack: torch.Tensor, *, m: int, nwin: int,
@@ -241,7 +258,8 @@ def spmm_apply_stack(arrs, b_stack: torch.Tensor, *, m: int, nwin: int,
                        b, m=m, nwin=nwin, backend=backend)
             for i, b in enumerate(b_stack)])
     if edge_vals is not None:
-        arrs = ref.revalue_spmm_arrays(arrs, edge_vals)
+        with span("apply.revalue"):
+            arrs = ref.revalue_spmm_arrays(arrs, edge_vals)
     return spmm_apply(arrs, b_stack, m=m, nwin=nwin, backend=backend)
 
 

@@ -12,8 +12,17 @@ an SpMM on the Aᵀ plan (for the features) plus an SDDMM on A's pattern
 sparse product of a training step is a Libra apply on one of the three
 plans. :func:`train_step` is the reference's full-batch step: a
 cross-entropy and a plain SGD update.
+
+Spans (:mod:`repro_torch.obs.trace`; ``gnn.step`` on the card's clock
+too): the plan build's stages (``plan.*``), ``gnn.step`` > ``gnn.forward``,
+``gnn.backward``, ``gnn.update``; ``gnn.spmm`` (``leg`` A/At, ``phase``
+fwd/bwd), ``gnn.sddmm`` (``phase``) and ``gnn.edge_softmax`` around the
+operators' ``apply.*`` spans. The softmax's backward runs in autograd's
+own nodes, inside ``gnn.backward`` and outside any ``gnn.*`` child.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -25,6 +34,7 @@ from repro_torch.core.formats import PlanArrays
 from repro_torch.core.windows import num_windows
 from repro_torch.kernels import ref
 from repro_torch.kernels.ops import sddmm_apply, spmm_apply
+from repro_torch.obs.trace import StageClock, span
 from repro_torch.sparse.matrix import SparseCSR, coo_to_csr
 from repro_torch.tune.model import matrix_features
 
@@ -58,9 +68,17 @@ class GraphOps:
     its matrix's original canonical order, and the row permutes ride
     inside the differentiable applies, so edge values, the Aᵀ edge
     permutation and the softmax segment ids never change.
+
+    ``build_legs`` holds each leg's ``plan.meta["build_s"]`` (``"A"``,
+    ``"At"``, ``"SDDMM"``); ``build_s`` the construction's host seconds
+    by stage, the legs' stages summed with the shared feature pass,
+    ``transpose`` (Aᵀ and its edge permutation) and ``upload`` (the
+    plans' device views and index tensors); ``rest`` is the remainder,
+    so the values sum to the construction's wall time.
     """
 
     def __init__(self, a: SparseCSR, *, spec: ExecSpec | None = None):
+        t_start = time.perf_counter()
         spec = ExecSpec(tune="off") if spec is None else spec
         self.spec = spec
         self.device = spec.torch_device()
@@ -69,28 +87,45 @@ class GraphOps:
         self.nnz = a.nnz
         self.backend = spec.backend
         self.nwin = num_windows(a.m)
-        at, self.perm = transpose_csr(a)
+        stages = StageClock()
+        with stages.stage("transpose"):
+            at, self.perm = transpose_csr(a)
         self.nwin_t = num_windows(at.m)
         # One feature pass of A, shared by the SpMM and SDDMM tuners.
-        feat_a = matrix_features(a) if spec.tune == "model" else None
-        built = preprocess.Plan.build(a, "spmm", spec, feat=feat_a)
-        built_t = preprocess.Plan.build(at, "spmm", spec)
-        built_sd = preprocess.Plan.build(a, "sddmm", spec, feat=feat_a)
+        feat_a = None
+        if spec.tune == "model":
+            with stages.stage("features"):
+                feat_a = matrix_features(a)
+        built = preprocess.Plan.build(a, "spmm", spec, feat=feat_a, leg="A")
+        built_t = preprocess.Plan.build(at, "spmm", spec, leg="At")
+        built_sd = preprocess.Plan.build(a, "sddmm", spec, feat=feat_a,
+                                         leg="SDDMM")
         self.cfg, self.cfg_t = built.cfg, built_t.cfg
         self.cfg_sd = built_sd.cfg
-        self.arrs = PlanArrays(built.plan, self.device)
-        self.arrs_t = PlanArrays(built_t.plan, self.device)
-        self.arrs_sd = PlanArrays(built_sd.plan, self.device)
-        # Per-leg reorder epilogues/prologues (None when not reordered).
-        self._unperm = self._index(built.reorder, "row_inv")
-        self._unperm_t = self._index(built_t.reorder, "row_inv")
-        self._x_perm = self._index(built_sd.reorder, "row_perm")
-        self.perm_dev = torch.from_numpy(self.perm.astype(np.int64)).to(
-            self.device)
-        rows, _, _ = a.to_coo()
-        # Destination row of every edge (softmax over incident edges).
-        self.edge_row = torch.from_numpy(rows.astype(np.int64)).to(
-            self.device)
+        with stages.stage("upload"):
+            self.arrs = PlanArrays(built.plan, self.device)
+            self.arrs_t = PlanArrays(built_t.plan, self.device)
+            self.arrs_sd = PlanArrays(built_sd.plan, self.device)
+            # Per-leg reorder epilogues/prologues (None when not
+            # reordered).
+            self._unperm = self._index(built.reorder, "row_inv")
+            self._unperm_t = self._index(built_t.reorder, "row_inv")
+            self._x_perm = self._index(built_sd.reorder, "row_perm")
+            self.perm_dev = torch.from_numpy(
+                self.perm.astype(np.int64)).to(self.device)
+            rows, _, _ = a.to_coo()
+            # Destination row of every edge (softmax over incident edges).
+            self.edge_row = torch.from_numpy(rows.astype(np.int64)).to(
+                self.device)
+        self.build_legs = {leg: b.plan.meta["build_s"] for leg, b in
+                           (("A", built), ("At", built_t),
+                            ("SDDMM", built_sd))}
+        build_s = {k: stages.seconds.get(k, 0.0)
+                   + sum(leg.get(k, 0.0) for leg in self.build_legs.values())
+                   for k in (*preprocess.BUILD_STAGES, "transpose", "upload")}
+        build_s["rest"] = (time.perf_counter() - t_start
+                           - sum(build_s.values()))
+        self.build_s = build_s
 
     def _index(self, reord, name):
         return (None if reord is None
@@ -114,36 +149,49 @@ class GraphOps:
                          nwin=self.nwin, backend=backend)
         return _unreorder(out, self._unperm)
 
-    def _a_apply(self, vals, b):
+    def _a_apply(self, vals, b, phase="fwd"):
         """A(vals) @ b on the A plan, in original row order."""
-        arrs = ref.revalue_spmm_arrays(
-            self.arrs.for_backend(self.backend, revalue=True), vals)
-        return _unreorder(spmm_apply(arrs, b, m=self.m, nwin=self.nwin,
-                                     backend=self.backend), self._unperm)
+        with span("gnn.spmm", leg="A", phase=phase):
+            with span("apply.revalue"):
+                arrs = ref.revalue_spmm_arrays(
+                    self.arrs.for_backend(self.backend, revalue=True), vals)
+            return _unreorder(spmm_apply(arrs, b, m=self.m, nwin=self.nwin,
+                                         backend=self.backend), self._unperm)
 
-    def _at_apply(self, vals, b):
+    def _at_apply(self, vals, b, phase="fwd"):
         """A(vals)ᵀ @ b on the Aᵀ plan (``vals`` in A's edge order)."""
-        arrs = ref.revalue_spmm_arrays(
-            self.arrs_t.for_backend(self.backend, revalue=True),
-            vals[self.perm_dev])
-        return _unreorder(spmm_apply(arrs, b, m=self.k, nwin=self.nwin_t,
-                                     backend=self.backend), self._unperm_t)
+        with span("gnn.spmm", leg="At", phase=phase):
+            with span("apply.revalue"):
+                arrs = ref.revalue_spmm_arrays(
+                    self.arrs_t.for_backend(self.backend, revalue=True),
+                    vals[self.perm_dev])
+            return _unreorder(spmm_apply(arrs, b, m=self.k,
+                                         nwin=self.nwin_t,
+                                         backend=self.backend),
+                              self._unperm_t)
 
-    def _sddmm_apply(self, x, y):
+    def _sddmm_apply(self, x, y, phase="fwd"):
         """⟨X[row_p], Y[col_p]⟩ on the SDDMM(A) plan."""
-        return sddmm_apply(self.arrs_sd.for_backend(self.backend),
-                           _reorder_x(x, self._x_perm), y, nnz=self.nnz,
-                           backend=self.backend)
+        with span("gnn.sddmm", phase=phase):
+            return sddmm_apply(self.arrs_sd.for_backend(self.backend),
+                               _reorder_x(x, self._x_perm), y, nnz=self.nnz,
+                               backend=self.backend)
 
 
 def _unreorder(out, unperm):
     """Restore original row order after a reordered-plan SpMM apply."""
-    return out if unperm is None else out.index_select(0, unperm)
+    if unperm is None:
+        return out
+    with span("apply.permute"):
+        return out.index_select(0, unperm)
 
 
 def _reorder_x(x, perm):
     """Gather X into the reordered row space of a reordered SDDMM plan."""
-    return x if perm is None else x.index_select(0, perm)
+    if perm is None:
+        return x
+    with span("apply.permute"):
+        return x.index_select(0, perm)
 
 
 class _SpMMEdgeValues(torch.autograd.Function):
@@ -162,9 +210,10 @@ class _SpMMEdgeValues(torch.autograd.Function):
         d_c = d_c.contiguous()
         d_vals = d_b = None
         if ctx.needs_input_grad[2]:
-            d_b = g._at_apply(edge_vals, d_c)     # dB = A(v)ᵀ · dC
+            d_b = g._at_apply(edge_vals, d_c, "bwd")    # dB = A(v)ᵀ · dC
         if ctx.needs_input_grad[1]:
-            d_vals = g._sddmm_apply(d_c, b)       # dv[p] = dC[row_p]·B[col_p]
+            # dv[p] = dC[row_p]·B[col_p]
+            d_vals = g._sddmm_apply(d_c, b, "bwd")
         return None, d_vals, d_b
 
 
@@ -181,9 +230,9 @@ class _SDDMM(torch.autograd.Function):
         x, y = ctx.saved_tensors
         d_x = d_y = None
         if ctx.needs_input_grad[1]:
-            d_x = g._a_apply(d_vals, y)           # dX = A(dv) · Y
+            d_x = g._a_apply(d_vals, y, "bwd")    # dX = A(dv) · Y
         if ctx.needs_input_grad[2]:
-            d_y = g._at_apply(d_vals, x)          # dY = A(dv)ᵀ · X
+            d_y = g._at_apply(d_vals, x, "bwd")   # dY = A(dv)ᵀ · X
         return None, d_x, d_y
 
 
@@ -195,13 +244,14 @@ def edge_softmax(g: GraphOps, scores: torch.Tensor) -> torch.Tensor:
     of ``t[edge_row]`` sorts the indices to accumulate, and on a
     power-law graph's 2.29M edges took about 7 ms a gather on an H100.
     """
-    mx = torch.full((g.m,), float("-inf"), dtype=scores.dtype,
-                    device=scores.device)
-    mx = mx.scatter_reduce(0, g.edge_row, scores, "amax")
-    e = torch.exp(scores - mx.index_select(0, g.edge_row))
-    z = torch.zeros((g.m,), dtype=scores.dtype, device=scores.device)
-    z = z.index_add(0, g.edge_row, e)
-    return e / torch.clamp(z.index_select(0, g.edge_row), min=1e-9)
+    with span("gnn.edge_softmax"):
+        mx = torch.full((g.m,), float("-inf"), dtype=scores.dtype,
+                        device=scores.device)
+        mx = mx.scatter_reduce(0, g.edge_row, scores, "amax")
+        e = torch.exp(scores - mx.index_select(0, g.edge_row))
+        z = torch.zeros((g.m,), dtype=scores.dtype, device=scores.device)
+        z = z.index_add(0, g.edge_row, e)
+        return e / torch.clamp(z.index_select(0, g.edge_row), min=1e-9)
 
 
 def gcn_norm_edges(a: SparseCSR) -> np.ndarray:
@@ -288,9 +338,13 @@ def train_step(model: nn.Module, g: GraphOps, x: torch.Tensor,
     forward (GCN's normalized edge values). Returns the loss before the
     update; the step's gradients stay in each ``p.grad`` until the next
     step."""
-    for p in model.parameters():
-        p.grad = None
-    loss = cross_entropy(model(g, x, *args), labels)
-    loss.backward()
-    sgd_step(model, lr)
-    return loss.detach()
+    with span("gnn.step", x):
+        for p in model.parameters():
+            p.grad = None
+        with span("gnn.forward"):
+            loss = cross_entropy(model(g, x, *args), labels)
+        with span("gnn.backward"):
+            loss.backward()
+        with span("gnn.update"):
+            sgd_step(model, lr)
+        return loss.detach()

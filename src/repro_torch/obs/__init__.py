@@ -5,7 +5,10 @@ Seven pieces (see the module docstrings for depth):
 
 * :mod:`repro_torch.obs.trace` — nestable spans with an injectable
   clock, Chrome-trace/Perfetto + dict-tree exporters, and a disabled
-  process default so instrumented paths cost one attribute check.
+  process default so instrumented paths cost one check; that default
+  records while ``torch.profiler`` does, each span a profiler range;
+  the few spans the benchmark's shares read are also timed on the
+  card's stream by CUDA events.
 * :mod:`repro_torch.obs.metrics` — counter/gauge/histogram registry
   with labeled series, Prometheus text exposition and JSON snapshot;
   ``SparseEngine``/``GraphRegistry``/``PlanCache`` report into it.

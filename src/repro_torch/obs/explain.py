@@ -30,8 +30,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.obs.trace import get_tracer
-
 
 def _window_hist(plan, a=None) -> dict:
     """Per-window density histogram. With the source matrix, the full
@@ -205,19 +203,18 @@ def explain_plan(plan, *, cfg=None, a=None, kind: str | None = None,
 
 def _explain_op(op, kind: str, *, a=None, measure: bool, width: int,
                 backend: str | None, reps: int, timer=None) -> dict:
-    with get_tracer().span("obs.explain", kind=kind):
-        report = explain_plan(op.plan, cfg=op.tune_config, a=a, kind=kind,
-                              width=width)
-        arrays = getattr(op, "arrays", None)
-        if hasattr(arrays, "view_nbytes"):
-            # Per-view resident/lazy device-byte status (PlanArrays).
-            report["memory"] = arrays.memory()
-        if measure:
-            report["measured"] = _measure(
-                op, kind, width=width,
-                backend=op.spec.backend if backend is None else backend,
-                reps=reps, timer=timer)
-        return report
+    report = explain_plan(op.plan, cfg=op.tune_config, a=a, kind=kind,
+                          width=width)
+    arrays = getattr(op, "arrays", None)
+    if hasattr(arrays, "view_nbytes"):
+        # Per-view resident/lazy device-byte status (PlanArrays).
+        report["memory"] = arrays.memory()
+    if measure:
+        report["measured"] = _measure(
+            op, kind, width=width,
+            backend=op.spec.backend if backend is None else backend,
+            reps=reps, timer=timer)
+    return report
 
 
 def explain_spmm(target, *, a=None, measure: bool = False, width: int = 32,

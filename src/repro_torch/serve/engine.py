@@ -277,7 +277,7 @@ class SparseEngine:
         :class:`~repro_torch.serve.resilience.DeadlineExceeded` result.
         """
         tr = self.tracer
-        if not tr.enabled:
+        if not tr.active:
             return self._submit(graph, op, b=b, x=x, y=y,
                                 edge_vals=edge_vals,
                                 deadline_ms=deadline_ms)
@@ -399,20 +399,19 @@ class SparseEngine:
         tr = self.tracer
         with self._flush_hist.time() as timing:
             with tr.span("serve.flush", requests=len(pending)):
-                with tr.span("serve.bucket"):
-                    buckets: dict[tuple, list[SparseRequest]] = \
-                        defaultdict(list)
-                    for r in pending:
-                        key = (r.graph, r.op, r.bucket_width,
-                               dtype_name(r.payload[0].dtype),
-                               r.edge_vals is not None)
-                        buckets[key].append(r)
+                buckets: dict[tuple, list[SparseRequest]] = \
+                    defaultdict(list)
+                for r in pending:
+                    key = (r.graph, r.op, r.bucket_width,
+                           dtype_name(r.payload[0].dtype),
+                           r.edge_vals is not None)
+                    buckets[key].append(r)
                 for key in sorted(buckets, key=str):
                     reqs = buckets[key]
                     for i in range(0, len(reqs), self.max_panel):
                         chunk = reqs[i:i + self.max_panel]
                         self._execute(key, chunk, results)
-                        if tr.enabled:
+                        if tr.active:
                             for r in chunk:
                                 if r.rid in results:
                                     tr.event(
@@ -574,9 +573,13 @@ class SparseEngine:
         per-request degradation ladder. Requests a partially-executed
         fast path already answered keep their results."""
         graph, op, w, _dtype, _has_ev = key
-        with self.tracer.span("serve.execute", graph=graph, op=op,
-                              width=w, requests=len(chunk),
-                              flow_ids=[f"rid{r.rid}" for r in chunk]):
+        tr = self.tracer
+        if not tr.active:
+            self._execute_chunk(key, chunk, results)
+            return
+        with tr.span("serve.execute", graph=graph, op=op,
+                     width=w, requests=len(chunk),
+                     flow_ids=[f"rid{r.rid}" for r in chunk]):
             self._execute_chunk(key, chunk, results)
 
     def _execute_chunk(self, key, chunk, results) -> None:

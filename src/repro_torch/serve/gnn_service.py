@@ -23,6 +23,12 @@ panel executions layer by layer.
 The dense per-layer projections (``h @ W``) are plain torch matmuls —
 the sparse operators are the scarce, plan-bound resource the engine
 amortizes; dense GEMM needs no bucketing.
+
+A flush is a ``gnn_service.flush`` span (:mod:`repro_torch.obs.trace`,
+also on the card's clock) holding, per layer, ``gnn_service.attention``
+(normalisation, the SDDMM engine flush, the softmax),
+``gnn_service.aggregate`` (the SpMM engine flush) and
+``gnn_service.dense`` (the projections and activations).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import span
 from repro_torch.serve.engine import SparseEngine
 from repro_torch.serve.registry import as_csr
 from repro_torch.serve.resilience import ServeError
@@ -150,48 +157,43 @@ class GNNService:
         pending, self._pending = self._pending, []
         if not pending:
             return {}
-        depth = max(len(self._models[s.model].params) for s in pending)
-        for layer in range(depth):
-            live = [s for s in pending if s.error is None
-                    and layer < len(self._models[s.model].params)]
-            gcn = [s for s in live
-                   if self._models[s.model].kind == "gcn"]
-            agnn = [s for s in live
-                    if self._models[s.model].kind == "agnn"]
-            tickets = {}
-            att = {}
-            if agnn:   # attention round first: SDDMM on normalized h
-                from repro_torch.models.gnn import edge_softmax
+        with span("gnn_service.flush", self.device, requests=len(pending)):
+            depth = max(len(self._models[s.model].params) for s in pending)
+            for layer in range(depth):
+                self._layer(pending, layer)
+        return {s.rid: (s.error if s.error is not None
+                        else s.h if s.node_ids is None
+                        else s.h[s.node_ids])
+                for s in pending}
 
-                for s in agnn:
-                    mdl = self._models[s.model]
-                    hn = s.h / torch.clamp(torch.linalg.vector_norm(
-                        s.h, dim=-1, keepdim=True), min=1e-9)
-                    tickets[s.rid] = self.engine.submit(
-                        mdl.graph, "sddmm", x=hn, y=hn)
-                out = self._flush_engine(tickets)
-                for s in agnn:
-                    mdl = self._models[s.model]
-                    val = out[tickets[s.rid]]
-                    if isinstance(val, ServeError):
-                        s.error = val
-                        continue
-                    lp = mdl.params[layer]
-                    scores = val * lp["beta"]
-                    # duck-typed on (edge_row, m) — the same softmax the
-                    # training path uses
-                    att[s.rid] = edge_softmax(mdl, scores)
-                agnn = [s for s in agnn if s.error is None]
+    def _layer(self, pending: list[_Scoring], layer: int) -> None:
+        """One layer of every live scoring in ``pending``: the attention
+        round (AGNN), the aggregation round, the projections."""
+        live = [s for s in pending if s.error is None
+                and layer < len(self._models[s.model].params)]
+        gcn = [s for s in live if self._models[s.model].kind == "gcn"]
+        agnn = [s for s in live if self._models[s.model].kind == "agnn"]
+        att = {}
+        if agnn:   # attention round first: SDDMM on normalized h
+            with span("gnn_service.attention"):
+                att = self._attention(agnn, layer)
+            agnn = [s for s in agnn if s.error is None]
+        b = {}
+        if gcn:
+            with span("gnn_service.dense"):
+                for s in gcn:
+                    b[s.rid] = s.h @ self._models[s.model].params[layer]["w"]
+        with span("gnn_service.aggregate"):
             tickets = {}
             for s in gcn:
-                mdl = self._models[s.model]
                 tickets[s.rid] = self.engine.submit(
-                    mdl.graph, "spmm", b=s.h @ mdl.params[layer]["w"])
+                    self._models[s.model].graph, "spmm", b=b[s.rid])
             for s in agnn:
-                mdl = self._models[s.model]
                 tickets[s.rid] = self.engine.submit(
-                    mdl.graph, "spmm", b=s.h, edge_vals=att[s.rid])
+                    self._models[s.model].graph, "spmm", b=s.h,
+                    edge_vals=att[s.rid])
             out = self._flush_engine(tickets)
+        with span("gnn_service.dense"):
             for s in gcn + agnn:
                 mdl = self._models[s.model]
                 h = out[tickets[s.rid]]
@@ -203,10 +205,33 @@ class GNNService:
                 if layer < len(mdl.params) - 1:
                     h = torch.relu(h)
                 s.h = h
-        return {s.rid: (s.error if s.error is not None
-                        else s.h if s.node_ids is None
-                        else s.h[s.node_ids])
-                for s in pending}
+
+    def _attention(self, agnn: list[_Scoring], layer: int) -> dict:
+        """The attention weights of each AGNN scoring at ``layer``: the
+        SDDMM of its normalised features (one engine flush), scaled by
+        β and passed through the edge softmax. A scoring whose SDDMM
+        fails takes the error and no weights."""
+        from repro_torch.models.gnn import edge_softmax
+
+        tickets = {}
+        for s in agnn:
+            hn = s.h / torch.clamp(torch.linalg.vector_norm(
+                s.h, dim=-1, keepdim=True), min=1e-9)
+            tickets[s.rid] = self.engine.submit(
+                self._models[s.model].graph, "sddmm", x=hn, y=hn)
+        out = self._flush_engine(tickets)
+        att = {}
+        for s in agnn:
+            mdl = self._models[s.model]
+            val = out[tickets[s.rid]]
+            if isinstance(val, ServeError):
+                s.error = val
+                continue
+            scores = val * mdl.params[layer]["beta"]
+            # duck-typed on (edge_row, m) — the same softmax the
+            # training path uses
+            att[s.rid] = edge_softmax(mdl, scores)
+        return att
 
     def score(self, model: str, feats, node_ids=None) -> torch.Tensor:
         """Single-request convenience: submit + flush. Raises the typed

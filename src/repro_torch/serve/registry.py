@@ -43,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -93,6 +94,10 @@ class RegisteredGraph:
     spmm_vpu_elems: int = 0         # CUDA-core elements of the SpMM plan
     plan_cache_hits: int = 0        # tune configs served from PlanCache
     warmed: int = 0                 # applies prepared by warm()
+    # Host seconds of building the operators by plan-build stage, summed
+    # over them (``Plan.build``'s ``plan.meta["build_s"]``); ``rest`` is
+    # the remainder of the builds' wall time.
+    build_s: dict[str, float] = dataclasses.field(default_factory=dict)
 
     def op(self, kind: str):
         try:
@@ -205,9 +210,12 @@ class GraphRegistry:
             self._reuse_hits.inc()
             missing = [kind for kind in ops if kind not in entry.ops]
             if missing:   # alias asked for more operators: top up in place
-                built, hits = self._build(a, missing, mesh=mesh, spec=spec)
+                built, hits, build_s = self._build(a, missing, mesh=mesh,
+                                                   spec=spec)
                 entry.ops.update(built)
                 entry.plan_cache_hits += hits
+                for k, v in build_s.items():
+                    entry.build_s[k] = entry.build_s.get(k, 0.0) + v
                 self._account_entry(key, built)
             for w in warm_widths:    # aliases may warm new buckets too
                 for kind in entry.ops:
@@ -215,7 +223,7 @@ class GraphRegistry:
             self.enforce_budget()
             return name
 
-        built, hits = self._build(a, ops, mesh=mesh, spec=spec)
+        built, hits, build_s = self._build(a, ops, mesh=mesh, spec=spec)
         if not built:
             raise ValueError(f"no operators requested: ops={ops!r}")
 
@@ -245,7 +253,7 @@ class GraphRegistry:
                                 nnz=a.nnz, mode=mode,
                                 sharded=mesh is not None, ops=built,
                                 spmm_vpu_elems=vpu_elems,
-                                plan_cache_hits=hits)
+                                plan_cache_hits=hits, build_s=build_s)
         self._entries[key] = entry
         old_key = self._names.get(name)
         if old_key is not None:        # name rebound to a new graph
@@ -320,24 +328,33 @@ class GraphRegistry:
             dropped += 1
         return dropped
 
-    def _build(self, a: SparseCSR, kinds, *, mesh,
-               spec: ExecSpec) -> tuple[dict[str, object], int]:
+    def _build(self, a: SparseCSR, kinds, *, mesh, spec: ExecSpec
+               ) -> tuple[dict[str, object], int, dict[str, float]]:
+        """The operators of ``kinds``, the tune-cache hits, and the
+        build's host seconds by plan-build stage (a sharded entry's
+        partitions count whole under ``rest``)."""
         from repro_torch.dist.sparse import (BatchedSDDMM, BatchedSpMM,
                                              ShardedSDDMM, ShardedSpMM)
 
+        t0 = time.perf_counter()
         built: dict[str, object] = {}
         hits = 0
+        build_s: dict[str, float] = {}
         for kind in kinds:
             if mesh is None:
                 cls = BatchedSpMM if kind == "spmm" else BatchedSDDMM
                 op = cls(a, spec=spec)
                 hits += op.op.tune_config.source == "cache"
+                for k, v in op.op.plan.meta["build_s"].items():
+                    if k != "rest":
+                        build_s[k] = build_s.get(k, 0.0) + v
             else:
                 cls = ShardedSpMM if kind == "spmm" else ShardedSDDMM
                 op = cls(a, mesh, spec=spec)
                 hits += op.tune_config.source == "cache"
             built[kind] = op
-        return built, hits
+        build_s["rest"] = time.perf_counter() - t0 - sum(build_s.values())
+        return built, hits, build_s
 
     # ------------------------------------------------------------ serve ---
     def resolve(self, name: str) -> RegisteredGraph:
@@ -469,6 +486,15 @@ class GraphRegistry:
             out["max_bytes"] = self.max_bytes
             out["pressure_evictions"] = self._pressure_evictions.value
             out["pressure_rejects"] = self._pressure_rejects.value
+        return out
+
+    def plan_build_s(self) -> dict[str, float]:
+        """Host seconds of building the resident entries' operators, by
+        plan-build stage (each entry's ``build_s``), summed."""
+        out: dict[str, float] = {}
+        for entry in self._entries.values():
+            for k, v in entry.build_s.items():
+                out[k] = out.get(k, 0.0) + v
         return out
 
     def memory_report(self, top_k: int = 8) -> dict:

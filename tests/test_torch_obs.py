@@ -164,6 +164,10 @@ def test_traced_tuning_gives_the_same_plan_and_output():
         traced = LibraSpMM(a, spec=spec)
     assert traced.tune_config == plain.tune_config
     assert torch.equal(traced(b), plain(b))
-    (span,) = tr.to_dict()
+    (build,) = tr.to_dict()
+    assert build["name"] == "plan.build"
+    assert build["attrs"] == {"op": "spmm", "leg": "A"}
+    (tune,) = [c for c in build["children"] if c["name"] == "plan.tune"]
+    (span,) = tune["children"]
     assert span["name"] == "tune.model"
     assert span["attrs"]["threshold"] == plain.tune_config.threshold
