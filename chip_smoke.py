@@ -19,7 +19,9 @@ Phases:
    also with the plan's real-prefix lengths, bit for bit against the
    lengths they derive, and with non-finite B rows against their twins'
    inf/NaN pattern; K3 with NaN Y rows behind zero bitmaps against its
-   twin's pattern. K5 (flash attention) on random bf16/fp16 data at
+   twin's pattern; K3 and K4 storing at the plan's canonical positions
+   against their staged scores placed by the plain combine, bit for
+   bit. K5 (flash attention) on random bf16/fp16 data at
    gemma2-9b's
    global and local layer shapes (8192 tokens, 16/8 heads, head dim 256,
    softcap 50), a ragged length, D=128 GQA 32/8, MQA 48/1, moonshot's
@@ -84,8 +86,8 @@ Phases:
    with 1,000 node ids): flush ms, ms a request, requests/s beside phase
    3's direct latency, every score against the plain path, one
    profiled flush of each model's eight, then one deterministic flush of
-   twelve of them (all GCN, four AGNN) against the registered operators
-   called directly, layer by layer, bit for bit; (c) raw SpMM requests
+   all sixteen against the registered operators called directly, layer
+   by layer, bit for bit; (c) raw SpMM requests
    (widths 24-128, with and without edge values) and SDDMM pairs on the
    tenant against direct calls, bit for bit; (d) one packed apply of p =
    2, 4, 8 panels of width 64 against p single applies, on the graph and
@@ -303,7 +305,7 @@ the reordered SDDMM(A) at kf=128); K2 also at n=128 and 40, K4 at kf=256,
 K5 at gemma2's local shape and at D=128 GQA 32/8. K1 and K3 also run on
 their tables with every column folded into the first 4096 rows of the
 gathered operand, where every gather hits L2: the all-L2-hit yardstick.
-The reordered SDDMM(A) apply is split into its kernels and its combine.
+The reordered SDDMM(A) apply is split into its kernels.
 Last, one steady GCN and one AGNN request, one apply of each operator of
 phase 2 and of the graph's ``LibraSDDMM``, and one steady GCN and one AGNN
 training step on the reordered ``GraphOps`` run under ``torch.profiler``:
@@ -679,6 +681,26 @@ def main(argv=None) -> int:
             twin_err[("sddmm_vpu", label)] = compare(
                 f"sddmm_vpu {label} {data}", kernels.sddmm_vpu(rows, cols, x, y),
                 ref.sddmm_pair_scores(rows, cols, x, y), kind or "fp32")
+            # The canonical stores of both kernels are their staged
+            # scores placed by the plain combine, bit for bit.
+            el = "vpu_seg" if "vpu_seg_rows" in t else "vpu"
+            got = torch.empty(a.nnz, device=dev)
+            kernels.sddmm_mxu(t["tc_seg_cols"], t["tc_seg_bitmap"],
+                              t["tc_seg_window"], x, y,
+                              out_pos=t["tc_seg_out_pos"], out=got)
+            kernels.sddmm_vpu(rows, cols, x, y, out_pos=t[f"{el}_out_pos"],
+                              mask=t[f"{el}_mask"], out=got)
+            s_el = torch.where(t[f"{el}_mask"],
+                               kernels.sddmm_vpu(rows, cols, x, y), 0.0)
+            want = ref.scatter_scores(
+                kernels.sddmm_mxu(t["tc_seg_cols"], t["tc_seg_bitmap"],
+                                  t["tc_seg_window"], x, y),
+                t["tc_seg_out_pos"], s_el, t[f"{el}_out_pos"],
+                t[f"{el}_mask"], a.nnz)
+            if not torch.equal(got, want):
+                fail(f"sddmm {label} {data}: the kernels' canonical stores "
+                     "differ from their staged scores placed by the plain "
+                     "combine")
 
     log("phase 1: each kernel against its plain twin on the card")
     for label, (pa, a, n) in spmm_cases.items():
@@ -1389,33 +1411,31 @@ def main(argv=None) -> int:
     del x_graph256
 
     # The SDDMM apply on the reordered SDDMM(A) at AGNN's first layer
-    # (kf=128), split: both kernels, then the combine (ref.scatter_scores:
-    # one index_add_ of every slot of both streams' outputs into the
-    # (nnz + 1,) scores, the padding into one swallow slot).
+    # (kf=128), split: the X gather into the reordered rows, then both
+    # kernels storing at the plan's canonical positions (no combine: the
+    # padding slots store nothing).
     log("timing: the SDDMM apply on the reordered SDDMM(A), split into its "
-        "kernels and its combine")
+        "kernels")
     t = gops_on.arrs_sd.for_backend("cuda")
     rows, cols = element_tables(t)
     el = "vpu_seg" if "vpu_seg_rows" in t else "vpu"
+    scores = torch.empty(graph.nnz, device=dev)
     tc_args = (t["tc_seg_cols"], t["tc_seg_bitmap"], t["tc_seg_window"],
                x_graph, x_graph)
-    s_tc = kernels.sddmm_mxu(*tc_args)
-    s_el = torch.where(t[f"{el}_mask"],
-                       kernels.sddmm_vpu(rows, cols, x_graph, x_graph), 0.0)
-    comb = (s_tc, t["tc_seg_out_pos"], s_el, t[f"{el}_out_pos"],
-            t[f"{el}_mask"], graph.nnz)
+    tc_kw = dict(out_pos=t["tc_seg_out_pos"], out=scores)
+    el_kw = dict(out_pos=t[f"{el}_out_pos"], mask=t[f"{el}_mask"],
+                 out=scores)
     apply_ms = median_ms(lambda: gops_on._sddmm_apply(x_graph, x_graph))
-    k3_ms = median_ms(lambda: kernels.sddmm_mxu(*tc_args))
+    k3_ms = median_ms(lambda: kernels.sddmm_mxu(*tc_args, **tc_kw))
     k4_ms = median_ms(lambda: kernels.sddmm_vpu(rows, cols, x_graph,
-                                                x_graph))
-    comb_ms = median_ms(lambda: ref.scatter_scores(*comb))
+                                                x_graph, **el_kw))
+    slots, live = (gops_on.arrs_sd.plan.meta[k]
+                   for k in ("sddmm_slots", "sddmm_live"))
     log(f"  SDDMM(A) reordered kf=128: apply {apply_ms:.4f} ms (X gathered "
-        f"into the reordered rows, both kernels, combine); K3 {k3_ms:.4f} "
-        f"ms, K4 {k4_ms:.4f} ms, combine {comb_ms:.4f} ms "
-        f"({comb_ms / apply_ms:.3f} of the apply) over "
-        f"{s_tc.numel() + s_el.numel()} slots, "
-        f"{int((t['tc_seg_out_pos'] < 0).sum())} of them padding")
-    del s_tc, s_el, comb, t, rows, cols
+        f"into the reordered rows, both kernels); K3 {k3_ms:.4f} ms, K4 "
+        f"{k4_ms:.4f} ms ({(k3_ms + k4_ms) / apply_ms:.3f} of the apply) "
+        f"over {slots} slots, {slots - live} of them padding")
+    del scores, t, rows, cols
 
     # K5 at gemma2-9b's global layer (the costliest attention call of a
     # scoring request). The library yardstick is one SDPA call; SDPA has
@@ -4173,7 +4193,13 @@ def tuned_phase(torch, np, log, fail, compare, tol_kind, *, spec0, a_mix,
                 op = cls(a, spec=spec)
             build_s = time.perf_counter() - t
             cands = grid(a)
-            (span,) = [s for s in tr.to_dict() if s["name"] == "tune.search"]
+            # The search nests under the build's plan.build > plan.tune.
+            todo, found = tr.to_dict(), []
+            while todo:
+                node = todo.pop()
+                todo.extend(node.get("children", ()))
+                found += [node] if node["name"] == "tune.search" else []
+            (span,) = found
             events = [e["attrs"] for e in span["events"]]
             if timer_calls[0] != len(cands) or len(events) != len(cands):
                 fail(f"phase 6 (c): {label}: {timer_calls[0]} timings of "
@@ -4476,18 +4502,15 @@ def serving_phase(torch, np, log, fail, compare, *, dev, graph, a_mix, norm,
         mark("(b) profiled flushes, two of each model")
         clean(eng, "(b)")
 
-        # One more flush under deterministic algorithms (index_add_ adds
-        # in any order on the card), against the registered operators
-        # called directly, layer by layer, as the engine calls them:
-        # panels zero-padded to their bucket width. The eight GCN and four
-        # of the AGNN scorings of the rounds above, two with node ids and
-        # two without: the deterministic index_add_ of the SDDMM combine
-        # adds all of K3's padded slots into one swallow slot, one after
-        # another, about 6 s an AGNN scoring on each side.
+        # One more flush under deterministic algorithms (the SpMM
+        # combine's index_add_ adds in any order on the card), against the
+        # registered operators called directly, layer by layer, as the
+        # engine calls them: panels zero-padded to their bucket width.
+        # All sixteen scorings of the rounds above, GCN and AGNN.
         # warn_only: cuBLAS, which runs the dense h @ W of both sides,
         # refuses deterministic mode without CUBLAS_WORKSPACE_CONFIG; on
         # one stream it gives the same bits for the same call.
-        det = [subs[k] for k in (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 13)]
+        det = list(subs)
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             t = time.perf_counter()

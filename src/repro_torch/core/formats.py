@@ -245,8 +245,9 @@ def _sddmm_segment_arrays(plan: "SDDMMPlan") -> dict[str, np.ndarray]:
 
     Tensor Core: a segment's ≤ ``ts`` blocks share one window, so one
     thread block scores an ``8×kf @ kf×(ts·bk)`` product sampled by the
-    concatenated bitmaps (zero bitmap padding samples to zero and its
-    ``out_pos`` −1 lands in the combine's swallow slot). CUDA cores:
+    concatenated bitmaps (zero bitmap padding, ``out_pos`` −1, stores
+    nothing; the plain path's combine adds it into a swallow slot). CUDA
+    cores:
     element tiles are flat, so the Cs cap just batches ``seg_spt`` tiles
     per segment (mask-False padding).
     """
@@ -371,6 +372,21 @@ def real_vector_lengths(pos: np.ndarray) -> np.ndarray:
     return real_prefix_lengths(pos.max(axis=-2, initial=-1))
 
 
+def sddmm_slot_counts(host: dict[str, np.ndarray]) -> tuple[int, int]:
+    """(slots, live) of an SDDMM plan's kernel-path tables (the segment
+    tables where the plan has them, else the compact ones): every score
+    slot K3 and K4 compute, and those that store a score (a Tensor Core
+    slot whose position is not −1, a CUDA-core slot its mask keeps). The
+    live slots own the ``nnz`` canonical positions once each, so
+    ``slots - live`` is the padding the kernels compute and store
+    nowhere."""
+    tc = host["tc_seg_out_pos" if "tc_seg_out_pos" in host
+               else "tc_out_pos"]
+    mask = host["vpu_seg_mask" if "vpu_seg_mask" in host else "vpu_mask"]
+    return (int(tc.size + mask.size),
+            int(np.count_nonzero(tc >= 0) + np.count_nonzero(mask)))
+
+
 def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     # 8-bit occupancy bitmaps travel as int32: torch's uint32 lacks shift
     # and bitwise ops on many builds, and the bits fit either way.
@@ -396,6 +412,9 @@ class PlanArrays(Mapping):
     (:meth:`vpu_len`) of the tables it holds, which are derived on the
     host and are no plan keys.
 
+    An SDDMM plan's ``meta`` gains ``"sddmm_slots"`` and
+    ``"sddmm_live"`` here (:func:`sddmm_slot_counts`, on the host).
+
     Every upload is recorded (key, view, ``nbytes``, dtype), the derived
     lengths too: under ``tc_seg_len``/``vpu_seg_len`` (view
     ``"segment"``) or ``tc_len``/``vpu_len`` (``"compact"``), the view
@@ -414,6 +433,9 @@ class PlanArrays(Mapping):
         if plan is not None:
             kind = "spmm" if isinstance(plan, SpMMPlan) else "sddmm"
             host = _host_arrays(plan)
+            if kind == "sddmm":
+                plan.meta["sddmm_slots"], plan.meta["sddmm_live"] = \
+                    sddmm_slot_counts(host)
         self.kind = kind
         self._host = host
         self._views = {k: view_of_key(k) for k in self._host}

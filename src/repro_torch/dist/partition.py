@@ -32,7 +32,7 @@ Each shard is then a self-contained Libra problem:
   dummy Tensor Core blocks carry zero values and cover exactly the
   compacted output ranks a shard is missing, dummy segments and tiles
   scatter zeros onto local row 0, dummy SDDMM entries carry bitmap 0 /
-  mask False and scatter into the swallow slot.
+  mask False and store nothing.
 
 ``out_gather`` / ``nnz_gather`` invert the padding: one global gather
 reassembles the row-partitioned C (or the canonical nnz value vector)
@@ -601,9 +601,9 @@ def partition_spmm(a: SparseCSR, n_shards: int, *,
 
 def _stack_sddmm_segments(plans, n_shards) -> dict[str, np.ndarray]:
     """SDDMM flavour of :func:`_stack_spmm_segments`. Out-positions stay
-    shard-local (the scatter targets the local nnz slice; ``nnz_gather``
-    reassembles) — padding carries bitmap 0 / mask False and pos −1/0,
-    which the swallow slot absorbs."""
+    shard-local (the kernels store into the local nnz slice;
+    ``nnz_gather`` reassembles) — padding carries bitmap 0 / mask False
+    and pos −1/0, and stores nothing."""
     seg_list = [_sddmm_segment_arrays(p) for p in plans]
     out: dict[str, np.ndarray] = {}
     if "tc_seg_cols" in seg_list[0]:

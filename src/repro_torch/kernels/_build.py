@@ -51,14 +51,14 @@ SIGNATURES = {
     # slice_cols, vec4, stream
     "spmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _L, _I, _I,
                         _L, _L, _L, _L, _L, _I, _I, _P),
-    # cols, bitmap, window, x, y, out, batch, nb, bk, kf, mrows, 6 strides,
+    # cols, bitmap, window, pos, x, y, out, staged, batch, nb, bk, kf,
+    # mrows, 8 strides, slice_feats, vec4, stream
+    "sddmm_mxu_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _L,
+                         _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P),
+    # rows, cols, pos, mask, x, y, out, staged, batch, nel, kf, 8 strides,
     # slice_feats, vec4, stream
-    "sddmm_mxu_launch": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _L,
-                         _L, _L, _L, _L, _L, _L, _I, _I, _P),
-    # rows, cols, x, y, out, batch, nel, kf, 5 strides, slice_feats, vec4,
-    # stream
-    "sddmm_vpu_launch": (_P, _P, _P, _P, _P, _L, _L, _I,
-                         _L, _L, _L, _L, _L, _I, _I, _P),
+    "sddmm_vpu_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I,
+                         _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P),
     # q, k, v, o, lse (or null), b, sq, sk, h, kv, d, q/k/v strides over
     # (B, S, H), scale, softcap, causal, window, q_offset, dtype, stream
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -222,8 +222,9 @@ def batch_of(*dense) -> int | None:
 
 def batch_stride(t, ndim: int) -> int:
     """Elements between two batch elements of ``t``: its leading stride
-    when it carries a batch axis (``ndim + 1`` dims), else 0 (shared)."""
-    return t.stride(0) if t.dim() == ndim + 1 else 0
+    when it carries a batch axis (``ndim + 1`` dims), else 0 (shared, or
+    ``None``: no operand)."""
+    return t.stride(0) if t is not None and t.dim() == ndim + 1 else 0
 
 
 #: Bytes of a gathered operand's column slice that K2, K3 and K4 keep in
@@ -247,6 +248,11 @@ def pow2_slice(k: int, width: int, narrowest: int, widest: int) -> int:
     while out < need:
         out *= 2
     return out
+
+
+def data_ptr(t) -> int:
+    """``t``'s data pointer, or 0 (a null pointer) for ``None``."""
+    return 0 if t is None else t.data_ptr()
 
 
 def aligned16(*tensors) -> bool:

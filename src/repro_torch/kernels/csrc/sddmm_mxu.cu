@@ -4,7 +4,11 @@
 // (function sddmm_mxu, body _kernel): per condensed block or §4.3 segment
 // s, S = X[8*window[s] : 8*window[s]+8] . Y[cols[s]]^T (8 x bk), then
 // Bit-Decoding: row r of column j is kept iff bit r of bitmap[s, j] is set.
-// Output (nb, 8, bk).
+// With a position table pos (nb, 8, bk), each kept score whose position
+// is not -1 is stored at out[pos[s][r][j]], its canonical CSR position:
+// the plan gives every position one owner, so nothing adds and padding
+// stores nothing. Without one, the output is staged (nb, 8, bk), 0 where
+// nothing is kept: the identity-position case of the same epilogue.
 //
 // Bound on H100: bytes. Each condensed column gathers one Y row (4 kf
 // bytes) for 16 kf flops, about 4 flop/byte against a TF32 ridge near
@@ -33,10 +37,17 @@
 //   or an operand is unaligned): the next chunk's Y rows are in flight
 //   while the current chunk's mmas run. A stage also receives the
 //   window's 8 X rows when the window changes from the chunk before
-//   (consecutive chunks mostly share one), and, in a later slice, the
-//   chunk's earlier partial scores. Nothing a chunk needs is loaded
-//   synchronously: the next chunk's columns, bitmaps and window are
-//   loaded into registers one chunk ahead of their copies.
+//   (consecutive chunks mostly share one), and the chunk's 8 x kCols
+//   words of a table laid out as the scores: its positions when it
+//   stores canonically, else, in a later slice, its earlier partial
+//   scores. The next chunk's columns, bitmaps and window are loaded into
+//   registers one chunk ahead of their copies.
+// - Canonical stores over several slices: the slices before the last
+//   run staged into a scratch table, and the last adds their partial of
+//   each kept score (loaded ahead of its mmas) and stores the sum. Adding
+//   into out[pos] in every slice instead (one owner a position, so no
+//   atomics either) was 7% faster at two slices and 13-19% slower at
+//   four, on the graph's plan at kf = 128 and 256.
 // - The A/B (tools/ab_mxu_kernels.py) set that shape: loads on the
 //   critical path, a third stage and 16 KB chunks were each slower.
 //   Folding every gather into L2 gains little: latency, not the L2's
@@ -47,6 +58,9 @@
 //   distinct banks.
 // - Plain stores for the scores: a later slice reads them back, and the
 //   A/B found them 1-2% faster than streaming ones even with one slice.
+// - The batch's outputs sit nnz apart (canonical) or nb * 8 * bk apart
+//   (staged); the position table is shared by the batch or each
+//   element's own, as the other tables.
 // - A batch axis (a panel stack, a partition's shards): blockIdx.y picks
 //   the batch element, whose operand bases the launcher computes from the
 //   batch strides (0 shares an operand) into the kernel's parameter
@@ -78,8 +92,8 @@ __host__ __device__ constexpr int row_pitch() {
 }
 
 // One stage: kCols Y rows and 8 X rows of kF features, 8 rows of kCols
-// earlier scores, then the chunk's bitmap words, window, first column and
-// segment (8-byte aligned: kCols is even).
+// positions or earlier scores, then the chunk's bitmap words, window,
+// first column and segment (8-byte aligned: kCols is even).
 template <int kF>
 __host__ __device__ constexpr int stage_floats() {
   constexpr int kCols = chunk_cols<kF>();
@@ -117,6 +131,7 @@ struct Operands {
   const int* cols[libra::kMaxBatch];
   const int* bitmap[libra::kMaxBatch];
   const int* window[libra::kMaxBatch];
+  const int* pos[libra::kMaxBatch];  // null: staged output
   const float* x[libra::kMaxBatch];
   const float* y[libra::kMaxBatch];
   float* out[libra::kMaxBatch];
@@ -126,22 +141,32 @@ template <int kF, bool kVec4>
 __global__ void __launch_bounds__(kWarps * 32)
 sddmm_mxu_kernel(const __grid_constant__ Operands ops, long long nchunks,
                  int chunks_per_seg, int bk, int kf, long long mrows, int f0,
-                 int accumulate, int out16, long long per_warp) {
+                 int accumulate, int tab16, const float* staged,
+                 long long staged_bs, long long per_warp) {
   extern __shared__ __align__(16) float smem[];
   const int z = blockIdx.y;  // the batch element
   const int* __restrict__ cols = ops.cols[z];
   const int* __restrict__ bitmap = ops.bitmap[z];
   const int* __restrict__ window = ops.window[z];
+  const int* __restrict__ pos = ops.pos[z];
   const float* __restrict__ x = ops.x[z];
   const float* __restrict__ y = ops.y[z];
   float* __restrict__ out = ops.out[z];
+  // Canonical stores after earlier slices: their staged partial scores.
+  const float* __restrict__ old =
+      staged == nullptr ? nullptr : staged + z * staged_bs;
+  // The table a stage copies: positions, or the staged earlier scores.
+  const int* tab =
+      pos != nullptr ? pos
+                     : (accumulate ? reinterpret_cast<const int*>(out)
+                                   : nullptr);
   constexpr int kCols = chunk_cols<kF>();
   constexpr int kTiles = kCols / 16;
   constexpr int kPitch = row_pitch<kF>();
   constexpr int kStage = (stage_floats<kF>() + 3) & ~3;
   constexpr int kXRows = kCols * kPitch;          // offset of the X rows
-  constexpr int kOld = kXRows + libra::kWindow * kPitch;  // earlier scores
-  constexpr int kMeta = kOld + libra::kWindow * kCols;    // bitmaps, window
+  constexpr int kTab = kXRows + libra::kWindow * kPitch;  // table words
+  constexpr int kMeta = kTab + libra::kWindow * kCols;    // bitmaps, window
   constexpr int kV = kVec4 ? 4 : 1;  // floats a copy
   constexpr int kPieces = kF / kV;   // copies a row
   static_assert((kCols * kPieces) % 32 == 0, "whole warp passes");
@@ -207,24 +232,24 @@ sddmm_mxu_kernel(const __grid_constant__ Operands ops, long long nchunks,
                       row < mrows && f < kf, x);
         }
       }
-      if (accumulate && live) {  // the earlier slices' scores of the chunk
-        const float* src = out + d.seg * libra::kWindow * bk + d.j0;
-        if (out16) {
+      if (tab != nullptr && live) {  // the chunk's positions or scores
+        const int* src = tab + d.seg * libra::kWindow * bk + d.j0;
+        if (tab16) {
           for (int p = lane; p < libra::kWindow * kCols / 4; p += 32) {
             const int r = p / (kCols / 4), q = (p % (kCols / 4)) * 4;
             const bool ok = d.j0 + q < bk;
-            libra::cp_async16(libra::smem_u32(st + kOld + r * kCols + q),
+            libra::cp_async16(libra::smem_u32(st + kTab + r * kCols + q),
                               ok ? src + static_cast<int64_t>(r) * bk + q
-                                 : out,
+                                 : tab,
                               ok);
           }
         } else {
           for (int p = lane; p < libra::kWindow * kCols; p += 32) {
             const int r = p / kCols, q = p % kCols;
             const bool ok = d.j0 + q < bk;
-            libra::cp_async4(libra::smem_u32(st + kOld + r * kCols + q),
+            libra::cp_async4(libra::smem_u32(st + kTab + r * kCols + q),
                              ok ? src + static_cast<int64_t>(r) * bk + q
-                                : out,
+                                : tab,
                              ok);
           }
         }
@@ -272,6 +297,23 @@ sddmm_mxu_kernel(const __grid_constant__ Operands ops, long long nchunks,
       }
     }
     float* seg_out = out + seg * libra::kWindow * bk;
+    // The last slice of canonical stores: the earlier slices' partials of
+    // the kept scores, loaded before the mmas so that their latency
+    // overlaps them.
+    float prev[kTiles][4];
+#pragma unroll
+    for (int tile = 0; tile < kTiles; ++tile) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int jc = tile * 16 + g + (q < 2 ? 0 : 8);
+        const int r = 2 * t + (q & 1);
+        prev[tile][q] =
+            old != nullptr && j0 + jc < bk && ((meta[jc] >> r) & 1)
+                ? old[seg * libra::kWindow * bk +
+                      static_cast<int64_t>(r) * bk + j0 + jc]
+                : 0.f;
+      }
+    }
 #pragma unroll
     for (int tile = 0; tile < kTiles; ++tile) {
       const int ja = tile * 16 + g, jb = ja + 8;  // columns of the chunk
@@ -301,11 +343,17 @@ sddmm_mxu_kernel(const __grid_constant__ Operands ops, long long nchunks,
         const int r = 2 * t + (q & 1);
         if (j0 + jc >= bk) continue;
         const bool kept = ((q < 2 ? bits_a : bits_b) >> r) & 1;
-        float* dst = seg_out + static_cast<int64_t>(r) * bk + j0 + jc;
-        if (!accumulate) {
-          *dst = kept ? acc[q] : 0.f;
+        const int64_t at = static_cast<int64_t>(r) * bk + j0 + jc;
+        const float* tw = st + kTab + r * kCols + jc;  // the table's word
+        if (pos != nullptr) {  // canonical: the kept score's one owner
+          if (!kept) continue;
+          const int p = __float_as_int(*tw);
+          if (p < 0) continue;
+          out[p] = old != nullptr ? acc[q] + prev[tile][q] : acc[q];
+        } else if (!accumulate) {
+          seg_out[at] = kept ? acc[q] : 0.f;
         } else if (kept) {
-          *dst = st[kOld + r * kCols + jc] + acc[q];
+          seg_out[at] = *tw + acc[q];
         }
       }
     }
@@ -314,16 +362,24 @@ sddmm_mxu_kernel(const __grid_constant__ Operands ops, long long nchunks,
   libra::cp_async_wait<0>();
 }
 
-// Batch strides of the six operands: cols, bitmap, window, x, y, out.
+// Batch strides of the operands: cols, bitmap, window, pos, x, y, out and
+// the staging buffer.
 struct Strides {
-  long long cols, bitmap, window, x, y, out;
+  long long cols, bitmap, window, pos, x, y, out, staged;
 };
+
+// True when a table's 8 x kCols words of a chunk can be copied 16 bytes
+// at a time in every batch element.
+inline int rows16(const void* base, int bk, long long bs) {
+  return bk % 4 == 0 && bs % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(base) % 16 == 0;
+}
 
 template <int kF, bool kVec4>
 int launch(const int* cols, const int* bitmap, const int* window,
-           const float* x, const float* y, float* out, long long batch,
-           long long nb, int bk, int kf, long long mrows, const Strides& bs,
-           cudaStream_t stream) {
+           const int* pos, const float* x, const float* y, float* out,
+           float* staged, long long batch, long long nb, int bk, int kf,
+           long long mrows, const Strides& bs, cudaStream_t stream) {
   auto kernel = sddmm_mxu_kernel<kF, kVec4>;
   constexpr size_t smem = smem_bytes<kF>();
   // Resident warps a device: set up and measured once (each entry is
@@ -357,24 +413,44 @@ int launch(const int* cols, const int* bitmap, const int* window,
   const long long nchunks = nb * chunks_per_seg;
   const long long per_warp = (nchunks + resident - 1) / resident;
   const long long warps = (nchunks + per_warp - 1) / per_warp;
-  const int out16 = bk % 4 == 0 && bs.out % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  // Canonical stores with a staging buffer: the slices before the last
+  // stage their partial scores there, and the last adds them and stores.
+  const int tab16 = pos != nullptr ? rows16(pos, bk, bs.pos)
+                                   : rows16(out, bk, bs.out);
+  const int staged16 = rows16(staged, bk, bs.staged);
   for (long long z0 = 0; z0 < batch; z0 += libra::kMaxBatch) {
     const int nz = libra::batch_chunk(batch, z0);
-    Operands ops;
+    Operands ops{}, early{};
     for (int i = 0; i < nz; ++i) {
       const long long z = z0 + i;
       ops.cols[i] = cols + z * bs.cols;
       ops.bitmap[i] = bitmap + z * bs.bitmap;
       ops.window[i] = window + z * bs.window;
+      ops.pos[i] = pos == nullptr ? nullptr : pos + z * bs.pos;
       ops.x[i] = x + z * bs.x, ops.y[i] = y + z * bs.y;
       ops.out[i] = out + z * bs.out;
     }
+    if (staged != nullptr) {
+      early = ops;
+      for (int i = 0; i < nz; ++i) {
+        early.pos[i] = nullptr;
+        early.out[i] = staged + (z0 + i) * bs.staged;
+      }
+    }
+    float* const staged_z0 =
+        staged == nullptr ? nullptr : staged + z0 * bs.staged;
     const dim3 grid(static_cast<unsigned>((warps + kWarps - 1) / kWarps), nz);
     for (int f0 = 0; f0 < kf; f0 += kF) {
-      kernel<<<grid, kWarps * 32, smem, stream>>>(
-          ops, nchunks, chunks_per_seg, bk, kf, mrows, f0, f0 > 0, out16,
-          per_warp);
+      const bool last = f0 + kF >= kf;
+      if (staged != nullptr && !last) {
+        kernel<<<grid, kWarps * 32, smem, stream>>>(
+            early, nchunks, chunks_per_seg, bk, kf, mrows, f0, f0 > 0,
+            staged16, nullptr, 0, per_warp);
+      } else {
+        kernel<<<grid, kWarps * 32, smem, stream>>>(
+            ops, nchunks, chunks_per_seg, bk, kf, mrows, f0, f0 > 0, tab16,
+            f0 > 0 ? staged_z0 : nullptr, bs.staged, per_warp);
+      }
       if ((err = cudaGetLastError()) != cudaSuccess) {
         return static_cast<int>(err);
       }
@@ -385,22 +461,23 @@ int launch(const int* cols, const int* bitmap, const int* window,
 
 template <bool kVec4>
 int launch_width(const int* cols, const int* bitmap, const int* window,
-                 const float* x, const float* y, float* out, long long batch,
-                 long long nb, int bk, int kf, long long mrows,
-                 int slice_feats, const Strides& bs, cudaStream_t stream) {
+                 const int* pos, const float* x, const float* y, float* out,
+                 float* staged, long long batch, long long nb, int bk, int kf,
+                 long long mrows, int slice_feats, const Strides& bs,
+                 cudaStream_t stream) {
   switch (slice_feats) {
     case 16:
-      return launch<16, kVec4>(cols, bitmap, window, x, y, out, batch, nb,
-                               bk, kf, mrows, bs, stream);
+      return launch<16, kVec4>(cols, bitmap, window, pos, x, y, out, staged,
+                               batch, nb, bk, kf, mrows, bs, stream);
     case 32:
-      return launch<32, kVec4>(cols, bitmap, window, x, y, out, batch, nb,
-                               bk, kf, mrows, bs, stream);
+      return launch<32, kVec4>(cols, bitmap, window, pos, x, y, out, staged,
+                               batch, nb, bk, kf, mrows, bs, stream);
     case 64:
-      return launch<64, kVec4>(cols, bitmap, window, x, y, out, batch, nb,
-                               bk, kf, mrows, bs, stream);
+      return launch<64, kVec4>(cols, bitmap, window, pos, x, y, out, staged,
+                               batch, nb, bk, kf, mrows, bs, stream);
     case 128:
-      return launch<128, kVec4>(cols, bitmap, window, x, y, out, batch, nb,
-                                bk, kf, mrows, bs, stream);
+      return launch<128, kVec4>(cols, bitmap, window, pos, x, y, out, staged,
+                                batch, nb, bk, kf, mrows, bs, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -409,23 +486,34 @@ int launch_width(const int* cols, const int* bitmap, const int* window,
 }  // namespace
 
 // Strides (*_bs, in elements) step from one batch element's operand to
-// the next; 0 shares the operand.
+// the next; 0 shares the operand. pos null: the staged (nb, 8, bk)
+// output. pos given: canonical stores into out, over several slices
+// through staged, (nb, 8, bk) scratch floats a batch element.
 extern "C" int sddmm_mxu_launch(const int* cols, const int* bitmap,
-                                const int* window, const float* x,
-                                const float* y, float* out, long long batch,
-                                long long nb, int bk, int kf, long long mrows,
+                                const int* window, const int* pos,
+                                const float* x, const float* y, float* out,
+                                float* staged, long long batch, long long nb,
+                                int bk, int kf, long long mrows,
                                 long long cols_bs, long long bitmap_bs,
-                                long long window_bs, long long x_bs,
-                                long long y_bs, long long out_bs,
+                                long long window_bs, long long pos_bs,
+                                long long x_bs, long long y_bs,
+                                long long out_bs, long long staged_bs,
                                 int slice_feats, int vec4,
                                 cudaStream_t stream) {
   if (batch <= 0 || nb <= 0 || bk <= 0 || kf <= 0) {
     return static_cast<int>(cudaSuccess);
   }
-  const Strides bs{cols_bs, bitmap_bs, window_bs, x_bs, y_bs, out_bs};
-  return vec4 ? launch_width<true>(cols, bitmap, window, x, y, out, batch,
-                                   nb, bk, kf, mrows, slice_feats, bs, stream)
-              : launch_width<false>(cols, bitmap, window, x, y, out, batch,
-                                    nb, bk, kf, mrows, slice_feats, bs,
-                                    stream);
+  if (pos == nullptr) {
+    staged = nullptr;
+  } else if (staged == nullptr && kf > slice_feats) {
+    return static_cast<int>(cudaErrorInvalidValue);  // nowhere to stage
+  }
+  const Strides bs{cols_bs, bitmap_bs, window_bs, pos_bs,
+                   x_bs,    y_bs,      out_bs,    staged_bs};
+  return vec4 ? launch_width<true>(cols, bitmap, window, pos, x, y, out,
+                                   staged, batch, nb, bk, kf, mrows,
+                                   slice_feats, bs, stream)
+              : launch_width<false>(cols, bitmap, window, pos, x, y, out,
+                                    staged, batch, nb, bk, kf, mrows,
+                                    slice_feats, bs, stream);
 }

@@ -1,4 +1,5 @@
-"""The hybrid SpMM/SDDMM apply: both streams' kernels plus the combine.
+"""The hybrid SpMM/SDDMM apply: both streams' kernels, plus the combine
+for SpMM.
 
 ``backend="cuda"`` runs the four Hopper kernels over the §4.3 segment
 launch tables when the plan has them (the default) and over the compact
@@ -9,29 +10,32 @@ tables. On CPU tensors the kernel wrappers run their plain twins, so
 build or launch raises :class:`ApplyError` (stage ``"compile"`` or
 ``"execute"``).
 
-The combine stays outside the kernels, as in the reference package: one
-``index_add_`` of both streams' partials into a zeroed
-``(nwin*8, n)`` output for SpMM, or into ``(nnz+1,)`` for SDDMM (slot
-``nnz`` swallows padding). Non-atomic segments own their rows, so their
-add is a store in effect; atomic ones (decomposed windows/rows, windows
-shared by both streams) accumulate.
+The SpMM combine stays outside the kernels, as in the reference
+package: one ``index_add_`` of both streams' partials into a zeroed
+``(nwin*8, n)`` output. Non-atomic segments own their rows, so their add
+is a store in effect; atomic ones (decomposed windows/rows, windows
+shared by both streams) accumulate. The SDDMM needs none: the plan gives
+each canonical position exactly one owner among both streams' live
+slots, so K3 and K4 store every score at its position in the ``(nnz,)``
+output themselves, and padding stores nothing (the plain path's
+``ref.scatter_scores`` adds into a swallow slot instead).
 
 On the kernel path the applies also take a batch: dense operands with a
 leading batch axis, and tables that are shared by the batch or carry
 one of their own. Each kernel then launches once for the whole batch
 (the reference's ``vmap`` of the apply, a batch grid axis on the TPU)
 and one combine covers every element, each element's result bit for
-bit its single apply's. The ``*_apply_stack`` forms apply one plan to
-a stack of panels this way, the serving shape;
+bit its single apply's; an SDDMM element's scores sit ``nnz`` apart.
+The ``*_apply_stack`` forms apply one plan to a stack of panels this
+way, the serving shape;
 :mod:`repro_torch.dist.sparse` applies the shards of one card this way.
 :func:`apply_at` runs an operator's apply and counts its keys.
 
 On the kernel path each apply opens spans
 (:mod:`repro_torch.obs.trace`): ``apply.tc`` (K1/K3), ``apply.cc``
-(K2/K4) and ``apply.combine`` (attribute ``op``: ``"spmm"`` or
-``"sddmm"``; the combine's zeros, masks, concatenations and
-``index_add_``), the combine on the device clock; a stack's
-revaluation is ``apply.revalue``.
+(K2/K4) and, for SpMM, ``apply.combine`` (attribute ``op="spmm"``; the
+combine's zeros, concatenations and ``index_add_``), the combine on the
+device clock; a stack's revaluation is ``apply.revalue``.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ import torch
 
 from repro_torch.core.formats import WINDOW
 from repro_torch.core.threshold import synchronize
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels._build import ApplyError
 from repro_torch.kernels.sddmm_mxu import sddmm_mxu
 from repro_torch.kernels.sddmm_vpu import sddmm_vpu
@@ -81,8 +85,6 @@ def kernels_ready(backend: str, device: torch.device) -> None:
     kernels on a card, so that a build failure surfaces where an apply
     key is first used."""
     if backend == "cuda" and device.type == "cuda":
-        from repro_torch.kernels import _build
-
         _build.library()
 
 
@@ -201,37 +203,32 @@ def sddmm_apply(arrs, x: torch.Tensor, y: torch.Tensor, *, nnz: int,
     order.
 
     On the kernel path ``x``/``y`` may be ``(batch, rows, kf)`` stacks
-    (see the module docstring): ``(batch, nnz)``, K3 and K4 once each."""
+    (see the module docstring): ``(batch, nnz)``, K3 and K4 once each.
+    Both kernels store into one output at the plan's positions; a
+    position no live slot owns (a partition shard's tail past its own
+    non-zeros) is left unwritten."""
     if backend == "torch":
         return ref.sddmm_hybrid_ref(arrs, x, y, nnz)
     if backend != "cuda":
         raise ValueError(f"unknown backend {backend!r}")
+    batch = _build.batch_of(x, y)
+    out = torch.empty((*(() if batch is None else (batch,)), nnz),
+                      dtype=torch.float32, device=x.device)
     with span("apply.tc"):
-        if "tc_seg_cols" in arrs:
-            # §4.3 Ts: one thread block scores a segment of ≤ ts blocks
-            # sharing a window (zero-bitmap padding samples to zero and
-            # its out_pos −1 lands in the swallow slot).
-            s_tc = sddmm_mxu(arrs["tc_seg_cols"], arrs["tc_seg_bitmap"],
-                             arrs["tc_seg_window"], x, y)
-            tc_pos = arrs["tc_seg_out_pos"]
-        else:
-            s_tc = sddmm_mxu(arrs["tc_cols"], arrs["tc_bitmap"],
-                             arrs["tc_window"], x, y)
-            tc_pos = arrs["tc_out_pos"]
+        # §4.3 Ts: one thread block scores a segment of ≤ ts blocks
+        # sharing a window (zero-bitmap padding, out_pos −1, stores
+        # nothing); else the compact per-block tables.
+        seg = "_seg" if "tc_seg_cols" in arrs else ""
+        sddmm_mxu(arrs[f"tc{seg}_cols"], arrs[f"tc{seg}_bitmap"],
+                  arrs[f"tc{seg}_window"], x, y,
+                  out_pos=arrs[f"tc{seg}_out_pos"], out=out)
     with span("apply.cc"):
-        if "vpu_seg_rows" in arrs:
-            # The Cs cap batches whole element tiles per segment.
-            el_mask = arrs["vpu_seg_mask"]
-            s_el = sddmm_vpu(arrs["vpu_seg_rows"], arrs["vpu_seg_cols"],
-                             x, y)
-            el_pos = arrs["vpu_seg_out_pos"]
-        else:
-            el_mask = arrs["vpu_mask"]
-            s_el = sddmm_vpu(arrs["vpu_rows"], arrs["vpu_cols"], x, y)
-            el_pos = arrs["vpu_out_pos"]
-    with span("apply.combine", x, op="sddmm"):
-        s_el = torch.where(el_mask, s_el, 0.0)
-        return ref.scatter_scores(s_tc, tc_pos, s_el, el_pos, el_mask, nnz)
+        # The Cs cap batches whole element tiles per segment.
+        seg = "_seg" if "vpu_seg_rows" in arrs else ""
+        sddmm_vpu(arrs[f"vpu{seg}_rows"], arrs[f"vpu{seg}_cols"], x, y,
+                  out_pos=arrs[f"vpu{seg}_out_pos"],
+                  mask=arrs[f"vpu{seg}_mask"], out=out)
+    return out
 
 
 def spmm_apply_stack(arrs, b_stack: torch.Tensor, *, m: int, nwin: int,

@@ -144,6 +144,23 @@ def sddmm_hybrid_ref(arrs, x, y, nnz):
                           arrs["vpu_out_pos"], arrs["vpu_mask"], nnz)
 
 
+def place_scores(s, pos, kept, out):
+    """The SDDMM kernels' canonical store: ``out[..., pos] = s`` where
+    ``kept``. ``s`` is one stream's scores laid out as its table, with a
+    leading batch axis when ``out`` is ``(batch, nnz)``; ``pos`` and
+    ``kept`` are laid out as the table, shared by the batch or one set
+    an element. Each kept position has one owner, so this is a plain
+    store; positions nothing keeps are left as they are. Returns
+    ``out``."""
+    nnz = out.shape[-1]
+    batch = out.shape[0] if out.dim() == 2 else 1
+    at = pos.expand(s.shape).reshape(batch, -1).long()
+    at = at + torch.arange(batch, device=at.device)[:, None] * nnz
+    keep = kept.expand(s.shape).reshape(batch, -1)
+    out.view(-1)[at[keep]] = s.reshape(batch, -1)[keep]
+    return out
+
+
 def scatter_scores(s_tc, tc_pos, s_el, el_pos, el_mask, nnz):
     """The SDDMM combine: both streams' scores into the canonical
     ``(nnz,)`` vector by one ``index_add_`` (slot ``nnz`` swallows the

@@ -75,6 +75,9 @@ class GraphOps:
     ``transpose`` (Aᵀ and its edge permutation) and ``upload`` (the
     plans' device views and index tensors); ``rest`` is the remainder,
     so the values sum to the construction's wall time.
+    ``sddmm_slots`` and ``sddmm_live`` are the SDDMM leg's
+    ``plan.meta["sddmm_slots"]``/``["sddmm_live"]``: the score slots its
+    kernels compute and those that store a score (one a non-zero).
     """
 
     def __init__(self, a: SparseCSR, *, spec: ExecSpec | None = None):
@@ -117,6 +120,9 @@ class GraphOps:
             # Destination row of every edge (softmax over incident edges).
             self.edge_row = torch.from_numpy(rows.astype(np.int64)).to(
                 self.device)
+        sd_meta = built_sd.plan.meta
+        self.sddmm_slots = sd_meta["sddmm_slots"]
+        self.sddmm_live = sd_meta["sddmm_live"]
         self.build_legs = {leg: b.plan.meta["build_s"] for leg, b in
                            (("A", built), ("At", built_t),
                             ("SDDMM", built_sd))}

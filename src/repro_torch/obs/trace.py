@@ -45,7 +45,7 @@ The card additions:
   costly part of a recorded span: recorded behind queued work, each
   takes tens of microseconds of the host. So the program puts the
   device clock only on the few spans a reader divides (a whole step or
-  flush, and the combines), not on every span.
+  flush, and the SpMM combines), not on every span.
 
 Spans nest through a stack per thread. Autograd runs a card's backward
 on a thread of its own while the caller waits inside ``backward()``:

@@ -54,6 +54,7 @@ from repro_torch.dist import (
     sddmm_sharded,
     spmm_sharded,
 )
+from repro_torch import kernels
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.sparse import SparseCSR
@@ -167,6 +168,48 @@ def test_sddmm_stack_matches_reference_vmap(integers, batch, calls):
     for i in range(batch):
         assert torch.equal(got[i], ops.sddmm_apply(arrs, x_t[i], y_t[i],
                                                    nnz=a.nnz))
+
+
+def _placed_by_the_combine(arrs, x, y, nnz):
+    """The wrappers' staged scores placed by ``ref.scatter_scores`` (one
+    ``index_add_`` into a swallow slot), what the kernel path returned
+    before K3 and K4 stored canonically."""
+    seg = "_seg" if "tc_seg_cols" in arrs else ""
+    s_tc = kernels.sddmm_mxu(arrs[f"tc{seg}_cols"], arrs[f"tc{seg}_bitmap"],
+                             arrs[f"tc{seg}_window"], x, y)
+    el = "vpu_seg" if "vpu_seg_rows" in arrs else "vpu"
+    mask = arrs[f"{el}_mask"]
+    s_el = torch.where(mask, kernels.sddmm_vpu(arrs[f"{el}_rows"],
+                                               arrs[f"{el}_cols"], x, y),
+                       0.0)
+    return tref.scatter_scores(s_tc, arrs[f"tc{seg}_out_pos"], s_el,
+                               arrs[f"{el}_out_pos"], mask, nnz)
+
+
+@pytest.mark.parametrize("kf", [16, 100, 256])
+@pytest.mark.parametrize("tables", ["shared", "own"])
+@pytest.mark.parametrize("mode", ["hybrid", "tcu"])
+def test_sddmm_stack_stores_what_the_combine_placed(mode, tables, kf, calls):
+    """A batch of three through one call of each wrapper: the canonical
+    stores equal the staged scores placed by the plain combine, under
+    ``torch.equal``, with the tables shared by the batch or each
+    element's own; ``tcu`` leaves the CUDA-core stream empty."""
+    a = _matrix(False)
+    rng = np.random.default_rng(kf)
+    x = torch.from_numpy(_data(rng, False, 3, a.m, kf))
+    y = torch.from_numpy(_data(rng, False, 3, a.k, kf))
+    op = LibraSDDMM(_port(a), spec=ExecSpec(mode=mode, sddmm_threshold=2,
+                                            device="cpu"))
+    arrs = op.arrays.for_backend("cuda")
+    if tables == "own":
+        arrs = {k: torch.stack([v] * 3) for k, v in arrs.items()}
+    el_mask = arrs["vpu_seg_mask" if "vpu_seg_mask" in arrs else "vpu_mask"]
+    assert bool(el_mask.any()) == (mode == "hybrid")
+    got = ops.sddmm_apply(arrs, x, y, nnz=a.nnz)
+    assert calls == dict.fromkeys(WRAPPERS, 0) | {"sddmm_mxu": 1,
+                                                  "sddmm_vpu": 1}
+    assert got.shape == (3, a.nnz)
+    assert torch.equal(got, _placed_by_the_combine(arrs, x, y, a.nnz))
 
 
 @pytest.mark.parametrize("op_name", ["spmm_edge_vals", "sddmm"])

@@ -931,6 +931,80 @@ def test_sddmm_operator_tensor_core_path_matches_plain(card, layout):
     assert torch.equal(got, op(x, y, backend="torch"))
 
 
+def _staged_and_combined(arrs, x, y, nnz):
+    """K3 and K4's staged scores placed by the plain combine
+    (``ref.scatter_scores``), what the apply returned before the kernels
+    stored canonically."""
+    seg = "_seg" if "tc_seg_cols" in arrs else ""
+    s_tc = kernels.sddmm_mxu(arrs[f"tc{seg}_cols"], arrs[f"tc{seg}_bitmap"],
+                             arrs[f"tc{seg}_window"], x, y)
+    el = "vpu_seg" if "vpu_seg_rows" in arrs else "vpu"
+    mask = arrs[f"{el}_mask"]
+    s_el = torch.where(mask, kernels.sddmm_vpu(arrs[f"{el}_rows"],
+                                               arrs[f"{el}_cols"], x, y),
+                       0.0)
+    return ref.scatter_scores(s_tc, arrs[f"tc{seg}_out_pos"], s_el,
+                              arrs[f"{el}_out_pos"], mask, nnz)
+
+
+@pytest.fixture(scope="module")
+def canonical_plan():
+    """An SDDMM plan with work on both streams: a power-law graph with
+    a low threshold, the Tensor Core stream on its segment tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = power_law_csr(20000, 20000, 9.0, seed=11)
+    op = LibraSDDMM(a, spec=ExecSpec(device="cuda", tune=TuneConfig(
+        threshold=2, ts=2, cs=32)))
+    arrs = op.arrays.for_backend("cuda")
+    assert "tc_seg_cols" in arrs
+    assert 0 < op.plan.meta["tc_nnz"] < a.nnz
+    return a, arrs
+
+
+@pytest.mark.parametrize("budget", [None, 1], ids=["l2", "16-wide"])
+@pytest.mark.parametrize("batch", ["one", "shared", "own"])
+@pytest.mark.parametrize("kf", [16, 128, 256])
+def test_canonical_stores_equal_staged_scores_combined(card, canonical_plan,
+                                                       kf, batch, budget):
+    """K3 and K4 storing each score at its canonical position equal
+    their staged scores placed by ``ref.scatter_scores``, element for
+    element, on random fp32: one feature slice (kf = 16, 128) or several
+    (kf = 256; every width cut into 16-feature slices by a tiny L2
+    budget), a single apply and a batch of three with the tables shared
+    or each element's own. Every position is written."""
+    from repro_torch.kernels import ops
+
+    a, arrs = canonical_plan
+    gen = torch.Generator().manual_seed(kf)
+    lead = () if batch == "one" else (BATCH,)
+    x = torch.randn(*lead, a.m, kf, generator=gen).to(card)
+    y = torch.randn(*lead, a.k, kf, generator=gen).to(card)
+    if batch == "own":
+        arrs = {k: torch.stack([v] * BATCH) for k, v in arrs.items()}
+    seg = "vpu_seg" if "vpu_seg_rows" in arrs else "vpu"
+    with mock.patch.object(_build, "L2_SLICE_BYTES",
+                           budget or _build.L2_SLICE_BYTES):
+        before = (kernels.sddmm_mxu.launches, kernels.sddmm_vpu.launches)
+        got = ops.sddmm_apply(arrs, x, y, nnz=a.nnz)
+        assert (kernels.sddmm_mxu.launches, kernels.sddmm_vpu.launches) \
+            == (before[0] + 1, before[1] + 1)
+        want = _staged_and_combined(arrs, x, y, a.nnz)
+        # The apply's output is allocated empty: a NaN fill behind the
+        # kernels shows any position neither of them wrote.
+        filled = torch.full_like(got, float("nan"))
+        kernels.sddmm_mxu(arrs["tc_seg_cols"], arrs["tc_seg_bitmap"],
+                          arrs["tc_seg_window"], x, y,
+                          out_pos=arrs["tc_seg_out_pos"], out=filled)
+        kernels.sddmm_vpu(arrs[f"{seg}_rows"], arrs[f"{seg}_cols"], x, y,
+                          out_pos=arrs[f"{seg}_out_pos"],
+                          mask=arrs[f"{seg}_mask"], out=filled)
+    torch.cuda.synchronize()
+    assert got.shape == (*lead, a.nnz)
+    assert torch.equal(got, want)
+    assert torch.equal(filled, got)
+
+
 # ----------------------------------------- K1–K4's batched launches ---
 BATCH = 3
 

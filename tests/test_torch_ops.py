@@ -29,7 +29,9 @@ from repro.tune.model import TuneConfig as JTune
 from repro_torch.api import ExecSpec
 from repro_torch.core.sddmm import LibraSDDMM
 from repro_torch.core.spmm import LibraSpMM
+from repro_torch import kernels
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels._build import ApplyError
 from repro_torch.sparse import SparseCSR
 from repro_torch.tune.model import TuneConfig
@@ -130,12 +132,35 @@ def test_spmm_apply_matches_pallas(mode, layout):
     _check(out, want, True)
 
 
+def combined_scores(arrs, x, y, nnz):
+    """The kernels' staged scores placed by the plain combine
+    (``ref.scatter_scores``: one ``index_add_`` into a swallow slot), what
+    the kernel path's apply returned before its kernels stored
+    canonically."""
+    seg = "_seg" if "tc_seg_cols" in arrs else ""
+    s_tc = kernels.sddmm_mxu(arrs[f"tc{seg}_cols"], arrs[f"tc{seg}_bitmap"],
+                             arrs[f"tc{seg}_window"], x, y)
+    el = "vpu_seg" if "vpu_seg_rows" in arrs else "vpu"
+    mask = arrs[f"{el}_mask"]
+    s_el = torch.where(mask, kernels.sddmm_vpu(arrs[f"{el}_rows"],
+                                               arrs[f"{el}_cols"], x, y),
+                       0.0)
+    return tref.scatter_scores(s_tc, arrs[f"tc{seg}_out_pos"], s_el,
+                               arrs[f"{el}_out_pos"], mask, nnz)
+
+
+@pytest.mark.parametrize("kf", [16, 100, 256])
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 @pytest.mark.parametrize("mode", MODES)
-def test_sddmm_apply_matches_pallas(mode, layout):
+def test_sddmm_apply_matches_pallas(mode, layout, kf):
+    """The kernel path's canonical stores against the reference's Pallas
+    apply, and equal to the staged scores placed by the plain combine;
+    ``tcu`` leaves the CUDA-core stream empty, ``vpu`` the Tensor Core
+    one. Over the compact tables (no segments) the plain path reads the
+    same tables, so it is equal too."""
     a = MATS["powerlaw"]()
     rng = np.random.default_rng(9)
-    x, y = _data(rng, True, a.m, 16), _data(rng, True, a.k, 16)
+    x, y = _data(rng, True, a.m, kf), _data(rng, True, a.k, kf)
     jspec, tspec = _specs(mode, LAYOUTS[layout], sddmm_threshold=4)
     jop, op = JSDDMM(a, spec=jspec), LibraSDDMM(_port(a), spec=tspec)
     want = jops.sddmm_apply(jop.arrays.for_backend("pallas"), jnp.asarray(x),
@@ -143,9 +168,12 @@ def test_sddmm_apply_matches_pallas(mode, layout):
                             cfg=jop.tune_config, interpret=True)
     arrs = op.arrays.for_backend("cuda")
     assert ("tc_seg_cols" in arrs) == (layout == "segment")
-    out = ops.sddmm_apply(arrs, torch.from_numpy(x), torch.from_numpy(y),
-                          nnz=a.nnz)
+    x_t, y_t = torch.from_numpy(x), torch.from_numpy(y)
+    out = ops.sddmm_apply(arrs, x_t, y_t, nnz=a.nnz)
     _check(out, want, True)
+    assert torch.equal(out, combined_scores(arrs, x_t, y_t, a.nnz))
+    if layout == "compact":
+        assert torch.equal(out, tref.sddmm_hybrid_ref(arrs, x_t, y_t, a.nnz))
 
 
 def _edge_case(name):

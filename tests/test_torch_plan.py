@@ -100,3 +100,81 @@ def test_upload_is_lazy_and_bitmaps_become_int32():
                                   pa.host["tc_seg_bitmap"].astype(np.int32))
     assert arrs["vpu_seg_mask"].dtype == torch.bool
     assert pa.for_backend("cuda") is arrs
+
+
+# ------------------------------------------- SDDMM position ownership ---
+def _sddmm_graph(name):
+    from repro_torch.sparse import mixed_csr, power_law_csr
+
+    if name == "power_law":
+        return power_law_csr(400, 360, 9.0, seed=3)
+    return mixed_csr(240, 200, seed=4)
+
+
+def _ownership(tc_pos, bitmap, el_pos, el_mask, nnz):
+    """The invariant K3 and K4's canonical stores rely on: a Tensor Core
+    slot has its bitmap bit set exactly when its position is not −1, and
+    the live slots of both streams own ``[0, nnz)`` once each."""
+    bits = (bitmap[..., None, :] >> np.arange(8)[:, None]) & 1
+    np.testing.assert_array_equal(bits.astype(bool), tc_pos >= 0)
+    live = np.concatenate([tc_pos[tc_pos >= 0], el_pos[el_mask]])
+    np.testing.assert_array_equal(np.sort(live), np.arange(nnz))
+
+
+@pytest.mark.parametrize("reorder", ["off", "on"])
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("graph", ["power_law", "mixed"])
+def test_sddmm_live_slots_own_every_position_once(graph, cfg, reorder):
+    """Segment and compact tables, reordered or not: each canonical
+    position has exactly one live slot, and on the Tensor Core stream a
+    set bit and a position are the same thing."""
+    a = _sddmm_graph(graph)
+    built = tpre.Plan.build(a, "sddmm", ExecSpec(
+        tune=TuneConfig(threshold=3, **CONFIGS[cfg]), reorder=reorder,
+        device="cpu"))
+    assert (built.reorder is not None) == (reorder == "on")
+    arrs = PlanArrays(built.plan, "cpu")
+    h = arrs.host
+    assert ("tc_seg_out_pos" in h) == (cfg == "segments")
+    for seg in (True, False):
+        k = dict(zip(("cols", "bitmap", "window", "pos", "rows", "ecols",
+                      "epos", "mask"),
+                     arrs.backend_keys("cuda", segmented=seg)))
+        assert h[k["pos"]].size and np.count_nonzero(h[k["mask"]])
+        _ownership(h[k["pos"]], h[k["bitmap"]], h[k["epos"]],
+                   h[k["mask"]], a.nnz)
+
+
+@pytest.mark.parametrize("n_shards", [1, 3])
+def test_sddmm_partition_shards_own_their_positions_once(n_shards):
+    """Each shard of a partition owns its own ``[0, shard_nnz)`` once;
+    the tail up to ``nnz_pad`` has no owner."""
+    from repro_torch.dist.partition import partition_sddmm
+
+    a = _sddmm_graph("power_law")
+    part = partition_sddmm(a, n_shards, spec=ExecSpec(tune="off",
+                                                      device="cpu"))
+    for p, nnz in enumerate(part.meta["shard_nnz"]):
+        h = part.arrays(p, "cpu").host
+        seg = "_seg" if "vpu_seg_rows" in h else ""
+        _ownership(h["tc_seg_out_pos"], h["tc_seg_bitmap"],
+                   h[f"vpu{seg}_out_pos"], h[f"vpu{seg}_mask"], nnz)
+
+
+def test_sddmm_slot_counters():
+    """``plan.meta["sddmm_slots"]``/``["sddmm_live"]``, counted at upload
+    over the kernel path's tables, and ``GraphOps``' copies of them."""
+    from repro_torch.models.gnn import GraphOps
+
+    a = _sddmm_graph("mixed")
+    spec = ExecSpec(tune=TuneConfig(threshold=3), device="cpu")
+    built = tpre.Plan.build(a, "sddmm", spec)
+    assert "sddmm_slots" not in built.plan.meta
+    h = PlanArrays(built.plan, "cpu").host
+    meta = built.plan.meta
+    assert meta["sddmm_slots"] == (h["tc_seg_out_pos"].size
+                                   + h["vpu_seg_mask"].size)
+    assert meta["sddmm_live"] == a.nnz < meta["sddmm_slots"]
+    g = GraphOps(a, spec=spec)
+    assert (g.sddmm_slots, g.sddmm_live) == (
+        g.arrs_sd.plan.meta["sddmm_slots"], a.nnz)

@@ -199,17 +199,21 @@ def calls(lib, base: bool, name: str, t: dict, out):
         nb, bk = c.shape
         kf = x.shape[-1]
         width = k3_slice(min(y.shape[-2], nb * bk), kf)
-        e = entry(0, 0, 0, bs(x, 2), bs(y, 2), bs(out, 3))
+        # The committed entry point's staged form: no position table
+        # (pos, staging buffer and their strides null).
+        e = entry(0, 0, 0, 0, bs(x, 2), bs(y, 2), bs(out, 3), 0)
+        ptrs = (c, bits, w, x, y, out) if base else (c, bits, w, None, x,
+                                                      y, out, None)
         return lambda: lib.sddmm_mxu_launch(
-            c.data_ptr(), bits.data_ptr(), w.data_ptr(), x.data_ptr(),
-            y.data_ptr(), out.data_ptr(), *e.get("one", ()), nb, bk, kf,
+            *map(_build.data_ptr, ptrs), *e.get("one", ()), nb, bk, kf,
             x.shape[-2], *e.get("z", ()), width, int(kf % 4 == 0), s)
     rows, c, x = (t[k] for k in ("rows", "cols", "x"))
     kf = x.shape[-1]
-    e = entry(0, 0, bs(x, 2), bs(x, 2), bs(out, 2))
+    e = entry(0, 0, 0, 0, bs(x, 2), bs(x, 2), bs(out, 2), 0)
+    ptrs = (rows, c, x, x, out) if base else (rows, c, None, None, x, x,
+                                              out, None)
     return lambda: lib.sddmm_vpu_launch(
-        rows.data_ptr(), c.data_ptr(), x.data_ptr(), x.data_ptr(),
-        out.data_ptr(), *e.get("one", ()), rows.numel(), kf,
+        *map(_build.data_ptr, ptrs), *e.get("one", ()), rows.numel(), kf,
         *e.get("z", ()), k4_slice(x.shape[-2], kf, kf % 4 == 0),
         int(kf % 4 == 0), s)
 

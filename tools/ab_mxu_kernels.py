@@ -172,10 +172,11 @@ def k3_call(lib, old, cols, bits, window, x, y, out, w=None):
             cols.data_ptr(), bits.data_ptr(), window.data_ptr(),
             x.data_ptr(), y.data_ptr(), out.data_ptr(), nb, bk, kf,
             x.shape[0], stream())
+    # The staged form: no position table, no staging buffer.
     return lambda: lib.sddmm_mxu_launch(
-        cols.data_ptr(), bits.data_ptr(), window.data_ptr(), x.data_ptr(),
-        y.data_ptr(), out.data_ptr(), 1, nb, bk, kf, x.shape[0],
-        0, 0, 0, 0, 0, 0, w, int(kf % 4 == 0), stream())
+        cols.data_ptr(), bits.data_ptr(), window.data_ptr(), None,
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), None, 1, nb, bk, kf,
+        x.shape[0], 0, 0, 0, 0, 0, 0, 0, 0, w, int(kf % 4 == 0), stream())
 
 
 def check(fn, out, want, label) -> int:
@@ -327,10 +328,15 @@ def operator_ab(old_lib, dev, gen, a_mix, graph, spmm_mix, sddmm_mix,
             int(not unique_ranks), int(b.shape[1] % 4 == 0), stream()) == 0
         return out
 
-    def old_sddmm_mxu(cols, bits, window, x, y):
-        out = torch.empty(cols.shape[0], 8, cols.shape[1], device=dev)
-        assert k3_call(old_lib, True, cols, bits, window, x, y, out)() == 0
-        return out
+    def old_sddmm_mxu(cols, bits, window, x, y, out_pos=None, out=None):
+        s = torch.empty(cols.shape[0], 8, cols.shape[1], device=dev)
+        assert k3_call(old_lib, True, cols, bits, window, x, y, s)() == 0
+        if out_pos is None:
+            return s
+        # The baseline stores staged scores: the apply's canonical output
+        # places them (a scatter the committed kernel does in its stores).
+        kept = ref.bitmap_mask(bits) & (out_pos >= 0)
+        return ref.place_scores(s, out_pos, kept, out)
 
     b = torch.randn(a_mix.k, 256, generator=gen, device=dev)
     xm, ym = (torch.randn(a_mix.m, 128, generator=gen, device=dev)

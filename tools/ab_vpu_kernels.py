@@ -169,10 +169,11 @@ def k4_call(lib, old, rows, cols, x, out, w=None):
         return lambda: lib.sddmm_vpu_launch(
             rows.data_ptr(), cols.data_ptr(), x.data_ptr(), x.data_ptr(),
             out.data_ptr(), nel, kf, int(kf % 4 == 0), stream())
+    # The staged form: no position table, mask or staging buffer.
     return lambda: lib.sddmm_vpu_launch(
-        rows.data_ptr(), cols.data_ptr(), x.data_ptr(), x.data_ptr(),
-        out.data_ptr(), 1, nel, kf, 0, 0, 0, 0, 0, w, int(kf % 4 == 0),
-        stream())
+        rows.data_ptr(), cols.data_ptr(), None, None, x.data_ptr(),
+        x.data_ptr(), out.data_ptr(), None, 1, nel, kf, 0, 0, 0, 0, 0, 0, 0,
+        0, w, int(kf % 4 == 0), stream())
 
 
 def passes(cases):
@@ -293,13 +294,16 @@ def request_ab(old_lib, gops, norm, dev):
         assert k2_call(old_lib, True, vals, cols, None, b, out)() == 0
         return out
 
-    def old_sddmm_vpu(rows, cols, x, y):
-        out = torch.empty(rows.shape, device=dev)
+    def old_sddmm_vpu(rows, cols, x, y, out_pos=None, mask=None, out=None):
+        s = torch.empty(rows.shape, device=dev)
         assert old_lib.sddmm_vpu_launch(
             rows.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-            out.data_ptr(), rows.numel(), x.shape[1],
+            s.data_ptr(), rows.numel(), x.shape[1],
             int(x.shape[1] % 4 == 0), stream()) == 0
-        return out
+        # The baseline stores scores laid out as the table: the apply's
+        # canonical output places them.
+        return s if out_pos is None else ref.place_scores(s, out_pos, mask,
+                                                          out)
 
     gcn = GCN([128, 256, 256, 40],
               generator=torch.Generator().manual_seed(0)).to(dev)
