@@ -7,12 +7,16 @@ and a traffic mix (``gpubench/traffic/<name>.json``), and its
 comparison's limits sit in ``gpubench/limits/<cell>.json``. The traffic
 file's ``kind`` picks one of the two drivers below: ``train`` (a closed
 loop of full-batch steps) or ``serve`` (an open loop of scoring
-requests). The program is ``repro_torch``; this module imports it only
-inside the functions that build it.
+requests). The configuration's ``model`` names its kind's module,
+``gpubench/models/<model>.py`` (:func:`model_kind`; see
+:mod:`gpubench.models` for what it gives), and through it the kind's
+plain reference (:func:`reference`). The program is ``repro_torch``;
+this module imports it only inside the functions that build it.
 """
 from __future__ import annotations
 
 import gc
+import importlib.util
 import json
 import math
 import pathlib
@@ -54,6 +58,29 @@ def limits(name: str) -> dict:
     return json.loads(path.read_text())["limits"] if path.exists() else {}
 
 
+def load_module(folder: str, name: str):
+    """``gpubench/<folder>/<name>.py``, loaded by path: what the
+    benchmark finds by a name in its data (a per-layer metric's reader,
+    a model kind, a kind's reference), so that a later one is a new
+    file and no edit."""
+    path = HERE / folder / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"gpubench.{folder}.{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def model_kind(cfg: dict):
+    """The module of the configuration's model kind."""
+    return load_module("models", cfg["model"])
+
+
+def reference(cfg: dict):
+    """The plain reference of the configuration's model kind."""
+    return load_module("reference", model_kind(cfg).REFERENCE)
+
+
 def sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -74,7 +101,8 @@ class Spans:
 class World:
     """What a configuration builds once, whatever the seed: the graph
     (the benchmark's arrays, handed to the program as its ``SparseCSR``)
-    and the program's plans (train) or serving tier (serve)."""
+    and the program's plans (train: ``gops`` and what else the model
+    kind's ``build_train`` sets) or serving tier (serve)."""
 
     def __init__(self, cfg: dict, kind: str, dev: torch.device,
                  spans: Spans, tune_cache: str | None = None):
@@ -90,14 +118,11 @@ class World:
             else tune_cache
         if kind == "train":
             from repro_torch.api import ExecSpec
-            from repro_torch.models.gnn import GraphOps, gcn_norm_edges
 
             spec = ExecSpec(**cfg["exec_spec"], tune_cache=cache,
                             device=str(dev))
             t = time.perf_counter()
-            self.gops = GraphOps(self.csr, spec=spec)
-            self.norm = (torch.from_numpy(gcn_norm_edges(self.csr)).to(dev)
-                         if cfg["model"] == "gcn" else None)
+            model_kind(cfg).build_train(self, spec)
             sync(dev)
             spans.add("plan_build", time.perf_counter() - t)
         else:
@@ -110,22 +135,24 @@ class World:
         self.spans = spans
 
 
-def draw_params(cfg: dict, seed: int, dev: torch.device) -> list[dict]:
-    """The model's layers from ``seed``, drawn on the device in one call:
-    ``w`` is ``randn(d_in, d_out) / sqrt(d_in)``, ``beta`` (AGNN) 1."""
-    dims = cfg["dims"]
+def draw_weights(dims: list[int], seed: int,
+                 dev: torch.device) -> list[torch.Tensor]:
+    """A weight a layer from ``seed``, drawn on the device in one call:
+    ``randn(d_in, d_out) / sqrt(d_in)`` for each pair of ``dims``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     sizes = [a * b for a, b in zip(dims[:-1], dims[1:])]
     flat = torch.randn(sum(sizes), generator=gen, device=dev)
-    layers, off = [], 0
+    out, off = [], 0
     for d_in, d_out in zip(dims[:-1], dims[1:]):
         w = flat[off:off + d_in * d_out].view(d_in, d_out) / math.sqrt(d_in)
         off += d_in * d_out
-        layer = {"w": w.contiguous()}
-        if cfg["model"] == "agnn":
-            layer["beta"] = torch.ones((), device=dev)
-        layers.append(layer)
-    return layers
+        out.append(w.contiguous())
+    return out
+
+
+def draw_params(cfg: dict, seed: int, dev: torch.device) -> list[dict]:
+    """The model's layers from ``seed``, as its kind draws them."""
+    return model_kind(cfg).draw_params(cfg, seed, dev)
 
 
 def draw_inputs(world: World, seed: int):
@@ -146,17 +173,9 @@ def draw_pool(world: World, seed: int, panels: int) -> torch.Tensor:
 
 
 def module(cfg: dict, layers: list[dict], dev: torch.device):
-    """The program's ``GCN``/``AGNN`` holding ``layers``."""
-    from repro_torch.models.gnn import AGNN, GCN
-
-    cls = {"gcn": GCN, "agnn": AGNN}[cfg["model"]]
-    model = cls(cfg["dims"]).to(dev)
-    with torch.no_grad():
-        for i, layer in enumerate(layers):
-            model.weights[i].copy_(layer["w"])
-            if "beta" in layer:
-                model.betas[i].copy_(layer["beta"])
-    return model
+    """The program's model of the configuration's kind, holding
+    ``layers``."""
+    return model_kind(cfg).module(cfg, layers, dev)
 
 
 def snapshot(layers_or_leaves) -> list[torch.Tensor]:
@@ -172,10 +191,11 @@ class TrainProgram:
 
         cfg, dev = world.cfg, world.dev
         self.world, self.cfg = world, cfg
-        self.layers0 = draw_params(cfg, seed, dev)
+        self._kind = model_kind(cfg)
+        self.layers0 = self._kind.draw_params(cfg, seed, dev)
         self.x, self.labels = draw_inputs(world, seed)
-        self.model = module(cfg, self.layers0, dev)
-        self._args = (world.norm,) if cfg["model"] == "gcn" else ()
+        self.model = self._kind.module(cfg, self.layers0, dev)
+        self._args = self._kind.train_args(world)
         self._train_step = train_step
 
     def step(self) -> torch.Tensor:
@@ -184,12 +204,7 @@ class TrainProgram:
                                 lr=self.cfg["optimizer"]["lr"])
 
     def leaves(self) -> list[torch.Tensor]:
-        out = []
-        for i, w in enumerate(self.model.weights):
-            out.append(w)
-            if self.cfg["model"] == "agnn":
-                out.append(self.model.betas[i])
-        return out
+        return self._kind.leaves(self.model)
 
     def free(self) -> None:
         del self.model
@@ -207,24 +222,25 @@ class ReferenceTrainProgram(TrainProgram):
         self.layers0 = draw_params(world.cfg, seed, world.dev)
         self.x, self.labels = draw_inputs(world, seed)
         self._ref, self._dtype, self._rows = ref, dtype, loss_rows
+        self._model = reference(world.cfg)
         self._edges = check.edges(world.graph, world.dev)
         self._layers = [{k: v.clone() for k, v in layer.items()}
                         for layer in self.layers0]
 
     def step(self) -> torch.Tensor:
         losses, states = self._ref.train(
-            self.cfg["model"], self._layers, self._edges, self.x,
+            self._model, self._layers, self._edges, self.x,
             self.labels, lr=self.cfg["optimizer"]["lr"], steps=1,
             dtype=self._dtype, loss_rows=self._rows)
         it = iter(states[0])
         for layer in self._layers:
-            for k in ("w", "beta"):
+            for k in self._model.KEYS:
                 if k in layer:
                     layer[k] = next(it)
         return torch.tensor(losses[0])
 
     def leaves(self) -> list[torch.Tensor]:
-        return self._ref.leaves(self._layers)
+        return self._ref.leaves(self._layers, self._model.KEYS)
 
     def free(self) -> None:
         del self._layers, self._edges
@@ -279,16 +295,13 @@ class ServeProgram:
     def __init__(self, world: World, seed: int, pool_panels: int):
         cfg, dev = world.cfg, world.dev
         self.world = world
-        layers = draw_params(cfg, seed, dev)
+        kind = model_kind(cfg)
+        layers = kind.draw_params(cfg, seed, dev)
         self.layers0 = layers
-        model = module(cfg, layers, dev)
-        svc = world.service
+        model = kind.module(cfg, layers, dev)
         self.name = f"{cfg['model']}-{seed}"
         t = time.perf_counter()
-        if cfg["model"] == "gcn":
-            svc.register_gcn(self.name, world.csr, model)
-        else:
-            svc.register_agnn(self.name, world.csr, model)
+        kind.register(world.service, self.name, world.csr, model)
         sync(dev)
         world.spans.add("plan_build", time.perf_counter() - t)
         self.pool = draw_pool(world, seed, pool_panels)
@@ -313,12 +326,10 @@ class ReferenceServeProgram(ServeProgram):
 
     def __init__(self, world: World, seed: int, pool_panels: int, *,
                  dtype=torch.bfloat16):
-        from gpubench.reference import gnn as ref
-
         self.world = world
         self.layers0 = draw_params(world.cfg, seed, world.dev)
         self.pool = draw_pool(world, seed, pool_panels)
-        self._ref, self._dtype = ref, dtype
+        self._model, self._dtype = reference(world.cfg), dtype
         self._edges = check.edges(world.graph, world.dev)
         self._queue: list = []
         self._rid = 0
@@ -332,9 +343,9 @@ class ReferenceServeProgram(ServeProgram):
         out = {}
         for rid, panel, ids in self._queue:
             with torch.no_grad():
-                h = self._ref.forward(self.world.cfg["model"], self.layers0,
-                                      self._edges, self.pool[panel],
-                                      self._dtype).float()
+                h = self._model.forward(self.layers0, self._edges,
+                                        self.pool[panel],
+                                        self._dtype).float()
             out[rid] = h if ids is None else h[ids]
         self._queue = []
         return out

@@ -18,6 +18,9 @@ leaf's moves by round-off alone and is left out of both.
 Serving: ``score_err``, the worst over the requests the comparison
 takes of ``max |served − reference| / max |reference|`` over the
 scores that request asked for.
+
+Both take ``model``, the plain reference of the cell's model kind
+(:func:`gpubench.cells.reference`).
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ def _worst_gap(prog: list[float], want: list[float], keep: list[bool]):
                for p, w, k in zip(prog, want, keep) if k)
 
 
-def train_numbers(kind: str, layers0: list[dict], e: ref.Edges, x, labels,
+def train_numbers(model, layers0: list[dict], e: ref.Edges, x, labels,
                   run: dict, *, lr: float,
                   detail: dict | None = None) -> dict[str, float]:
     """The three numbers of a training cell; ``run`` holds what
@@ -58,9 +61,9 @@ def train_numbers(kind: str, layers0: list[dict], e: ref.Edges, x, labels,
     ``detail``, when given, gets each leaf's reference gradient norm and
     whether the leaf counts."""
     steps = len(run["losses"])
-    ref_losses, states = ref.train(kind, layers0, e, x, labels, lr=lr,
+    ref_losses, states = ref.train(model, layers0, e, x, labels, lr=lr,
                                    steps=steps)
-    theta0 = ref.leaves(layers0)
+    theta0 = ref.leaves(layers0, model.KEYS)
     g_ref = [n / lr for n in _norms(states[0], theta0)]
     med = statistics.median(g_ref)
     keep = [g >= LEAF_FLOOR * med for g in g_ref]
@@ -76,7 +79,7 @@ def train_numbers(kind: str, layers0: list[dict], e: ref.Edges, x, labels,
             "update_gap": update_gap}
 
 
-def serve_numbers(kind: str, layers0: list[dict], e: ref.Edges, pool,
+def serve_numbers(model, layers0: list[dict], e: ref.Edges, pool,
                   plan, kept: dict) -> dict[str, float]:
     """``score_err`` over the kept requests (``kept``: request → the
     scores it was served). A request the comparison takes that was never
@@ -87,7 +90,7 @@ def serve_numbers(kind: str, layers0: list[dict], e: ref.Edges, pool,
         if got is None:
             return {"score_err": float("inf")}
         with torch.no_grad():
-            want = ref.forward(kind, layers0, e, pool[plan.panels[j]])
+            want = model.forward(layers0, e, pool[plan.panels[j]])
         if plan.subset[j]:
             want = want[plan.subset_ids(j)]
         err = float((got.float() - want).abs().max())

@@ -44,6 +44,7 @@ def readings(workload: str, seeds: list[int], dev, *, faults: int = 3,
     cfg = {**cfg, **overrides.get("config", {})}
     mix = {**mix, **overrides.get("traffic", {})}
     world = cells.World(cfg, mix["kind"], dev, cells.Spans())
+    model = cells.reference(cfg)
     e = check.edges(world.graph, dev)
     lr = cfg["optimizer"]["lr"]
     half = torch.arange(world.graph.m // 2, device=dev)
@@ -64,7 +65,7 @@ def readings(workload: str, seeds: list[int], dev, *, faults: int = 3,
                 del prog
                 cells.release(dev)
                 detail: dict = {}
-                numbers = check.train_numbers(cfg["model"], layers0, e, x,
+                numbers = check.train_numbers(model, layers0, e, x,
                                               labels, run, lr=lr,
                                               detail=detail)
                 yield {"seed": seed, "who": who, "losses": run["losses"],
@@ -77,7 +78,7 @@ def readings(workload: str, seeds: list[int], dev, *, faults: int = 3,
                                  max_batch=mix["max_batch"])
         yield {"seed": seed, "who": "program", "requests": len(plan.due),
                "errors": win["errors"],
-               **check.serve_numbers(cfg["model"], prog.layers0, e,
+               **check.serve_numbers(model, prog.layers0, e,
                                      prog.pool, plan, win["kept"])}
         ctrl = cells.ReferenceServeProgram(world, seed, mix["pool_panels"])
         kept = {}
@@ -86,7 +87,7 @@ def readings(workload: str, seeds: list[int], dev, *, faults: int = 3,
                               if plan.subset[j] else None)
             kept[j] = ctrl.flush()[rid]
         yield {"seed": seed, "who": "control",
-               **check.serve_numbers(cfg["model"], ctrl.layers0, e,
+               **check.serve_numbers(model, ctrl.layers0, e,
                                      ctrl.pool, plan, kept)}
         prog.free()
         ctrl.free()

@@ -9,7 +9,6 @@ is exercised without a card.
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import math
 import statistics
 import sys
@@ -18,7 +17,7 @@ import time
 import torch
 
 from gpubench import cells, check, trace, traffic
-from gpubench.cells import HERE, Spans, sync
+from gpubench.cells import Spans, sync
 
 
 @dataclasses.dataclass
@@ -38,12 +37,7 @@ class Record:
 
 def reader(name: str):
     """The ``read(record)`` of ``gpubench/metrics/<name>.py``."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"gpubench.metrics.{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return cells.load_module("metrics", name).read
 
 
 def metrics_of(bench: dict, cell: str, trace_on: bool) -> list[dict]:
@@ -157,11 +151,12 @@ def run_cell(name: str, seed: int, seconds: float, trace_on: bool,
     cells.release(dev)
     e = check.edges(world.graph, dev)
     t = time.perf_counter()
+    model = cells.reference(cfg)
     if kind == "train":
-        numbers = check.train_numbers(cfg["model"], layers0, e, x, labels,
+        numbers = check.train_numbers(model, layers0, e, x, labels,
                                       kept, lr=cfg["optimizer"]["lr"])
     else:
-        numbers = check.serve_numbers(cfg["model"], layers0, e, pool, plan,
+        numbers = check.serve_numbers(model, layers0, e, pool, plan,
                                       win["kept"])
     log(f"comparison: {time.perf_counter() - t:.3f} s")
     correct, checks = check.judge(numbers, cells.limits(name))

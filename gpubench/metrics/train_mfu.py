@@ -1,7 +1,8 @@
-"""train_mfu: the model's FLOPs a step (``gpubench.work``) over the
-step time of the traced run's steps before the profiled slice, as a
-share of the H100's dense TF32 peak, in percent."""
-from gpubench import work
+"""train_mfu: the model's FLOPs a step (its kind's ``step_flops``,
+counted by ``gpubench.work``'s rule) over the step time of the traced
+run's steps before the profiled slice, as a share of the H100's dense
+TF32 peak, in percent."""
+from gpubench import cells, work
 
 
 def read(rec):
@@ -10,5 +11,5 @@ def read(rec):
         return None
     seconds, steps = pre
     g = rec.world.graph
-    flops = work.STEP_FLOPS[rec.cfg["model"]](g.m, g.nnz, rec.cfg["dims"])
+    flops = cells.model_kind(rec.cfg).step_flops(g.m, g.nnz, rec.cfg)
     return 100.0 * flops / (seconds / steps) / work.PEAK_TF32_FLOPS

@@ -1,4 +1,6 @@
-"""Plain PyTorch GCN and AGNN over the graph's edge list.
+"""The shared parts of the plain PyTorch references over the graph's
+edge list: the edges, the sparse products, the row softmax, the loss
+and the SGD loop.
 
 The reference the benchmark holds the program to. It takes only what
 the benchmark made (the CSR arrays, the weights, the features, the
@@ -13,13 +15,17 @@ that shows a comparison can fail. Parameters stay float32 (the master
 copy), are cast to ``dtype`` for the products, and take their SGD
 update in float32.
 
-A model is a list of layers, each ``{"w": (d_in, d_out)}`` and for AGNN
-also ``{"beta": ()}``:
+A model is a list of layers, each a dict of parameters. Each kind's
+forward sits in a file of its own beside this one (``gcn.py``,
+``agnn.py``), which the kind's module under ``gpubench/models/`` names,
+and gives:
 
-* GCN: ``H' = Â (H W)`` with Â = D^-1/2 A D^-1/2, ReLU but after the last;
-* AGNN: ``Hn = H / ‖H‖``, ``s_p = β ⟨Hn[row_p], Hn[col_p]⟩``,
-  ``a = softmax over each destination row``, ``H' = (a·H) W``, ReLU but
-  after the last.
+* ``KEYS``: the keys of a layer's parameters, in the order of
+  :func:`leaves`;
+* ``graph_terms(e)``: what the forward works out from the graph alone
+  (GCN: Â's values), once a training run; None where it needs nothing;
+* ``forward(layers, e, x, dtype=torch.float32, terms=None)``: the logits
+  of every node in ``dtype``, working ``terms`` out where None.
 
 The edges are taken in blocks of :data:`EDGE_BLOCK`, so a gather of
 2.3 M edges at width 256 never holds more than one block.
@@ -55,13 +61,6 @@ class Edges:
             yield lo, hi
 
 
-def gcn_norm(e: Edges) -> torch.Tensor:
-    """Â's values, float32: 1/sqrt(deg(row)·deg(col)), degrees at least 1."""
-    deg_r = torch.bincount(e.rows, minlength=e.m).clamp_min(1).double()
-    deg_c = torch.bincount(e.cols, minlength=e.m).clamp_min(1).double()
-    return (1.0 / torch.sqrt(deg_r[e.rows] * deg_c[e.cols])).float()
-
-
 def aggregate(e: Edges, vals: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """``out[r] = Σ_{p in row r} vals[p] · h[col_p]``."""
     out = torch.zeros((e.m, h.shape[1]), dtype=h.dtype, device=h.device)
@@ -90,30 +89,6 @@ def row_softmax(e: Edges, s: torch.Tensor) -> torch.Tensor:
     return ex / tot[e.rows]
 
 
-def forward(kind: str, layers: list[dict], e: Edges, x: torch.Tensor,
-            dtype=torch.float32, norm: torch.Tensor | None = None):
-    """Logits of every node, in ``dtype``."""
-    h = x.to(dtype)
-    last = len(layers) - 1
-    if kind == "gcn":
-        v = (gcn_norm(e) if norm is None else norm).to(dtype)
-        for i, layer in enumerate(layers):
-            h = aggregate(e, v, h @ layer["w"].to(dtype))
-            if i < last:
-                h = torch.relu(h)
-        return h
-    if kind != "agnn":
-        raise ValueError(f"unknown model kind {kind!r}")
-    for i, layer in enumerate(layers):
-        hn = h / torch.linalg.vector_norm(h, dim=-1,
-                                          keepdim=True).clamp_min(1e-9)
-        att = row_softmax(e, edge_dots(e, hn, hn) * layer["beta"].to(dtype))
-        h = aggregate(e, att, h) @ layer["w"].to(dtype)
-        if i < last:
-            h = torch.relu(h)
-    return h
-
-
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   rows: torch.Tensor | None = None) -> torch.Tensor:
     """Mean of ``-log softmax`` at each row's label, over ``rows`` (all
@@ -124,29 +99,31 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return -lp.gather(1, labels[:, None]).mean()
 
 
-def leaves(layers: list[dict]) -> list[torch.Tensor]:
-    """The parameters in a fixed order: each layer's ``w`` then ``beta``."""
-    return [layer[k] for layer in layers for k in ("w", "beta") if k in layer]
+def leaves(layers: list[dict], keys) -> list[torch.Tensor]:
+    """The parameters in a fixed order: each layer's, in the order of
+    ``keys`` (the kind's ``KEYS``)."""
+    return [layer[k] for layer in layers for k in keys if k in layer]
 
 
-def train(kind: str, layers: list[dict], e: Edges, x: torch.Tensor,
+def train(model, layers: list[dict], e: Edges, x: torch.Tensor,
           labels: torch.Tensor, *, lr: float, steps: int,
           dtype=torch.float32, loss_rows: torch.Tensor | None = None):
-    """``steps`` full-batch SGD steps from ``layers`` (left unchanged).
+    """``steps`` full-batch SGD steps of ``model`` (a kind's reference
+    module) from ``layers`` (left unchanged).
 
     Returns ``(losses, states)``: each step's loss before its update (a
     float) and the parameters after each step (lists in
     :func:`leaves`' order, float32). ``loss_rows`` takes the loss over
     those rows only."""
-    norm = gcn_norm(e) if kind == "gcn" else None
+    terms = model.graph_terms(e)
     cur = [{k: v.detach().clone().float() for k, v in layer.items()}
            for layer in layers]
     losses, states = [], []
     for _ in range(steps):
-        params = leaves(cur)
+        params = leaves(cur, model.KEYS)
         for p in params:
             p.requires_grad_(True)
-        logits = forward(kind, cur, e, x, dtype, norm)
+        logits = model.forward(cur, e, x, dtype, terms)
         loss = cross_entropy(logits.float(), labels, loss_rows)
         grads = torch.autograd.grad(loss, params)
         losses.append(float(loss.detach()))
@@ -155,5 +132,5 @@ def train(kind: str, layers: list[dict], e: Edges, x: torch.Tensor,
                 p.sub_(lr * g.float())
                 p.requires_grad_(False)
         del logits, loss, grads
-        states.append([p.detach().clone() for p in leaves(cur)])
+        states.append([p.detach().clone() for p in leaves(cur, model.KEYS)])
     return losses, states

@@ -72,13 +72,19 @@ def test_per_layer_reader_found_by_name(metric):
 
 
 def test_configuration_files_hold_their_model():
+    from gpubench import cells
+
     for c in BENCH["configs"]:
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert cfg["source"] == c["source"]
         assert cfg["reduced"] == c["reduced"] == []
-        hidden = [cfg["hidden_channels"]] * (cfg["num_layers"] - 1)
-        assert cfg["dims"] == [cfg["num_features"], *hidden,
-                               cfg["num_classes"]]
+        # The harness draws the inputs and labels from these two.
+        assert cfg["dims"][0] == cfg["num_features"]
+        assert cfg["dims"][-1] == cfg["num_classes"]
+        if cells.model_kind(cfg).WIDTHS == "dims":
+            hidden = [cfg["hidden_channels"]] * (cfg["num_layers"] - 1)
+            assert cfg["dims"] == [cfg["num_features"], *hidden,
+                                   cfg["num_classes"]]
         assert cfg["graph"]["m"] == cfg["num_nodes"]
 
 

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from gpubench import cells, graphs
+from gpubench.reference import gcn as ref_gcn
 from gpubench.reference import gnn as ref
 
 DIMS = [12, 16, 16, 5]
@@ -48,7 +49,8 @@ def test_gcn_norm_matches_the_programs(graph):
 
     csr, _ = _port(graph)
     e = ref.Edges(graph.indptr, graph.indices, graph.m, "cpu")
-    np.testing.assert_allclose(ref.gcn_norm(e).numpy(), gcn_norm_edges(csr),
+    np.testing.assert_allclose(ref_gcn.gcn_norm(e).numpy(),
+                               gcn_norm_edges(csr),
                                rtol=1e-6)
 
 
@@ -65,12 +67,11 @@ def test_train_step_matches_the_programs_plain_path(graph, kind):
     losses = [float(train_step(model, gops, x, labels, *args, lr=0.2))
               for _ in range(2)]
     e = ref.Edges(graph.indptr, graph.indices, graph.m, "cpu")
-    want_losses, states = ref.train(kind, layers, e, x, labels, lr=0.2,
-                                    steps=2)
+    want_losses, states = ref.train(cells.reference(cfg), layers, e, x,
+                                    labels, lr=0.2, steps=2)
     np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
-    got = [model.weights[i] for i in range(len(DIMS) - 1)]
-    if kind == "agnn":
-        got = [p for i, w in enumerate(got) for p in (w, model.betas[i])]
+    got = cells.model_kind(cfg).leaves(model)
+    assert len(got) == len(states[-1])
     for g, w in zip(got, states[-1]):
         torch.testing.assert_close(g.detach(), w, rtol=1e-5, atol=1e-6)
 
@@ -84,8 +85,7 @@ def test_served_flush_matches_the_reference(graph, kind):
     model = cells.module(cfg, layers, torch.device("cpu"))
     reg = GraphRegistry(width_buckets=(16, 32), device="cpu", tune="off")
     svc = GNNService(SparseEngine(reg))
-    (svc.register_gcn if kind == "gcn" else svc.register_agnn)(
-        "m", csr, model)
+    cells.model_kind(cfg).register(svc, "m", csr, model)
     feats = [torch.randn(graph.m, DIMS[0], generator=gen) for _ in range(3)]
     ids = torch.randint(0, graph.m, (20,), generator=gen)
     rids = [svc.submit("m", f, ids if i == 2 else None)
@@ -93,7 +93,7 @@ def test_served_flush_matches_the_reference(graph, kind):
     out = svc.flush()
     e = ref.Edges(graph.indptr, graph.indices, graph.m, "cpu")
     for i, rid in enumerate(rids):
-        want = ref.forward(kind, layers, e, feats[i])
+        want = cells.reference(cfg).forward(layers, e, feats[i])
         if i == 2:
             want = want[ids]
         torch.testing.assert_close(out[rid], want, rtol=1e-4, atol=1e-5)

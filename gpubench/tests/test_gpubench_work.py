@@ -1,7 +1,7 @@
 """The yardstick's counts against hand counts."""
 import pytest
 
-from gpubench import work
+from gpubench import cells, work
 
 ARXIV_N, ARXIV_NNZ = 169_343, 2_291_338
 
@@ -34,11 +34,16 @@ def test_bound_takes_the_larger_term():
     assert work.bound_s(1.0, 3.35e12) == pytest.approx(1.0)
 
 
+def _step_flops(kind, n, nnz, dims):
+    return cells.model_kind({"model": kind}).step_flops(n, nnz,
+                                                        {"dims": dims})
+
+
 def test_gcn_step_flops_by_hand():
     n, nnz, dims = 10, 7, [3, 4, 2]
     first = 2 * (2 * n * 3 * 4) + 2 * (2 * nnz * 4)
     second = 3 * (2 * n * 4 * 2) + 2 * (2 * nnz * 2)
-    assert work.gcn_step_flops(n, nnz, dims) == first + second
+    assert _step_flops("gcn", n, nnz, dims) == first + second
 
 
 def test_agnn_step_flops_by_hand():
@@ -47,12 +52,12 @@ def test_agnn_step_flops_by_hand():
     first = 3 * (2 * nnz * 3) + 3 * (2 * n * 3 * 4)
     # layer 1 (d=4): as layer 0 plus Aᵀ, dX and dY of the SDDMM.
     second = 6 * (2 * nnz * 4) + 3 * (2 * n * 4 * 2)
-    assert work.agnn_step_flops(n, nnz, dims) == first + second
+    assert _step_flops("agnn", n, nnz, dims) == first + second
 
 
 def test_step_flops_at_the_cells_size():
     dims = [128, 256, 256, 40]
-    assert round(work.gcn_step_flops(ARXIV_N, ARXIV_NNZ, dims) / 1e9, 1) \
+    assert round(_step_flops("gcn", ARXIV_N, ARXIV_NNZ, dims) / 1e9, 1) \
         == 104.2
-    assert round(work.agnn_step_flops(ARXIV_N, ARXIV_NNZ, dims) / 1e9, 1) \
+    assert round(_step_flops("agnn", ARXIV_N, ARXIV_NNZ, dims) / 1e9, 1) \
         == 126.1

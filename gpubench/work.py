@@ -10,9 +10,9 @@ from a plan, so it stays the same whatever implements the operator:
   column).
 
 A model step's operations are the dense and sparse products its
-equations need, forward and backward (see :func:`gcn_step_flops` and
-:func:`agnn_step_flops`); elementwise work (norms, softmax, ReLU, the
-loss) is not counted.
+equations need, forward and backward, as its kind's ``step_flops``
+counts them (``gpubench/models/<kind>.py``); elementwise work (norms,
+softmax, ReLU, the loss) is not counted.
 """
 from __future__ import annotations
 
@@ -52,44 +52,6 @@ def bound_s(flops: float, nbytes: float, peak_flops: float = PEAK_TF32_FLOPS,
     return max(flops / peak_flops, nbytes / peak_bytes)
 
 
-def _dense(n: int, d_in: int, d_out: int) -> float:
+def dense_flops(n: int, d_in: int, d_out: int) -> float:
+    """``(n × d_in) @ (d_in × d_out)``: a multiply and an add each."""
     return 2.0 * n * d_in * d_out
-
-
-def gcn_step_flops(n: int, nnz: int, dims: list[int]) -> float:
-    """One full-batch GCN step, ``H' = A(v) (H W)`` a layer.
-
-    Forward: ``H W`` and the SpMM at ``d_out``. Backward: the SpMM on
-    Aᵀ at ``d_out``, ``dW = Hᵀ dY`` and, except for the first layer,
-    whose input (the features) needs no gradient, ``dH = dY Wᵀ``. The
-    edge values are constants: no SDDMM."""
-    total = 0.0
-    for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
-        dense = _dense(n, d_in, d_out)
-        total += dense * (2 if i == 0 else 3)
-        total += 2 * (2.0 * nnz * d_out)
-    return total
-
-
-def agnn_step_flops(n: int, nnz: int, dims: list[int]) -> float:
-    """One full-batch AGNN step. A layer at input width ``d``:
-    scores by SDDMM over the normalised ``H`` (``d``), the SpMM of the
-    attention over ``H`` (``d``), then ``H W``.
-
-    Backward: ``dW`` and ``d(agg) = dZ Wᵀ``; the SpMM's value gradient
-    (an SDDMM at ``d``), needed for β in every layer. From the second
-    layer on, ``H`` needs a gradient too: the SpMM on Aᵀ at ``d``
-    and both SpMMs of the SDDMM's backward at ``d``. The first layer's
-    input is the features, which need none."""
-    total = 0.0
-    for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
-        sparse = 2.0 * nnz * d_in
-        dense = _dense(n, d_in, d_out)
-        total += 2 * sparse + dense          # forward
-        total += 2 * dense + sparse          # dW, d(agg), d(attention)
-        if i > 0:
-            total += 3 * sparse              # dH through Aᵀ, dX, dY
-    return total
-
-
-STEP_FLOPS = {"gcn": gcn_step_flops, "agnn": agnn_step_flops}
